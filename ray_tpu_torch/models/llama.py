@@ -26,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.kv_cache import PagedKVLayer
 from ray_tpu_torch.ops.paged_attention import (paged_append,
                                                paged_decode_attention)
@@ -344,13 +345,14 @@ def load_flax_params(model: Llama, tree) -> Llama:
 def init_params(cfg: LlamaConfig, seed: int, device=None
                 ) -> Dict[str, torch.Tensor]:
     """Random weights at the flax init scales, drawn with a
-    ``torch.Generator`` seeded by ``seed`` on ``device``: Dense kernels
-    lecun-normal (truncated normal at 2 sigma, std sqrt(1/fan_in)
-    /0.8796), ``tok_embeddings`` normal(0.02), norm scales 1. Returns
-    a state dict in ``cfg.dtype`` (norm scales fp32) for
+    ``torch.Generator`` seeded by ``seed`` on ``device`` (the card by
+    default; ``"cpu"`` when asked): Dense kernels lecun-normal
+    (truncated normal at 2 sigma, std sqrt(1/fan_in)/0.8796),
+    ``tok_embeddings`` normal(0.02), norm scales 1. Returns a state
+    dict in ``cfg.dtype`` (norm scales fp32) for
     ``Llama.load_state_dict``. The numbers differ from ``jax.random``'s
-    for the same seed."""
-    device = torch.device("cpu" if device is None else device)
+    for the same seed, and from one device to another."""
+    device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     shapes = {k: tuple(v.shape)
               for k, v in Llama(cfg, device="meta").state_dict().items()}

@@ -1,17 +1,13 @@
 """Build and load the port's hand-written CUDA kernels (no counterpart
 in ``ray_tpu``, whose Pallas kernels compile inside ``jax.jit``).
 
-Each source in ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into its own shared library with a plain C interface,
-under ``build/ray_tpu_torch/`` at the root of the checkout, at first
-use. The library's file name carries a digest of its source and of the
-flags, so an edited source is rebuilt and a stale library is never
-loaded. Python binds the C entries with ``ctypes`` (pointers and the
-stream as ``c_void_p``, ints as ``c_int``).
-
-``build()`` starts one ``nvcc`` per source that is not built yet, all
-at once, and waits for them together; ``load()`` builds one source if
-needed and opens it. Nothing here runs at import.
+A source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into a shared library with a plain C interface, under
+``build/ray_tpu_torch/`` at the root of the checkout, at first use. The
+library's file name carries a digest of its source and of the flags,
+so an edited source is rebuilt and a stale library is never loaded.
+Python binds the C entries with ``ctypes`` (pointers and the stream as
+``c_void_p``, ints as ``c_int``). Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -22,20 +18,15 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable, Optional
+from typing import Callable, Dict
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
-
-
-def sources() -> list:
-    """Every CUDA source of the port, by file name."""
-    return sorted(p.name for p in CSRC.glob("*.cu"))
 
 
 def nvcc() -> str:
@@ -60,42 +51,25 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
-def log_path(source: str) -> Path:
-    """nvcc's own output (ptxas register and shared-memory report) of
-    the last build of ``source``."""
-    return library_path(source).with_suffix(".log")
-
-
-def build(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
-    """Compile every source in ``names`` (default: all) whose library
-    is missing, one nvcc process each, all started together. Returns
-    ``{source: library path}``; raises RuntimeError naming each source
-    that failed, with the compiler's message."""
-    names = sources() if names is None else list(names)
-    out = {n: library_path(n) for n in names}
-    todo = [n for n in names if not out[n].is_file()]
-    if not todo:
-        return out
+def _compile(source: str) -> Path:
+    """Run nvcc on ``source`` unless its library exists; raises
+    RuntimeError with the compiler's message when the build fails."""
+    path = library_path(source)
+    if path.is_file():
+        return path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    compiler = nvcc()
-    procs = {}
-    for n in todo:
-        tmp = out[n].with_suffix(f".{os.getpid()}.tmp")
-        procs[n] = (tmp, subprocess.Popen(
-            [compiler, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / n)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    failed = []
-    for n, (tmp, proc) in procs.items():
-        log, _ = proc.communicate()
-        log_path(n).write_text(log)
-        if proc.returncode != 0:
-            failed.append(f"{n} (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out[n])
-    if failed:
-        raise RuntimeError("CUDA build failed: " + "\n".join(failed))
-    return out
+    # written under a temporary name, so a cut build leaves no library
+    tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    proc = subprocess.run(
+        [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+        capture_output=True, text=True)
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed on {source} (exit "
+                           f"{proc.returncode}):\n{proc.stdout}"
+                           f"{proc.stderr}")
+    os.replace(tmp, path)
+    return path
 
 
 def load(source: str, bind: Callable[[ctypes.CDLL], None]
@@ -106,7 +80,7 @@ def load(source: str, bind: Callable[[ctypes.CDLL], None]
     with _LOCK:
         lib = _LOADED.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(build([source])[source]))
+            lib = ctypes.CDLL(str(_compile(source)))
             bind(lib)
             _LOADED[source] = lib
         return lib

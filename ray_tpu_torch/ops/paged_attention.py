@@ -211,14 +211,23 @@ def _check_decode_args(q, pages_k, pages_v, page_table, positions):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def _launch_kernel(q, pages_k, pages_v, page_table, positions):
+def load_kernel() -> ctypes.CDLL:
+    """The decode kernel's library, compiled with nvcc at first use."""
     from ray_tpu_torch.ops import _build
+    return _build.load(_SOURCE, _bind)
+
+
+def _launch_kernel(q, pages_k, pages_v, page_table, positions,
+                   split_keys: int = _SPLIT_KEYS):
+    """Launch the kernel; ``split_keys`` (keys per block of the split-K
+    pass) is left at its default everywhere but the profiling tool's
+    sweep."""
     _check_decode_args(q, pages_k, pages_v, page_table, positions)
-    lib = _build.load(_SOURCE, _bind)
+    lib = load_kernel()
     B, H, D = q.shape
     KH, n_pages, Pg, _ = pages_k.shape
     max_pages = page_table.shape[1]
-    n_splits = -(-max_pages * Pg // _SPLIT_KEYS)
+    n_splits = -(-max_pages * Pg // split_keys)
     out = torch.empty_like(q)
     # per-split partial results, merged by the kernel's second pass
     part_acc = torch.empty((B, KH, n_splits, H // KH, D),
@@ -232,7 +241,7 @@ def _launch_kernel(q, pages_k, pages_v, page_table, positions):
             page_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
             part_acc.data_ptr(), part_ml[0].data_ptr(),
             part_ml[1].data_ptr(), B, H, KH, D, n_pages, Pg, max_pages,
-            _SPLIT_KEYS, _DTYPE_CODES[q.dtype], stream)
+            split_keys, _DTYPE_CODES[q.dtype], stream)
     if err:
         raise RuntimeError(
             f"paged_decode_attention kernel launch failed: CUDA error "

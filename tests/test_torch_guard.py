@@ -107,7 +107,9 @@ def test_entry_points_raise_without_cuda_unless_cpu():
     with pytest.raises(ValueError):
         resolve_device("mps")
     assert resolve_device("cpu") == torch.device("cpu")
-    model = build_model(cfg, init_params(cfg, seed=0), "cpu")
+    with pytest.raises(NoCudaError):
+        init_params(cfg, seed=0)
+    model = build_model(cfg, init_params(cfg, seed=0, device="cpu"), "cpu")
     with pytest.raises(NoCudaError):
         LLMEngine(model)
     with pytest.raises(NoCudaError):

@@ -106,9 +106,9 @@ def test_tinyllama_preset_widths():
 
 def test_init_params_seeded_at_flax_scales():
     cfg = tl.llama_tiny(dtype=torch.float32, dim=128, hidden_dim=256)
-    a = tl.init_params(cfg, seed=3)
-    b = tl.init_params(cfg, seed=3)
-    c = tl.init_params(cfg, seed=4)
+    a = tl.init_params(cfg, seed=3, device="cpu")
+    b = tl.init_params(cfg, seed=3, device="cpu")
+    c = tl.init_params(cfg, seed=4, device="cpu")
     assert all(torch.equal(a[k], b[k]) for k in a)
     assert not torch.equal(a["tok_embeddings"], c["tok_embeddings"])
     assert abs(a["tok_embeddings"].std().item() - 0.02) < 0.002

@@ -230,7 +230,7 @@ def test_append_shape_errors(case):
 
 
 def test_build_names_libraries_by_content():
-    assert "paged_decode_attention.cu" in _build.sources()
+    assert (_build.CSRC / "paged_decode_attention.cu").is_file()
     path = _build.library_path("paged_decode_attention.cu")
     assert path.parent == _build.BUILD_DIR
     assert path.name.startswith("paged_decode_attention-")

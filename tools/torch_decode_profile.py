@@ -66,29 +66,24 @@ def k1_split_sweep(splits, seed: int) -> dict:
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
     ref = pa.paged_decode_attention_reference(q, pk, pv, pt, pos)
     out = {}
-    default = pa._SPLIT_KEYS
-    try:
-        for split in splits:
-            pa._SPLIT_KEYS = split
-            err = (pa.paged_decode_attention(q, pk, pv, pt, pos).float()
-                   - ref.float()).abs().max().item()
-            # all launches queued behind their flushes, one sync at the
-            # end: the events time the device, not the host's launch
-            events = []
-            for _ in range(50):
-                flush.zero_()
-                s = torch.cuda.Event(enable_timing=True)
-                e = torch.cuda.Event(enable_timing=True)
-                s.record()
-                pa.paged_decode_attention(q, pk, pv, pt, pos)
-                e.record()
-                events.append((s, e))
-            torch.cuda.synchronize()
-            times = [s.elapsed_time(e) for s, e in events]
-            out[split] = {"ms": sorted(times)[len(times) // 2],
-                          "max_abs_err": err}
-    finally:
-        pa._SPLIT_KEYS = default
+    for split in splits:
+        err = (pa._launch_kernel(q, pk, pv, pt, pos, split).float()
+               - ref.float()).abs().max().item()
+        # all launches queued behind their flushes, one sync at the
+        # end: the events time the device, not the host's launch
+        events = []
+        for _ in range(50):
+            flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            pa._launch_kernel(q, pk, pv, pt, pos, split)
+            e.record()
+            events.append((s, e))
+        torch.cuda.synchronize()
+        times = [s.elapsed_time(e) for s, e in events]
+        out[split] = {"ms": sorted(times)[len(times) // 2],
+                      "max_abs_err": err}
     return out
 
 
