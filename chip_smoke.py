@@ -1,5 +1,6 @@
 """End-to-end proof that the PyTorch/CUDA port (``ray_tpu_torch``)
-builds and serves on one NVIDIA GPU (written for an H100, sm_90a).
+builds, serves and trains on one NVIDIA GPU (written for an H100,
+sm_90a).
 
     python3 chip_smoke.py [--seed N] [--out results.json]
 
@@ -8,7 +9,8 @@ and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure:
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
-   limit. Builds the port's CUDA source with nvcc.
+   limit. Builds the port's CUDA sources with nvcc, one process per
+   source, all started together.
 2. Every kernel against its plain PyTorch version on the card: K1
    (``paged_decode_attention``) in fp32 over head_dim 64/128 and GQA
    groups 1/4/8 (tolerance 1e-4), with pos 0, a full window and
@@ -35,7 +37,33 @@ which raises on failure:
    Prints output tok/s, TTFT p50, time
    per output token p50 (the streamed requests) and ms per decode step
    beside the card's name and power limit.
-5. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
+5. The flash-attention kernels against their plain versions on the
+   card, each on the same inputs as its plain version: K3 (forward),
+   K4 (dQ) and K5 (dK, dV) in fp32 at T 128/256/512 (one and several
+   kv tiles), head_dim 16 (zero-padded to 64, as ``flash_attention``
+   pads it), 64 and 128, causal and not (1e-4 abs and rel); at the
+   GPT-2-124M shape (B 24, T 1024, H 12, D 64, causal) in fp32 (1e-4)
+   and bf16 (output 4e-3 + 2^-7·|ref|, gradients 1e-2 + 2^-6·|ref|).
+   Times each kernel, its plain version and the library yardstick
+   (SDPA forward, backward and forward+backward, never called by the
+   port) with CUDA events, L2 flushed before each launch, and computes
+   each kernel's bound from this run's inputs.
+6. The train step on the card against the train step on the CPU: a
+   reduced fp32 GPT-2 (2 layers, C 128, H 4, vocab 1024, T 128, batch
+   4) with flash attention, the same weights and batch on both sides,
+   3 AdamW steps: losses and grad norms within 1e-4 relative.
+7. The training main path at full width: GPT-2-124M (vocab 50304, 12
+   layers, C 768, H 12, T 1024), bf16 compute on fp32 params, random
+   weights from ``--seed``, batch 24 of ``RandomState(0)`` token ids,
+   ``adamw(3e-4, weight_decay=0.1)``, as ``bench.py`` drives the JAX
+   package: 1 warm-up step, then 10 timed steps on the fixed batch.
+   Checks that K3, K4 and K5 were each launched 12 x 11 times, that
+   every loss is finite and the last below the first, and that step
+   1's loss and grad norm agree with the same step computed on the
+   card with dense fp32-score attention (1e-2 and 2 %). Prints train
+   tokens/s, ms per step, MFU (against 989 TFLOP/s bf16) and peak
+   device memory beside the card's name and power limit.
+8. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
    line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -59,6 +87,10 @@ K1_FP32_TOL = 1e-4
 K1_BF16_ATOL, K1_BF16_RTOL = 4e-3, 2.0 ** -7
 SDPA_TOL = 2e-2                    # the yardstick rounds P to bf16
 LOGIT_SLACK = 0.05
+FLASH_FP32_TOL = 1e-4
+FLASH_BF16_O = (4e-3, 2.0 ** -7)   # one rounding of an fp32 result
+FLASH_BF16_GRAD = (1e-2, 2.0 ** -6)  # P and dS also rounded to bf16
+TRAIN_RTOL = 1e-4
 
 
 def _nvidia_smi() -> str:
@@ -395,6 +427,268 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
     return res
 
 
+# --------------------------------------------------------------------
+# Training: flash attention (K3, K4, K5) and the GPT-2 train step
+# --------------------------------------------------------------------
+
+def _flash_inputs(seed, B, T, H, D, dtype, pad_to=None):
+    g = np.random.default_rng(seed)
+    out = []
+    for _ in range(4):
+        x = torch.from_numpy(g.standard_normal((B, T, H, D)).astype(
+            np.float32)).to("cuda", dtype)
+        if pad_to:
+            x = torch.nn.functional.pad(x, (0, pad_to - D))
+        out.append(x)
+    return out
+
+
+def _flash_errors(fa, q, k, v, do, causal, scale, limits):
+    """Each of K3, K4, K5 against its plain version on the same inputs
+    (the backward kernels get the plain forward's o and lse); raises
+    past ``limits`` = {"o": (atol, rtol), "grad": (atol, rtol)}."""
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    ro, rlse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    dq = fa.flash_bwd_dq(q, k, v, ro, do, rlse, causal, scale)
+    rdq = fa.flash_bwd_dq_reference(q, k, v, ro, do, rlse, causal, scale)
+    dk, dv = fa.flash_bwd_dkv(q, k, v, ro, do, rlse, causal, scale)
+    rdk, rdv = fa.flash_bwd_dkv_reference(q, k, v, ro, do, rlse, causal,
+                                          scale)
+    torch.cuda.synchronize()
+    refs = {"o": ro, "dq": rdq, "dk": rdk, "dv": rdv}
+    if not all(bool(r.abs().max() > 0) for r in refs.values()):
+        raise AssertionError("a plain version gave all zeros")
+    return {"o": _max_err(o, ro, *limits["o"]),
+            "lse": _max_err(lse, rlse, FLASH_FP32_TOL),
+            "dq": _max_err(dq, rdq, *limits["grad"]),
+            "dk": _max_err(dk, rdk, *limits["grad"]),
+            "dv": _max_err(dv, rdv, *limits["grad"]),
+            "max_abs_ref": max(r.abs().max().item() for r in refs.values())}
+
+
+def phase_flash_kernels(fa, seed: int) -> list:
+    """K3, K4, K5 against their plain versions (fp32 small cases, then
+    the GPT-2-124M shape in fp32 and bf16), with times and bounds."""
+    fp32 = {"o": (FLASH_FP32_TOL,), "grad": (FLASH_FP32_TOL,)}
+    worst = 0.0
+    for T in (128, 256, 512):
+        for D in (16, 64, 128):
+            for causal in (True, False):
+                pad = 64 if D == 16 else None
+                q, k, v, do = _flash_inputs(seed + T + D, 2, T, 3, D,
+                                            torch.float32, pad)
+                errs = _flash_errors(fa, q, k, v, do, causal, D ** -0.5,
+                                     fp32)
+                errs.pop("max_abs_ref")
+                worst = max(worst, *errs.values())
+    print(f"phase 5: K3/K4/K5 fp32 at T 128/256/512, D 16 (padded to 64)/"
+          f"64/128, causal and not: max abs err {worst} (tol "
+          f"{FLASH_FP32_TOL})")
+
+    B, T, H, D = 24, 1024, 12, 64
+    scale = D ** -0.5
+    args = _flash_inputs(seed + 1, B, T, H, D, torch.float32)
+    err32 = _flash_errors(fa, *args, True, scale, fp32)
+    print(f"phase 5: K3/K4/K5 fp32 at B={B} T={T} H={H} D={D} causal: "
+          f"max abs err {err32} (tol {FLASH_FP32_TOL})")
+    del args
+    q, k, v, do = _flash_inputs(seed, B, T, H, D, torch.bfloat16)
+    err16 = _flash_errors(fa, q, k, v, do, True, scale,
+                          {"o": FLASH_BF16_O, "grad": FLASH_BF16_GRAD})
+    print(f"phase 5: K3/K4/K5 bf16 at the same shape: max abs err {err16} "
+          f"(tol o {FLASH_BF16_O[0]} + {FLASH_BF16_O[1]} * |ref|, grads "
+          f"{FLASH_BF16_GRAD[0]} + {FLASH_BF16_GRAD[1]} * |ref|)")
+
+    ro, rlse = fa.flash_fwd_reference(q, k, v, True, scale)
+    # library yardstick, on its own [B, H, T, D] layout
+    sq, sk, sv, sdo = (t.transpose(1, 2).contiguous()
+                       for t in (q, k, v, do))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    torch.testing.assert_close(sdpa(sq, sk, sv, is_causal=True).transpose(
+        1, 2).float(), ro.float(), rtol=SDPA_TOL, atol=SDPA_TOL)
+    gq, gk, gv = (t.clone().requires_grad_() for t in (sq, sk, sv))
+    out = sdpa(gq, gk, gv, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        o = sdpa(gq, gk, gv, is_causal=True)
+        torch.autograd.grad(o, (gq, gk, gv), sdo)
+
+    flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
+    ms = {
+        "fwd": _time_ms(lambda: fa.flash_fwd(q, k, v, True, scale), 20,
+                        flush),
+        "dq": _time_ms(lambda: fa.flash_bwd_dq(q, k, v, ro, do, rlse, True,
+                                               scale), 20, flush),
+        "dkv": _time_ms(lambda: fa.flash_bwd_dkv(q, k, v, ro, do, rlse,
+                                                 True, scale), 20, flush)}
+    plain = {
+        "fwd": _time_ms(lambda: fa.flash_fwd_reference(q, k, v, True,
+                                                       scale), 5, flush),
+        "dq": _time_ms(lambda: fa.flash_bwd_dq_reference(
+            q, k, v, ro, do, rlse, True, scale), 5, flush),
+        "dkv": _time_ms(lambda: fa.flash_bwd_dkv_reference(
+            q, k, v, ro, do, rlse, True, scale), 5, flush)}
+    lib = {"fwd": _time_ms(lambda: sdpa(sq, sk, sv, is_causal=True), 20,
+                           flush),
+           "bwd": _time_ms(lambda: torch.autograd.grad(
+               out, (gq, gk, gv), sdo, retain_graph=True), 20, flush),
+           "fwd_bwd": _time_ms(sdpa_fwd_bwd, 20, flush)}
+
+    # least work: every input read once, every output written once;
+    # flops over the visible (query, key) pairs of this causal run
+    x = q.numel() * q.element_size()
+    lse_bytes = rlse.numel() * 4
+    pairs = B * H * T * (T + 1) // 2
+    spec = {"fwd": (4 * x + lse_bytes, 4 * pairs * D),
+            "dq": (6 * x + lse_bytes, 6 * pairs * D),
+            "dkv": (7 * x + lse_bytes, 8 * pairs * D)}
+    rows = []
+    for key, name, body, lib_ms, errs in (
+            ("fwd", "flash_fwd", 91, lib["fwd"], ("o",)),
+            ("dq", "flash_bwd_dq", 204, lib["bwd"], ("dq",)),
+            ("dkv", "flash_bwd_dkv", 259, lib["bwd"], ("dk", "dv"))):
+        nbytes, flops = spec[key]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+            "replaces": f"ray_tpu/ops/flash_attention.py:{body}",
+            "launches": None,
+            "max_abs_err": max(err16[e] for e in errs),
+            "max_abs_err_fp32": max(err32[e] for e in errs),
+            "ms": ms[key], "plain_ms": plain[key],
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib_ms,
+            "shape": {"B": B, "T": T, "H": H, "D": D, "causal": True,
+                      "bytes": nbytes, "flops": flops,
+                      "dtype": "bfloat16"}})
+        print(f"phase 5: {name} bf16: kernel {ms[key]:.4f} ms, plain "
+              f"{plain[key]:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+              f"({nbytes} bytes, {flops} flops)")
+    print(f"phase 5: SDPA (is_causal) yardstick: forward {lib['fwd']:.4f}"
+          f" ms, backward {lib['bwd']:.4f} ms, forward+backward "
+          f"{lib['fwd_bwd']:.4f} ms")
+    return rows
+
+
+def _gpt2_loss(model, b):
+    from ray_tpu_torch.models.gpt2 import linear_cross_entropy
+    x, y = b["ids"][:, :-1], b["ids"][:, 1:]
+    return linear_cross_entropy(model(x, return_features=True), model.wte,
+                                y)
+
+
+def _trainer(cfg, sd, batch, device, lr):
+    from ray_tpu_torch.models.gpt2 import build_model
+    from ray_tpu_torch.train import spmd
+    opt = spmd.adamw(lr, weight_decay=0.1)
+    state = spmd.TrainState.create(build_model(cfg, sd, device), opt)
+    return state, spmd.make_train_step(_gpt2_loss, opt), spmd.put_batch(
+        batch, device)
+
+
+def phase_train_parity(seed: int) -> None:
+    """The same fp32 GPT-2 and batch trained 3 steps on the card
+    (kernels) and on the CPU (plain versions)."""
+    from ray_tpu_torch.models.gpt2 import gpt2_124m, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2_124m(n_layer=2, n_embd=128, n_head=4, vocab_size=1024,
+                    n_ctx=128, dtype=torch.float32, attention_impl="flash")
+    sd = init_params(cfg, seed, device="cpu")
+    batch = {"ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(4, 129)).astype(np.int32)}
+    runs = {}
+    for device in ("cpu", "cuda"):
+        state, step, b = _trainer(cfg, sd, batch, device, 3e-4)
+        runs[device] = []
+        for _ in range(3):
+            state, m = step(state, b)
+            runs[device].append((m["loss"].item(), m["grad_norm"].item()))
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=TRAIN_RTOL)
+    print(f"phase 6: GPT-2 fp32 train step (2 layers, C 128, H 4, vocab "
+          f"1024, T 128, batch 4), 3 AdamW steps: (loss, grad norm) card "
+          f"{runs['cuda']} == CPU {runs['cpu']} within {TRAIN_RTOL} rel")
+
+
+def phase_train_main_path(fa, seed: int, smi: str) -> dict:
+    """GPT-2-124M at batch 24, T 1024: 1 warm-up + 10 timed steps."""
+    from ray_tpu_torch.models.gpt2 import (flops_per_token, gpt2_124m,
+                                           init_params)
+    cfg = gpt2_124m()
+    B, T, n_steps = 24, 1024, 10
+    batch = {"ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(B, T + 1), dtype=np.int32)}
+    t0 = time.monotonic()
+    sd = init_params(cfg, seed, device="cuda")
+
+    # step 1 with dense fp32-score attention: what the kernels' step 1
+    # is held to
+    state, step, b = _trainer(
+        dataclasses.replace(cfg, attention_impl="dense_fp32"), sd, batch,
+        "cuda", 3e-4)
+    state, m = step(state, b)
+    ref_loss, ref_norm = m["loss"].item(), m["grad_norm"].item()
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    state, step, b = _trainer(cfg, sd, batch, "cuda", 3e-4)
+    del sd
+    torch.cuda.synchronize()
+    t_setup = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    for kern in kernels:
+        kern.launches = 0
+    state, m = step(state, b)                    # warm-up: step 1
+    losses = [m["loss"]]
+    first_norm = m["grad_norm"].item()
+    ts = time.monotonic()
+    for _ in range(n_steps):
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    last = m["loss"].item()                      # waits for the device
+    dt = time.monotonic() - ts
+    launches = [kern.launches for kern in kernels]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    want = cfg.n_layer * (n_steps + 1)
+    if launches != [want] * 3:
+        raise AssertionError(f"K3/K4/K5 launches {launches} != "
+                             f"{cfg.n_layer} layers x {n_steps + 1} steps")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    if abs(losses[0] - ref_loss) > 1e-2 or \
+            abs(first_norm - ref_norm) > 0.02 * ref_norm:
+        raise AssertionError(
+            f"step 1 (loss {losses[0]}, grad norm {first_norm}) vs dense "
+            f"fp32 attention (loss {ref_loss}, grad norm {ref_norm})")
+    tok_s = B * T * n_steps / dt
+    res = {"card": smi, "model": f"gpt2_124m bf16 on fp32 params (random "
+           f"weights, seed {seed})", "batch": B, "seq": T,
+           "timed_steps": n_steps, "train_tok_s": tok_s,
+           "step_ms": dt / n_steps * 1e3,
+           "mfu": tok_s * flops_per_token(cfg, T) / BF16_FLOPS,
+           "peak_mem_gb": peak / 1e9, "losses": losses,
+           "step1_loss": losses[0], "step1_loss_dense_fp32": ref_loss,
+           "step1_grad_norm": first_norm,
+           "step1_grad_norm_dense_fp32": ref_norm,
+           "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
+                                 "flash_bwd_dkv"), launches)),
+           "setup_s": t_setup}
+    print(f"phase 7: GPT-2-124M train, batch {B} x T {T}, bf16 on fp32 "
+          f"params, on {smi}: {tok_s:.1f} tokens/s, {res['step_ms']:.2f} "
+          f"ms/step, MFU {res['mfu']:.4f} (989 TFLOP/s bf16), peak memory "
+          f"{res['peak_mem_gb']:.2f} GB; loss {losses[0]:.4f} -> "
+          f"{last:.4f} over {n_steps + 1} steps; step 1 vs dense fp32 "
+          f"attention: loss {losses[0]:.5f} / {ref_loss:.5f}, grad norm "
+          f"{first_norm:.5f} / {ref_norm:.5f}; K3/K4/K5 launched "
+          f"{launches} = {cfg.n_layer} layers x {n_steps + 1} steps")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -405,6 +699,8 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
         return 2
     from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops import flash_attention as fa
     from ray_tpu_torch.ops import paged_attention as pa
 
     t0 = time.monotonic()
@@ -415,8 +711,10 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}")
     print(smi)
     tb = time.monotonic()
+    _build.compile_all([pa._SOURCE, fa._SOURCE])
     pa.load_kernel()
-    print(f"phase 1: built {pa._SOURCE} for sm_90a in "
+    fa.load_kernel()
+    print(f"phase 1: built {pa._SOURCE} and {fa._SOURCE} for sm_90a in "
           f"{time.monotonic() - tb:.1f} s")
 
     k1 = phase_kernels(pa, args.seed)
@@ -425,11 +723,21 @@ def main(argv=None) -> int:
     print(f"phase 3 done at {time.monotonic() - t0:.1f} s")
     main_path = phase_main_path(tl, pa, args.seed, smi)
     k1["launches"] = main_path["k1_launches"]
-    kernels = {"kernels": [k1]}
+    print(f"phase 4 done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    flash = phase_flash_kernels(fa, args.seed)
+    print(f"phase 5 done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    phase_train_parity(args.seed)
+    print(f"phase 6 done at {time.monotonic() - t0:.1f} s")
+    train = phase_train_main_path(fa, args.seed, smi)
+    for row in flash:
+        row["launches"] = train["launches"][row["name"]]
+    kernels = {"kernels": [k1] + flash}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kernels": kernels["kernels"],
-                       "main_path": main_path,
+                       "main_path": main_path, "train_main_path": train,
                        "total_s": time.monotonic() - t0}, f, indent=1)
     print(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps(kernels))

@@ -21,6 +21,8 @@ from typing import List, NamedTuple, Optional, Sequence
 
 import torch
 
+from ray_tpu_torch._device import resolve_device
+
 
 class PagedKVLayer(NamedTuple):
     """Per-layer view of the paged KV pool handed to the attention
@@ -65,8 +67,11 @@ def init_kv_pool(cfg, n_pages: int, page_size: int,
                  kv_dtype: str = "fp",
                  device: Optional[torch.device] = None):
     """One page pool per layer, ``[(pages_k, pages_v), ...]`` in
-    ``cfg.dtype``, zero-filled. Page 0 is reserved (null)."""
+    ``cfg.dtype``, zero-filled, on ``device`` (the card by default,
+    ``"cpu"`` when asked; raises ``NoCudaError`` without a card). Page
+    0 is reserved (null)."""
     _check_kv_dtype(kv_dtype)
+    device = resolve_device(device)
     shape = (cfg.n_kv_heads, n_pages, page_size, cfg.head_dim)
     return [(torch.zeros(shape, dtype=cfg.dtype, device=device),
              torch.zeros(shape, dtype=cfg.dtype, device=device))

@@ -3,7 +3,8 @@ in ``ray_tpu``, whose Pallas kernels compile inside ``jax.jit``).
 
 A source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, under
-``build/ray_tpu_torch/`` at the root of the checkout, at first use. The
+``build/ray_tpu_torch/`` at the root of the checkout, at first use
+(``compile_all`` starts one nvcc per source, all at once). The
 library's file name carries a digest of its source and of the flags,
 so an edited source is rebuilt and a stale library is never loaded.
 Python binds the C entries with ``ctypes`` (pointers and the stream as
@@ -18,7 +19,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict
+from typing import Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
@@ -51,25 +52,54 @@ def library_path(source: str) -> Path:
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 
 
-def _compile(source: str) -> Path:
-    """Run nvcc on ``source`` unless its library exists; raises
-    RuntimeError with the compiler's message when the build fails."""
+def _start(source: str):
+    """Start nvcc on ``source`` unless its library exists: ``None``, or
+    (library path, temporary output, process)."""
     path = library_path(source)
     if path.is_file():
-        return path
+        return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     # written under a temporary name, so a cut build leaves no library
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
+    proc = subprocess.Popen(
         [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-        capture_output=True, text=True)
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return path, tmp, proc
+
+
+def _finish(source: str, job) -> Path:
+    """Wait for a started build; raises RuntimeError with the
+    compiler's message when it failed."""
+    path, tmp, proc = job
+    out, err = proc.communicate()
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {source} (exit "
-                           f"{proc.returncode}):\n{proc.stdout}"
-                           f"{proc.stderr}")
+                           f"{proc.returncode}):\n{out}{err}")
     os.replace(tmp, path)
     return path
+
+
+def _compile(source: str) -> Path:
+    job = _start(source)
+    return library_path(source) if job is None else _finish(source, job)
+
+
+def compile_all(sources: Iterable[str]) -> None:
+    """Build every source of ``sources`` that has no library yet, one
+    nvcc per source, all started together; raises RuntimeError naming
+    every source that failed, after all builds have ended."""
+    with _LOCK:
+        jobs = [(s, _start(s)) for s in sources]
+        errors = []
+        for source, job in jobs:
+            if job is not None:
+                try:
+                    _finish(source, job)
+                except RuntimeError as e:
+                    errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
 
 
 def load(source: str, bind: Callable[[ctypes.CDLL], None]

@@ -1,5 +1,5 @@
 """Import boundary of the port: ``ray_tpu_torch``, ``chip_smoke.py``
-and ``tools/torch_decode_profile.py`` import no JAX (``jax``,
+and the ``tools/torch_*.py`` profilers import no JAX (``jax``,
 ``jaxlib``, ``flax``) and nothing of the JAX package ``ray_tpu``; the
 port's entry points run on the card unless the caller asks for the
 CPU.
@@ -26,9 +26,9 @@ FORBIDDEN = {"jax", "jaxlib", "flax", "ray_tpu"}
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [
-        ROOT / "chip_smoke.py", ROOT / "tools" / "torch_decode_profile.py"]
-    assert len(files) > 10
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + sorted(
+        (ROOT / "tools").glob("torch_*.py"))
+    assert len(files) > 16
     return files
 
 
@@ -87,7 +87,11 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
     for name in ("ray_tpu_torch.serve.engine", "ray_tpu_torch.serve.llm",
                  "ray_tpu_torch.ops.paged_attention",
                  "ray_tpu_torch.ops._build",
-                 "ray_tpu_torch.models.llama"):
+                 "ray_tpu_torch.models.llama",
+                 "ray_tpu_torch.ops.flash_attention",
+                 "ray_tpu_torch.ops.attention",
+                 "ray_tpu_torch.models.gpt2",
+                 "ray_tpu_torch.train.spmd"):
         assert name in res["modules"]
 
 
@@ -95,9 +99,12 @@ def test_entry_points_raise_without_cuda_unless_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is visible: the default device works")
     from ray_tpu_torch._device import NoCudaError, resolve_device
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.models.kv_cache import init_kv_pool
     from ray_tpu_torch.models.llama import build_model, init_params, \
         llama_tiny
     from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.train.spmd import put_batch
     from ray_tpu_torch.serve.llm import LlamaDeployment
     cfg = llama_tiny(dtype=torch.float32)
     with pytest.raises(NoCudaError):
@@ -118,6 +125,20 @@ def test_entry_points_raise_without_cuda_unless_cpu():
     assert eng.device.type == "cpu"
     dep = LlamaDeployment(cfg, device="cpu")
     assert dep.model.tok_embeddings.device.type == "cpu"
+    with pytest.raises(NoCudaError):
+        init_kv_pool(cfg, 4, 8)
+    assert init_kv_pool(cfg, 4, 8, device="cpu")[0][0].device.type == "cpu"
+    gcfg = gpt2.gpt2_tiny(dtype=torch.float32)
+    with pytest.raises(NoCudaError):
+        gpt2.init_params(gcfg, seed=0)
+    sd = gpt2.init_params(gcfg, seed=0, device="cpu")
+    with pytest.raises(NoCudaError):
+        gpt2.build_model(gcfg, sd)
+    assert gpt2.build_model(gcfg, sd, "cpu").wte.device.type == "cpu"
+    batch = {"ids": torch.zeros(2, 9, dtype=torch.int32)}
+    with pytest.raises(NoCudaError):
+        put_batch(batch)
+    assert put_batch(batch, "cpu")["ids"].device.type == "cpu"
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

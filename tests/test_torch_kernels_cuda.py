@@ -12,11 +12,21 @@ version sum in different orders, and the kernel multiplies q by
 1/sqrt(D) before the dot product); bf16 inputs 4e-3 abs plus 2^-7 rel
 (both compute in fp32 and round the output to bf16 once, so they may
 differ by one bf16 ulp, at most 2^-7 of the value).
+
+Flash attention (K3 forward, K4 dQ, K5 dK/dV): fp32 within 1e-4 abs
+and rel of the plain versions; bf16 at the GPT-2-124M shape: the
+output within 4e-3 + 2^-7·|ref| (one rounding of an fp32 result, as
+K1), the gradients within 1e-2 + 2^-6·|ref| (they also round P and dS
+to bf16 before the products, and the kernel rounds P under its running
+maximum while the plain version uses the row's final one).
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from ray_tpu_torch.ops import flash_attention as fa
 from ray_tpu_torch.ops import paged_attention as pa
 
 pytestmark = pytest.mark.cuda
@@ -166,3 +176,190 @@ def test_bf16_deployment_on_card(dev):
                 == steps * cfg.n_layers)
     finally:
         dep.shutdown()
+
+
+# --------------------------------------------------------------------
+# Flash attention: K3, K4, K5
+# --------------------------------------------------------------------
+
+def _flash_case(seed, B, T, H, D, dtype, dev, Tk=None):
+    g = np.random.default_rng(seed)
+    shapes = [(B, T, H, D), (B, Tk or T, H, D), (B, Tk or T, H, D),
+              (B, T, H, D)]
+    return [torch.from_numpy(g.standard_normal(s).astype(np.float32)).to(
+        dev, dtype) for s in shapes]
+
+
+def _flash_all(q, k, v, do, causal, scale, kernel):
+    if kernel:
+        o, lse = fa.flash_fwd(q, k, v, causal, scale)
+        dq = fa.flash_bwd_dq(q, k, v, o, do, lse, causal, scale)
+        dk, dv = fa.flash_bwd_dkv(q, k, v, o, do, lse, causal, scale)
+    else:
+        o, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+        dq = fa.flash_bwd_dq_reference(q, k, v, o, do, lse, causal, scale)
+        dk, dv = fa.flash_bwd_dkv_reference(q, k, v, o, do, lse, causal,
+                                            scale)
+    return o, lse, dq, dk, dv
+
+
+@pytest.mark.parametrize("T,D,causal", [
+    (128, 64, True), (128, 64, False), (256, 64, True), (512, 64, False),
+    (256, 128, True), (512, 128, True), (128, 128, False)])
+def test_flash_kernels_match_plain_fp32(dev, T, D, causal):
+    q, k, v, do = _flash_case(T + D, 2, T, 3, D, torch.float32, dev)
+    scale = 1 / D ** 0.5
+    out = _flash_all(q, k, v, do, causal, scale, kernel=True)
+    torch.cuda.synchronize()
+    ref = _flash_all(q, k, v, do, causal, scale, kernel=False)
+    for name, a, b in zip(("o", "lse", "dq", "dk", "dv"), out, ref):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("T,D,causal", [
+    (128, 64, True), (512, 64, False), (256, 128, True), (256, 128, False)])
+def test_flash_kernels_match_plain_bf16(dev, T, D, causal):
+    """Every bf16 instantiation (D 64 and 128) at the bf16 limits."""
+    q, k, v, do = _flash_case(T * D, 2, T, 3, D, torch.bfloat16, dev)
+    out = _flash_all(q, k, v, do, causal, 1 / D ** 0.5, kernel=True)
+    ref = _flash_all(q, k, v, do, causal, 1 / D ** 0.5, kernel=False)
+    limits = [(4e-3, 2 ** -7), (1e-4, 1e-4)] + [(1e-2, 2 ** -6)] * 3
+    for name, a, b, (atol, rtol) in zip(("o", "lse", "dq", "dk", "dv"),
+                                        out, ref, limits):
+        assert a.dtype == b.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_kernels_cross_length_non_causal(dev):
+    q, k, v, do = _flash_case(4, 1, 128, 2, 64, torch.float32, dev, Tk=384)
+    out = _flash_all(q, k, v, do, False, 0.125, kernel=True)
+    ref = _flash_all(q, k, v, do, False, 0.125, kernel=False)
+    for a, b in zip(out, ref):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_kernels_gpt2_shape_bf16(dev):
+    """The GPT-2-124M attention shape (B 24, T 1024, H 12, D 64)."""
+    q, k, v, do = _flash_case(1, 24, 1024, 12, 64, torch.bfloat16, dev)
+    out = _flash_all(q, k, v, do, True, 0.125, kernel=True)
+    ref = _flash_all(q, k, v, do, True, 0.125, kernel=False)
+    limits = [(4e-3, 2 ** -7), (1e-4, 1e-4)] + [(1e-2, 2 ** -6)] * 3
+    for name, a, b, (atol, rtol) in zip(("o", "lse", "dq", "dk", "dv"),
+                                        out, ref, limits):
+        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
+                                   atol=atol, msg=lambda m: f"{name}: {m}")
+
+
+def test_flash_attention_on_strided_views_and_padded_head(dev):
+    """q, k, v as column views of one fused projection (row stride 3C)
+    with head_dim 16, padded to 64 by the wrapper; gradients through
+    the kernels equal those of the dense fp32 path."""
+    from ray_tpu_torch.ops.attention import dense_attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = np.random.default_rng(2)
+    B, T, H, D = 2, 256, 4, 16
+    x = g.standard_normal((B, T, 3 * H * D)).astype(np.float32)
+    grads = []
+    for kernel in (True, False):
+        qkv = torch.tensor(x, device=dev, requires_grad=True)
+        q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+        o = (fa.flash_attention(q, k, v) if kernel else
+             dense_attention(q, k, v, precision="highest"))
+        (o.float() ** 2).sum().backward()
+        grads.append((o.detach(), qkv.grad))
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(grads[0][1], grads[1][1], rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_flash_launch_counters_count_kernel_launches_only(dev):
+    q, k, v, do = _flash_case(6, 1, 128, 2, 64, torch.float32, dev)
+    q.requires_grad_(True)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o = fa.flash_attention(q, k, v)
+    o.backward(do)
+    _flash_all(q.detach(), k, v, do, True, 0.125, kernel=False)
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride", "length",
+                                 "cross_causal", "mixed"])
+def test_flash_kernels_refuse_what_they_do_not_take(dev, bad):
+    q, k, v, _ = _flash_case(8, 1, 128, 2, 64, torch.float32, dev)
+    causal = True
+    if bad == "head_dim":
+        q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
+    elif bad == "dtype":
+        q, k, v = q.half(), k.half(), v.half()
+    elif bad == "stride":
+        q = q.transpose(2, 3).contiguous().transpose(2, 3)
+    elif bad == "length":
+        q, k, v = (t[:, :96] for t in (q, k, v))
+    elif bad == "cross_causal":
+        k, v = (torch.cat([t, t], dim=1) for t in (k, v))
+    else:
+        k = k.bfloat16()
+    with pytest.raises(ValueError):
+        fa.flash_fwd(q, k, v, causal, 0.125)
+
+
+def _gpt2_loss(model, b):
+    from ray_tpu_torch.models.gpt2 import linear_cross_entropy
+    x, y = b["ids"][:, :-1], b["ids"][:, 1:]
+    return linear_cross_entropy(model(x, return_features=True), model.wte,
+                                y)
+
+
+def _train(cfg, sd, batch, dev, steps):
+    from ray_tpu_torch.models.gpt2 import build_model
+    from ray_tpu_torch.train import spmd
+    opt = spmd.adamw(1e-3, weight_decay=0.1)
+    state = spmd.TrainState.create(build_model(cfg, sd, dev), opt)
+    step = spmd.make_train_step(_gpt2_loss, opt)
+    b = spmd.put_batch(batch, dev)
+    out = []
+    for _ in range(steps):
+        state, m = step(state, b)
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+    return out
+
+
+def test_gpt2_train_step_fp32_card_matches_cpu(dev):
+    from ray_tpu_torch.models.gpt2 import gpt2_tiny, init_params
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = gpt2_tiny(n_ctx=128, dtype=torch.float32, attention_impl="flash")
+    sd = init_params(cfg, 0, "cpu")
+    batch = {"ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 129)).astype(np.int32)}
+    before = fa.flash_bwd_dkv.launches
+    card = _train(cfg, sd, batch, dev, 3)
+    assert fa.flash_bwd_dkv.launches - before == 3 * cfg.n_layer
+    cpu = _train(cfg, sd, batch, "cpu", 3)
+    np.testing.assert_allclose(card, cpu, rtol=1e-4)
+
+
+def test_gpt2_bf16_train_step_on_card(dev):
+    from ray_tpu_torch.models.gpt2 import gpt2_tiny, init_params
+    cfg = gpt2_tiny(n_ctx=256, n_embd=256, n_head=4, vocab_size=512)
+    sd = init_params(cfg, 1, dev)
+    batch = {"ids": np.random.RandomState(1).randint(
+        0, cfg.vocab_size, (4, 257)).astype(np.int32)}
+    counts = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq,
+                                   fa.flash_bwd_dkv)]
+    flash = _train(cfg, sd, batch, dev, 3)
+    assert [f.launches - c for f, c in zip(
+        (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv), counts)] == \
+        [3 * cfg.n_layer] * 3
+    losses = [m[0] for m in flash]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    dense = _train(dataclasses.replace(cfg, attention_impl="dense_fp32"),
+                   sd, batch, dev, 1)
+    assert abs(flash[0][0] - dense[0][0]) < 1e-2
+    assert abs(flash[0][1] - dense[0][1]) < 0.02 * dense[0][1]

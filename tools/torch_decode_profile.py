@@ -30,6 +30,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -96,11 +97,12 @@ def _wall_s(fn, n: int) -> float:
     return time.monotonic() - t0
 
 
-def _profile(fn, n: int) -> dict:
+def _profile(fn, n: int, top: Optional[int] = 12) -> dict:
     """Per call of ``fn`` over ``n`` calls: wall time without the
     profiler, then the device's kernel time under ``torch.profiler``
     (which slows the host, so the idle share is taken against the
-    unprofiled wall time)."""
+    unprofiled wall time); the ``top`` kernels by device time (all of
+    them for ``None``)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
         fn()
@@ -108,20 +110,23 @@ def _profile(fn, n: int) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall_profiled = _wall_s(fn, n)
+    # device events, less the device-side spans of user annotations
+    # (e.g. ``Optimizer.step``), which overlap the kernels they cover
     kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.is_user_annotation]
     busy_us = sum(e.device_time_total for e in kernels)
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     return {"wall_ms": wall / n * 1e3,
             "wall_ms_profiled": wall_profiled / n * 1e3,
             "device_busy_ms": busy_us / n / 1e3,
             "idle_share": 1 - busy_us / 1e6 / wall,
             "kernel_launches": len(kernels) / n,
             "top_kernels_ms": [(name[:90], us / n / 1e3)
-                               for name, us in top]}
+                               for name, us in ranked]}
 
 
 def main(argv=None) -> int:
