@@ -9,34 +9,64 @@ and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure:
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
-   limit. Builds the port's CUDA sources with nvcc, one process per
-   source, all started together.
+   limit. Builds the port's CUDA sources (K1, K2, K3-K5) with nvcc, one
+   process per source, all started together.
 2. Every kernel against its plain PyTorch version on the card: K1
    (``paged_decode_attention``) in fp32 over head_dim 64/128 and GQA
    groups 1/4/8 (tolerance 1e-4), with pos 0, a full window and
    null-page slots; in fp32 at the TinyLlama-1.1B decode shape with
    positions on each side of the split-K boundaries (1e-4); then at
    that shape in bf16 (4e-3 + one bf16 ulp, 2^-7, of the value: both
-   round an fp32 result to bf16 once). Times the
-   kernel, the plain version and one library call (SDPA over the
-   pre-gathered window, a yardstick the port never calls) with CUDA
-   events, L2 flushed before each launch, and computes the kernel's
-   bound from this run's inputs.
+   round an fp32 result to bf16 once). Then K2 (int8 pages with
+   per-page scales: pages from integers(-127, 128), scales from
+   uniform(0.1, 2.0)) in the same cases, fp32 q at 1e-4 and bf16 q at
+   the TinyLlama shape at 4e-3 + 2^-7·|ref|. Times each kernel, its
+   plain version and one library call (SDPA over the window gathered
+   beforehand — for K2 gathered and dequantized to bf16 — a yardstick
+   the port never calls) with CUDA events, L2 flushed before each
+   launch, and computes each kernel's bound from this run's inputs.
 3. Engine on the card against the engine on the CPU: one reduced fp32
    model with the same weights on both, 4 prompts on and off page
    boundaries, 16 greedy tokens each — the streams must be identical.
+   Then the same with ``kv_dtype="int8", prefix_cache=True`` (K2 on
+   the card) over three waves: the 4 prompts, the 16-token prompt
+   again (fully cached and page-aligned: the copy-on-write path), and
+   a prompt sharing the 45-token prompt's first page — identical
+   streams, 2 hit admissions, both engines leak-free (allocator
+   occupancy equals the cache's pages, tree invariants hold).
 4. The main path at full width: ``LlamaDeployment`` with the
    TinyLlama-1.1B config (bf16, random weights from ``--seed``),
    16 slots, 64-token pages. After one warm-up request it answers 16
    requests (prompts of 16-1536 tokens, 64 new tokens each; 4 through
    ``stream``, 12 through ``generate_batch``) and checks every request
    got 64 tokens, that K1 was launched once per layer on every decode
-   step, and, teacher-forced through the T > 1 gather path, that each
+   step and K2 never, and, teacher-forced through the T > 1 gather path, that each
    generated token of 2 requests is the top logit or within 0.05 of
    it, both in bf16 and with the same bf16 weights evaluated in fp32.
    Prints output tok/s, TTFT p50, time
    per output token p50 (the streamed requests) and ms per decode step
    beside the card's name and power limit.
+4b. The int8 KV + prefix-cache main path at full width:
+   ``LlamaDeployment(tinyllama_1_1b(), kv_dtype="int8",
+   prefix_cache=True)``, 16 slots, 64-token pages, 513 pages (full
+   residency), bf16 random weights from ``--seed``, one warm-up
+   request. Two waves of 8 requests, 64 new tokens each, the second
+   submitted after the first finished: 4 prompts behind one shared
+   1024-token system prompt (own 16-512-token tails), page-aligned
+   prompts of 512 and 1024 tokens, 2 random 16-1536-token prompts;
+   then 4 more behind the system prompt, exact repeats of the two
+   page-aligned prompts (the COW path) and 2 random ones; 4 of wave 1
+   through ``stream``. Checks every request got 64 tokens, K2 launched
+   once per layer on every decode step and K1 never, wave 2's hit
+   tokens equal to the count computed from the prompts (4 x 1024 +
+   511 + 1023 = 5630) over 6 hit admissions, the pool leak-free at
+   quiescence, and, teacher-forced, that each generated token of 2
+   wave-2 requests (a prefix hit and a COW repeat) is within 0.1 of
+   the top logit, both for the bf16 weights evaluated in fp32 over an
+   fp pool and for the bf16 model over a fresh int8 pool. Prints
+   output tok/s, TTFT p50 of each wave, ms per decode step on the int8
+   pool, the pool's page and total bytes against an fp pool's, and the
+   hit tokens.
 5. The flash-attention kernels against their plain versions on the
    card, each on the same inputs as its plain version: K3 (forward),
    K4 (dQ) and K5 (dK, dV) in fp32 at T 128/256/512 (one and several
@@ -63,8 +93,8 @@ which raises on failure:
    card with dense fp32-score attention (1e-2 and 2 %). Prints train
    tokens/s, ms per step, MFU (against 989 TFLOP/s bf16) and peak
    device memory beside the card's name and power limit.
-8. The ``{"kernels": [...]}`` line, then the ``{"ok": true, ...}``
-   line.
+8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5), then the
+   ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
 """
@@ -87,10 +117,12 @@ K1_FP32_TOL = 1e-4
 K1_BF16_ATOL, K1_BF16_RTOL = 4e-3, 2.0 ** -7
 SDPA_TOL = 2e-2                    # the yardstick rounds P to bf16
 LOGIT_SLACK = 0.05
+INT8_LOGIT_SLACK = 0.1             # + one int8 step (s/254) per element
 FLASH_FP32_TOL = 1e-4
 FLASH_BF16_O = (4e-3, 2.0 ** -7)   # one rounding of an fp32 result
 FLASH_BF16_GRAD = (1e-2, 2.0 ** -6)  # P and dS also rounded to bf16
 TRAIN_RTOL = 1e-4
+SPIN_CYCLES = 4_000_000            # ~2 ms at the H100's 1.6-2 GHz SM clock
 
 
 def _nvidia_smi() -> str:
@@ -104,12 +136,18 @@ def _nvidia_smi() -> str:
 def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
     """Median device time of ``fn`` over ``iters`` runs, CUDA events,
     with L2 (50 MB) evicted before each run: in a real decode step
-    every layer's pages are cold."""
+    every layer's pages are cold. A ~2 ms spin kernel after each flush
+    keeps the device behind the host, so the start event does not fire
+    while the host is still inside the wrapper (a decode wrapper call
+    can cost the host longer than the flush and the kernel take the
+    device): the events time the device's work, not the host's
+    launch."""
     starts = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(iters)]
     fn()
     for s, e in zip(starts, ends):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s.record()
         fn()
         e.record()
@@ -119,10 +157,22 @@ def _time_ms(fn, iters: int, flush: torch.Tensor) -> float:
 
 
 def _decode_case(seed, B, H, KH, D, Pg, max_pages, n_pages, dtype,
-                 positions=None, null_rows=()):
+                 positions=None, null_rows=(), int8=False):
+    """Decode-kernel inputs from ``seed`` on the card: (q, pages_k,
+    pages_v, page_table, positions), pages in ``dtype`` from a standard
+    normal; with ``int8``, int8 pages from integers(-127, 128) and
+    their per-page scales from uniform(0.1, 2.0) appended."""
     g = np.random.default_rng(seed)
-    pk = g.standard_normal((KH, n_pages, Pg, D)).astype(np.float32)
-    pv = g.standard_normal((KH, n_pages, Pg, D)).astype(np.float32)
+    shape, sshape = (KH, n_pages, Pg, D), (KH, n_pages, 1)
+    if int8:
+        pk, pv = (g.integers(-127, 128, shape).astype(np.int8)
+                  for _ in range(2))
+        scales = [g.uniform(0.1, 2.0, sshape).astype(np.float32)
+                  for _ in range(2)]
+    else:
+        pk, pv = (g.standard_normal(shape).astype(np.float32)
+                  for _ in range(2))
+        scales = []
     pt = (g.permutation(n_pages - 1)[:B * max_pages] + 1).reshape(
         B, max_pages).astype(np.int32)
     for b in null_rows:
@@ -131,11 +181,13 @@ def _decode_case(seed, B, H, KH, D, Pg, max_pages, n_pages, dtype,
         positions = g.integers(0, max_pages * Pg, size=B)
     q = g.standard_normal((B, H, D)).astype(np.float32)
     dev = torch.device("cuda")
+    page_dtype = torch.int8 if int8 else dtype
     return (torch.from_numpy(q).to(dev, dtype),
-            torch.from_numpy(pk).to(dev, dtype),
-            torch.from_numpy(pv).to(dev, dtype),
+            torch.from_numpy(pk).to(dev, page_dtype),
+            torch.from_numpy(pv).to(dev, page_dtype),
             torch.from_numpy(pt).to(dev),
-            torch.from_numpy(np.asarray(positions, np.int32)).to(dev))
+            torch.from_numpy(np.asarray(positions, np.int32)).to(dev),
+            *(torch.from_numpy(a).to(dev) for a in scales))
 
 
 def _max_err(out, ref, atol, rtol=None) -> float:
@@ -149,21 +201,28 @@ def _max_err(out, ref, atol, rtol=None) -> float:
     return err.max().item()
 
 
-def phase_kernels(pa, seed: int) -> dict:
-    """K1 against its plain version (fp32 cases, then the TinyLlama
-    decode shape in bf16), with times and the bound."""
+def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
+    """K1 (fp pages), or K2 with ``int8`` (int8 pages with per-page
+    scales), against its plain version: fp32 cases, the TinyLlama decode
+    shape across the split-K boundaries in fp32, then that shape with
+    bf16 q, with times, the SDPA yardstick and the bound."""
+    name = "K2" if int8 else "K1"
+    # K1 keeps the inputs of earlier runs; K2 draws its own
+    seeds = (seed + 7, seed + 8, seed + 9) if int8 else (seed, seed + 1,
+                                                         seed)
     for rep in (1, 4, 8):
         for D in (64, 128):
-            args = _decode_case(seed + rep * 10 + D, 3, 2 * rep, 2, D, 16,
-                                4, 40, torch.float32)
+            args = _decode_case(seeds[0] + rep * 10 + D, 3, 2 * rep, 2, D,
+                                16, 4, 40, torch.float32, int8=int8)
             _max_err(pa.paged_decode_attention(*args),
                      pa.paged_decode_attention_reference(*args),
                      K1_FP32_TOL)
-    args = _decode_case(seed, 4, 8, 2, 64, 8, 3, 32, torch.float32,
-                        positions=[0, 3 * 8 - 1, 5, 12], null_rows=(2,))
+    args = _decode_case(seeds[0], 4, 8, 2, 64, 8, 3, 32, torch.float32,
+                        positions=[0, 3 * 8 - 1, 5, 12], null_rows=(2,),
+                        int8=int8)
     _max_err(pa.paged_decode_attention(*args),
              pa.paged_decode_attention_reference(*args), K1_FP32_TOL)
-    print("phase 2: K1 fp32 cases (rep 1/4/8, D 64/128, pos 0, full "
+    print(f"phase 2: {name} fp32 cases (rep 1/4/8, D 64/128, pos 0, full "
           f"window, null page) agree within {K1_FP32_TOL}")
 
     B, H, KH, D, Pg, max_pages = 16, 32, 4, 64, 64, 32
@@ -173,30 +232,41 @@ def phase_kernels(pa, seed: int) -> dict:
     edges = [0, split - 2, split - 1, split, split + 1, 2 * split - 1,
              2 * split, Pg - 1, Pg, 7 * split - 1, 7 * split,
              max_pages * Pg - 1]
-    rng = np.random.default_rng(seed + 1)
+    rng = np.random.default_rng(seeds[1])
     positions = edges + rng.integers(0, max_pages * Pg,
                                      B - len(edges)).tolist()
-    args = _decode_case(seed + 1, B, H, KH, D, Pg, max_pages,
+    args = _decode_case(seeds[1], B, H, KH, D, Pg, max_pages,
                         B * max_pages + 1, torch.float32,
-                        positions=positions)
+                        positions=positions, int8=int8)
     err32 = _max_err(pa.paged_decode_attention(*args),
                      pa.paged_decode_attention_reference(*args),
                      K1_FP32_TOL)
-    print(f"phase 2: K1 fp32 at B={B} H={H} KH={KH} D={D} Pg={Pg} "
+    print(f"phase 2: {name} fp32 at B={B} H={H} KH={KH} D={D} Pg={Pg} "
           f"max_pages={max_pages}, positions {sorted(positions)}: max abs "
           f"err {err32} (tol {K1_FP32_TOL})")
 
-    q, pk, pv, pt, pos = _decode_case(seed, B, H, KH, D, Pg, max_pages,
-                                      B * max_pages + 1, torch.bfloat16)
-    out = pa.paged_decode_attention(q, pk, pv, pt, pos)
-    ref = pa.paged_decode_attention_reference(q, pk, pv, pt, pos)
+    args = _decode_case(seeds[2], B, H, KH, D, Pg, max_pages,
+                        B * max_pages + 1, torch.bfloat16, int8=int8)
+    q, pk, pv, pt, pos = args[:5]
+    scales = args[5:] or (None, None)
+    out = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_attention_reference(*args)
     err = _max_err(out, ref, K1_BF16_ATOL, K1_BF16_RTOL)
 
-    # library yardstick: SDPA over the window gathered beforehand
+    # library yardstick: SDPA over the window gathered beforehand — for
+    # int8 pages gathered and dequantized to bf16 (neither step timed);
+    # the port never calls it
     L = max_pages * Pg
-    kg = pk[:, pt.long()].reshape(KH, B, L, D).transpose(0, 1)
-    vg = pv[:, pt.long()].reshape(KH, B, L, D).transpose(0, 1)
-    kg, vg = kg.contiguous(), vg.contiguous()
+    ptl = pt.long()
+
+    def window(pages, s):
+        w = pages[:, ptl]
+        if s is not None:
+            w = (w.float() * (s[:, ptl] / 127.0)[..., None]).to(
+                torch.bfloat16)
+        return w.reshape(KH, B, L, D).transpose(0, 1).contiguous()
+
+    kg, vg = window(pk, scales[0]), window(pv, scales[1])
     mask = (torch.arange(L, device=q.device)[None]
             <= pos.long()[:, None])[:, None, None, :]
     q4 = q[:, :, None, :]
@@ -208,31 +278,35 @@ def phase_kernels(pa, seed: int) -> dict:
     torch.testing.assert_close(sdpa()[:, :, 0].float(), ref.float(),
                                rtol=SDPA_TOL, atol=SDPA_TOL)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=q.device)
-    ms = _time_ms(lambda: pa.paged_decode_attention(q, pk, pv, pt, pos),
-                  50, flush)
+    ms = _time_ms(lambda: pa.paged_decode_attention(*args), 50, flush)
     plain_ms = _time_ms(
-        lambda: pa.paged_decode_attention_reference(q, pk, pv, pt, pos),
-        20, flush)
+        lambda: pa.paged_decode_attention_reference(*args), 20, flush)
     library_ms = _time_ms(sdpa, 50, flush)
 
-    # least work: each visible key and value read once, q read once,
-    # out written once, the page-table entries walked, the positions
+    # least work: each visible key and value read once (int8: 1 byte,
+    # plus each visible page's two fp32 scales per kv head), q read
+    # once, out written once, the page-table entries walked, the
+    # positions
     keys = int((pos.long() + 1).clamp(max=L).sum().item())
     pages = int(((pos.long() // Pg) + 1).clamp(max=max_pages).sum().item())
-    nbytes = (2 * keys * KH * D * 2 + 2 * B * H * D * 2 + 4 * pages
-              + 4 * B)
+    nbytes = (2 * keys * KH * D * (1 if int8 else 2)
+              + (2 * 4 * KH * pages if int8 else 0)
+              + 2 * B * H * D * 2 + 4 * pages + 4 * B)
     flops = 4 * keys * (H // KH) * KH * D        # QK^T and PV
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / BF16_FLOPS * 1e3
-    print(f"phase 2: K1 bf16 B={B} H={H} KH={KH} D={D} Pg={Pg} "
-          f"max_pages={max_pages}: max abs err {err} (tol {K1_BF16_ATOL}"
-          f" + {K1_BF16_RTOL} * |ref|); "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA on the "
-          f"gathered window {library_ms:.4f} ms; bound {max(t_bytes, t_ops):.4f}"
-          f" ms ({nbytes} bytes at 3.35 TB/s)")
-    return {"name": "paged_decode_attention", "route": "cuda",
-            "source": "ray_tpu_torch/ops/csrc/paged_decode_attention.cu",
-            "replaces": "ray_tpu/ops/paged_attention.py:291",
+    pages_desc = "int8 pages, bf16 q" if int8 else "bf16"
+    print(f"phase 2: {name} {pages_desc} B={B} H={H} KH={KH} D={D} "
+          f"Pg={Pg} max_pages={max_pages}: max abs err {err} (tol "
+          f"{K1_BF16_ATOL} + {K1_BF16_RTOL} * |ref|); kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, SDPA on the gathered"
+          f"{' bf16' if int8 else ''} window {library_ms:.4f} ms; bound "
+          f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes at 3.35 TB/s)")
+    source = pa._SOURCE_INT8 if int8 else pa._SOURCE
+    return {"name": "paged_decode_attention" + ("_int8" if int8 else ""),
+            "route": "cuda", "source": f"ray_tpu_torch/ops/csrc/{source}",
+            "replaces": "ray_tpu/ops/paged_attention.py:"
+                        + ("301" if int8 else "291"),
             "launches": None, "max_abs_err": err,
             "max_abs_err_fp32": err32, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -240,19 +314,29 @@ def phase_kernels(pa, seed: int) -> dict:
             "library_ms": library_ms, "shape": {
                 "B": B, "H": H, "KH": KH, "D": D, "page_size": Pg,
                 "max_pages": max_pages, "keys": keys, "bytes": nbytes,
-                "dtype": "bfloat16"}}
+                "dtype": "int8 pages, bfloat16 q" if int8 else "bfloat16"}}
 
 
-def _serve(model, prompts, n, device):
+def _serve(model, waves, n, device, **kw):
+    """Each wave of prompts submitted after the previous one finished;
+    the streams per wave, and the engine (checked leak-free: every page
+    free or held by the prefix cache)."""
     from ray_tpu_torch.serve.engine import LLMEngine
     eng = LLMEngine(model, max_slots=4, page_size=16, n_pages=64,
-                    chunk=4, device=device)
-    hs = [eng.submit(p, max_new_tokens=n) for p in prompts]
-    while eng.step():
-        pass
-    if eng.alloc.occupancy():
+                    chunk=4, device=device, **kw)
+    out = []
+    for wave in waves:
+        hs = [eng.submit(p, max_new_tokens=n) for p in wave]
+        while eng.step():
+            pass
+        out.append([h.result() for h in hs])
+    cached = 0
+    if eng.prefix_cache is not None:
+        eng.prefix_cache.check_invariants()
+        cached = eng.prefix_cache.cached_pages
+    if eng.alloc.occupancy() != cached:
         raise AssertionError(f"engine on {device} leaked pages")
-    return [h.result() for h in hs]
+    return out, eng
 
 
 def phase_engine_parity(tl, seed: int) -> None:
@@ -267,24 +351,48 @@ def phase_engine_parity(tl, seed: int) -> None:
     g = np.random.default_rng(seed)
     prompts = [g.integers(0, cfg.vocab_size, n).tolist()
                for n in (1, 16, 17, 45)]
-    cpu = _serve(tl.build_model(cfg, sd, "cpu"), prompts, 16, "cpu")
-    gpu = _serve(tl.build_model(cfg, sd, "cuda"), prompts, 16, "cuda")
+    cpu, _ = _serve(tl.build_model(cfg, sd, "cpu"), [prompts], 16, "cpu")
+    gpu, _ = _serve(tl.build_model(cfg, sd, "cuda"), [prompts], 16, "cuda")
     if cpu != gpu:
         raise AssertionError(f"card and CPU streams differ:\n{gpu}\n{cpu}")
     print("phase 3: engine on the card == engine on the CPU (fp32, dim "
           "512, 8 q / 2 kv heads, 2 layers; prompts of 1/16/17/45 "
           "tokens, 16 greedy tokens each)")
+    # the int8 pool with the prefix cache (K2 on the card): the same
+    # wave, then a fully cached page-aligned repeat (the COW copy),
+    # then a prompt sharing its first page
+    waves = [prompts, [prompts[1]],
+             [prompts[3][:16] + g.integers(0, cfg.vocab_size, 8).tolist()]]
+    runs = {}
+    for device in ("cpu", "cuda"):
+        streams, eng = _serve(tl.build_model(cfg, sd, device), waves, 16,
+                              device, kv_dtype="int8", prefix_cache=True)
+        hits = (eng.stats["cache_hit_admissions"],
+                eng.stats["cache_hit_tokens"])
+        if hits != (2, 15 + 16):
+            raise AssertionError(f"{device}: hit admissions and tokens "
+                                 f"{hits}, want (2, 31)")
+        runs[device] = streams
+    if runs["cpu"] != runs["cuda"]:
+        raise AssertionError(f"int8 + prefix cache: card and CPU streams "
+                             f"differ:\n{runs['cuda']}\n{runs['cpu']}")
+    print("phase 3: int8 KV + prefix cache, engine on the card (K2) == "
+          "engine on the CPU over 3 waves (the same 4 prompts; the "
+          "16-token prompt again, fully cached: COW copy; a prompt "
+          "sharing the 45-token prompt's first page); 2 hit admissions, "
+          "31 hit tokens; both leak-free")
 
 
-def _teacher_forced_gaps(model, prompt, completion) -> list:
+def _teacher_forced_gaps(model, prompt, completion,
+                         kv_dtype: str = "fp") -> list:
     """(top logit - logit of the generated token) at each completion
     position, from one T > 1 forward (gather path, no kernel) of
-    ``model`` over prompt + completion in a fresh pool."""
+    ``model`` over prompt + completion in a fresh ``kv_dtype`` pool."""
     from ray_tpu_torch.models.kv_cache import init_kv_pool, kv_layer_view
     ids = prompt + completion[:-1]
     Pg = 64
     n = -(-len(ids) // Pg)
-    pool = init_kv_pool(model.cfg, n + 1, Pg, device="cuda")
+    pool = init_kv_pool(model.cfg, n + 1, Pg, kv_dtype, device="cuda")
     pt = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")[None]
     logits = model(torch.tensor([ids], device="cuda"),
                    [kv_layer_view(layer, pt) for layer in pool],
@@ -329,6 +437,7 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
         streamed[i] = toks
 
     pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
     steps0 = eng.stats["decode_steps"]
     t1 = time.monotonic()
     threads = [threading.Thread(target=stream, args=(i,))
@@ -340,6 +449,8 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
         t.join(timeout=600)
     wall = time.monotonic() - t1
     launches = pa.paged_decode_attention.launches
+    if pa.paged_decode_attention.launches_int8:
+        raise AssertionError("the fp pool launched K2")
     steps = eng.stats["decode_steps"] - steps0
     if any(t.is_alive() for t in threads):
         raise AssertionError("a streaming request did not finish")
@@ -423,6 +534,202 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
           f"{max(gaps):.4f} in fp32 ({res['teacher_forced_not_top_fp32']}"
           f" not top), {max(gaps_bf16):.4f} in bf16 "
           f"({res['teacher_forced_not_top_bf16']} not top)")
+    dep.shutdown()
+    return res
+
+
+def _expected_hits(cached_prompts, prompt, Pg: int) -> int:
+    """Prompt tokens a prefix-cache admission skips: the longest run of
+    full pages ``prompt`` shares with a retired prompt (whose full
+    pages the cache holds), one token less when that is the whole
+    prompt (its last token is re-prefilled into a COW copy)."""
+    best = 0
+    for c in cached_prompts:
+        n = 0
+        while (n + 1) * Pg <= min(len(c), len(prompt)) and \
+                c[n * Pg:(n + 1) * Pg] == prompt[n * Pg:(n + 1) * Pg]:
+            n += 1
+        best = max(best, n * Pg)
+    return best - 1 if best == len(prompt) else best
+
+
+def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
+    """The int8 KV + prefix-cache main path at full width: two waves of
+    chat traffic behind one TinyLlama-1.1B replica."""
+    from ray_tpu_torch.models.kv_cache import (kv_layer_view,
+                                               kv_pool_page_bytes)
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+    cfg = tl.tinyllama_1_1b()
+    n_new, Pg = 64, 64
+    t0 = time.monotonic()
+    params = tl.init_params(cfg, seed=seed, device="cuda")
+    dep = LlamaDeployment(cfg, params, max_new_tokens=n_new, max_slots=16,
+                          page_size=Pg, kv_dtype="int8", prefix_cache=True,
+                          device="cuda")
+    del params
+    g = np.random.default_rng(seed + 1)
+
+    def rand(n):
+        return g.integers(0, cfg.vocab_size, int(n)).tolist()
+
+    warm_prompt = rand(100)
+    if len(dep(warm_prompt)) != 100 + n_new:
+        raise AssertionError("warm-up request came back short")
+    eng = dep.engine()
+    if eng.kv_dtype != "int8" or eng.alloc.n_pages != 513:
+        raise AssertionError(f"pool {eng.kv_dtype} x {eng.alloc.n_pages}")
+    torch.cuda.synchronize()
+    t_setup = time.monotonic() - t0
+    eng.reset_latency_stats()
+
+    # wave 1: 4 prompts behind one 1024-token system prompt, page-aligned
+    # prompts of 512 and 1024 tokens, 2 random prompts; wave 2: 4 more
+    # behind the system prompt, exact repeats of the page-aligned two
+    # (fully cached: the COW path), 2 random
+    system = rand(1024)
+    aligned = [rand(512), rand(1024)]
+    wave1 = ([system + rand(n) for n in g.integers(16, 513, 4)] + aligned
+             + [rand(n) for n in g.integers(16, 1537, 2)])
+    wave2 = ([system + rand(n) for n in g.integers(16, 513, 4)] + aligned
+             + [rand(n) for n in g.integers(16, 1537, 2)])
+    want_hits = [_expected_hits([warm_prompt] + wave1, p, Pg)
+                 for p in wave2]
+    if sum(want_hits) != 4 * 1024 + 511 + 1023:
+        raise AssertionError(f"expected hits {want_hits}")
+
+    n_stream = 4
+    streamed = [None] * n_stream
+
+    def stream(i):
+        streamed[i] = list(dep.stream(wave1[i]))
+
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
+    steps0 = eng.stats["decode_steps"]
+    t1 = time.monotonic()
+    threads = [threading.Thread(target=stream, args=(i,))
+               for i in range(n_stream)]
+    for t in threads:
+        t.start()
+    batch1 = dep.generate_batch(wave1[n_stream:])
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a streaming request did not finish")
+    if not eng.wait_idle(timeout_s=60):
+        raise AssertionError("engine not idle after wave 1")
+    wall1 = time.monotonic() - t1
+    n_ttft1 = len(eng.ttfts_s)
+    hits0 = (eng.stats["cache_hit_tokens"],
+             eng.stats["cache_hit_admissions"])
+    t2 = time.monotonic()
+    batch2 = dep.generate_batch(wave2)
+    if not eng.wait_idle(timeout_s=60):
+        raise AssertionError("engine not idle after wave 2")
+    wall = wall1 + time.monotonic() - t2
+    launches = (pa.paged_decode_attention.launches,
+                pa.paged_decode_attention.launches_int8)
+    steps = eng.stats["decode_steps"] - steps0
+    hits = (eng.stats["cache_hit_tokens"] - hits0[0],
+            eng.stats["cache_hit_admissions"] - hits0[1])
+
+    outs = streamed + batch1 + batch2
+    if any(o is None or len(o) != n_new for o in outs):
+        raise AssertionError(
+            f"requests came back short: {[len(o or []) for o in outs]}")
+    if steps <= 0 or launches != (0, cfg.n_layers * steps):
+        raise AssertionError(
+            f"(K1, K2) launches {launches} != (0, {cfg.n_layers} layers x "
+            f"{steps} decode steps)")
+    if hits != (sum(want_hits), 6):
+        raise AssertionError(f"wave 2 hit tokens and admissions {hits}, "
+                             f"want ({sum(want_hits)}, 6)")
+    if eng.alloc.occupancy() != eng.prefix_cache.cached_pages:
+        raise AssertionError(
+            f"pool occupancy {eng.alloc.occupancy()} != cached pages "
+            f"{eng.prefix_cache.cached_pages}")
+    eng.prefix_cache.check_invariants()
+
+    # Teacher-forced check of 2 wave-2 requests, a prefix hit and a COW
+    # repeat: the same bf16 weights evaluated in fp32 over an fp pool,
+    # and the bf16 model over a fresh int8 pool (T > 1 gather path)
+    checked = [(wave2[0], batch2[0]), (wave2[4], batch2[4])]
+    gaps_int8 = [x for p, o in checked
+                 for x in _teacher_forced_gaps(dep.model, p, o, "int8")]
+    ref32 = tl.build_model(
+        dataclasses.replace(cfg, dtype=torch.float32),
+        {k: v.float() for k, v in dep.model.state_dict().items()}, "cuda")
+    gaps = [x for p, o in checked
+            for x in _teacher_forced_gaps(ref32, p, o)]
+    del ref32
+    for kind, gs in (("fp32, fp pool", gaps), ("bf16, int8 pool",
+                                               gaps_int8)):
+        if max(gs) > INT8_LOGIT_SLACK:
+            raise AssertionError(
+                f"teacher-forced check: a generated token sits {max(gs)}"
+                f" below the top logit ({kind}; allowed "
+                f"{INT8_LOGIT_SLACK})")
+
+    report = eng.load_report()
+    fp_page_bytes = kv_pool_page_bytes(cfg, Pg, "fp")
+    if report["kv_page_bytes"] != kv_pool_page_bytes(cfg, Pg, "int8"):
+        raise AssertionError(f"kv_page_bytes {report['kv_page_bytes']}")
+
+    # ms per decode step at 16 slots on the int8 pool (the engine's
+    # decode body, host-paced), after the phase's counts are read
+    pt = torch.arange(1, 16 * 32 + 1, dtype=torch.int32,
+                      device="cuda").reshape(16, 32)
+    kv = [kv_layer_view(layer, pt) for layer in eng.pages]
+    pos = torch.tensor([len(p) + n_new - 1 for p in wave1 + wave2],
+                       dtype=torch.int32, device="cuda").clamp(max=2047)
+    cur = torch.zeros(16, dtype=torch.int32, device="cuda")
+    for _ in range(3):
+        cur = tl._pick_token(dep.model(cur[:, None], kv, pos)[:, -1], 0.0)
+    torch.cuda.synchronize()
+    n_steps = 20
+    ts = time.monotonic()
+    for _ in range(n_steps):
+        cur = tl._pick_token(dep.model(cur[:, None], kv, pos)[:, -1], 0.0)
+    torch.cuda.synchronize()
+    step_ms = (time.monotonic() - ts) / n_steps * 1e3
+
+    ttfts = list(eng.ttfts_s)
+    p50 = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+    res = {
+        "card": smi, "model": "tinyllama_1_1b bf16 (random weights, "
+        f"seed {seed}), int8 KV pool + prefix cache",
+        "requests": len(outs), "new_tokens": n_new,
+        "prompt_tokens": sum(len(p) for p in wave1 + wave2),
+        "wall_s": wall, "output_tok_s": len(outs) * n_new / wall,
+        "ttft_p50_s_wave1": p50(ttfts[:n_ttft1]),
+        "ttft_p50_s_wave2": p50(ttfts[n_ttft1:]),
+        "decode_step_ms_16_slots_int8": step_ms,
+        "decode_steps": steps, "k1_launches": launches[0],
+        "k2_launches": launches[1], "wave2_hit_tokens": hits[0],
+        "wave2_hit_admissions": hits[1], "wave2_hit_tokens_per_request":
+        want_hits, "kv_page_bytes": report["kv_page_bytes"],
+        "kv_bytes_total": report["kv_bytes_total"],
+        "fp_kv_page_bytes": fp_page_bytes,
+        "fp_kv_bytes_total": eng.alloc.n_pages * fp_page_bytes,
+        "prefix_stats": eng.prefix_cache.stats(),
+        "teacher_forced_max_gap_fp32": max(gaps),
+        "teacher_forced_max_gap_bf16_int8": max(gaps_int8),
+        "teacher_forced_positions": len(gaps), "setup_s": t_setup,
+        "stats": dict(eng.stats)}
+    print(f"phase 4b: TinyLlama-1.1B bf16, int8 KV + prefix cache, "
+          f"{len(outs)} requests x {n_new} tokens in 2 waves on {smi}: "
+          f"output {res['output_tok_s']:.1f} tok/s, TTFT p50 wave 1 "
+          f"{res['ttft_p50_s_wave1'] * 1e3:.1f} ms, wave 2 "
+          f"{res['ttft_p50_s_wave2'] * 1e3:.1f} ms; decode step (16 "
+          f"slots, int8 pool) {step_ms:.2f} ms; wave 2 hit "
+          f"{hits[0]} tokens over {hits[1]} admissions; kv_page_bytes "
+          f"{report['kv_page_bytes']} (fp {fp_page_bytes}), "
+          f"kv_bytes_total {report['kv_bytes_total']} (fp "
+          f"{res['fp_kv_bytes_total']}); K2 launched {launches[1]} times "
+          f"= {cfg.n_layers} layers x {steps} decode steps, K1 "
+          f"{launches[0]}; teacher-forced over {len(gaps)} tokens: max "
+          f"gap {max(gaps):.4f} in fp32 (fp pool), {max(gaps_int8):.4f} "
+          f"in bf16 (int8 pool)")
     dep.shutdown()
     return res
 
@@ -711,19 +1018,26 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}")
     print(smi)
     tb = time.monotonic()
-    _build.compile_all([pa._SOURCE, fa._SOURCE])
+    sources = [pa._SOURCE, pa._SOURCE_INT8, fa._SOURCE]
+    _build.compile_all(sources)
     pa.load_kernel()
+    pa.load_kernel(int8=True)
     fa.load_kernel()
-    print(f"phase 1: built {pa._SOURCE} and {fa._SOURCE} for sm_90a in "
+    print(f"phase 1: built {', '.join(sources)} for sm_90a in "
           f"{time.monotonic() - tb:.1f} s")
 
     k1 = phase_kernels(pa, args.seed)
+    k2 = phase_kernels(pa, args.seed, int8=True)
     print(f"phase 2 done at {time.monotonic() - t0:.1f} s")
     phase_engine_parity(tl, args.seed)
     print(f"phase 3 done at {time.monotonic() - t0:.1f} s")
     main_path = phase_main_path(tl, pa, args.seed, smi)
     k1["launches"] = main_path["k1_launches"]
     print(f"phase 4 done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    int8_path = phase_int8_prefix_path(tl, pa, args.seed, smi)
+    k2["launches"] = int8_path["k2_launches"]
+    print(f"phase 4b done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     flash = phase_flash_kernels(fa, args.seed)
     print(f"phase 5 done at {time.monotonic() - t0:.1f} s")
@@ -733,11 +1047,13 @@ def main(argv=None) -> int:
     train = phase_train_main_path(fa, args.seed, smi)
     for row in flash:
         row["launches"] = train["launches"][row["name"]]
-    kernels = {"kernels": [k1] + flash}
+    kernels = {"kernels": [k1, k2] + flash}
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kernels": kernels["kernels"],
-                       "main_path": main_path, "train_main_path": train,
+                       "main_path": main_path,
+                       "int8_prefix_path": int8_path,
+                       "train_main_path": train,
                        "total_s": time.monotonic() - t0}, f, indent=1)
     print(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps(kernels))

@@ -9,9 +9,10 @@ its own copy.
 Slices landed so far, each on one card:
 
 - LLM serving: ``serve.llm`` ``LlamaDeployment`` -> ``serve.engine``
-  ``LLMEngine`` -> the paged branch of ``models.llama`` ->
-  ``models.kv_cache`` -> ``ops.paged_attention`` (hand-written CUDA
-  paged-decode kernel);
+  ``LLMEngine`` (with ``serve.prefix_cache``) -> the paged branch of
+  ``models.llama`` -> ``models.kv_cache`` (fp or int8 pages) ->
+  ``ops.paged_attention`` (hand-written CUDA paged-decode kernels for
+  fp and int8 pages);
 - GPT-2 training: ``train.spmd`` ``make_train_step`` -> ``models.gpt2``
   -> ``ops.attention`` -> ``ops.flash_attention`` (hand-written CUDA
   flash-attention forward and backward kernels).

@@ -7,11 +7,13 @@ K/V, SwiGLU, and logits tied to ``tok_embeddings`` computed in fp32
 from ``cfg.dtype`` operands. Weights live in ``cfg.dtype`` (the flax
 params are fp32 and cast at each use; both give the same products).
 
-Attention runs against the paged pool (models/kv_cache.py) only:
-``T == 1`` decode goes to ``ops.paged_attention.paged_decode_attention``
-(the CUDA kernel on the card), ``T >= 1`` chunks (chunked prefill)
-gather the page window and attend in plain torch with fp32 scores and
-softmax. The static-cache and cache-free branches and
+Attention runs against the paged pool (models/kv_cache.py) only, fp or
+int8: ``T == 1`` decode goes to
+``ops.paged_attention.paged_decode_attention`` (the CUDA kernel on the
+card, K1 for fp pages, K2 for int8 pages), ``T >= 1`` chunks (chunked
+prefill) gather the page window — for int8 dequantized in fp32 with the
+gathered per-page scales — and attend in plain torch with fp32 scores
+and softmax. The static-cache and cache-free branches and
 ``generate``/``generate_stream`` are not ported yet (ROADMAP.md, queue
 1 item "Llama: static-cache and cache-free branches").
 """
@@ -151,11 +153,16 @@ class LlamaAttention(nn.Module):
 
         pc = kv_cache
         pos = cache_len
-        paged_append(pc.pages_k, pc.pages_v, pc.page_table, pos, k, v)
+        # int8 pools: the append quantizes in place and updates the
+        # per-page scales, which travel with the pages
+        paged_append(pc.pages_k, pc.pages_v, pc.page_table, pos, k, v,
+                     pc.scales_k, pc.scales_v)
         if T == 1:
-            # decode: the paged-attention kernel (plain torch on the CPU)
+            # decode: the paged-attention kernel, K1 or K2 (plain torch
+            # on the CPU)
             y = paged_decode_attention(q[:, 0].contiguous(), pc.pages_k,
-                                       pc.pages_v, pc.page_table, pos)
+                                       pc.pages_v, pc.page_table, pos,
+                                       pc.scales_k, pc.scales_v)
         else:
             y = self._chunk_attention(q, pc, pos)
         return self.wo(y.reshape(B, T, cfg.n_heads * hd))
@@ -163,16 +170,25 @@ class LlamaAttention(nn.Module):
     def _chunk_attention(self, q, pc: PagedKVLayer, pos):
         """T >= 1 chunk over each row's gathered page window, causal on
         absolute positions: query t of row b sits at pos[b] + t. Scores
-        and softmax in fp32; the probabilities are cast to the pool's
-        dtype for the PV product, as in the reference. Grouped-query
-        without repeating K/V: q is [B, T, KH, rep, D]."""
+        and softmax in fp32; the probabilities are cast to the window's
+        dtype for the PV product, as in the reference — the pool's
+        dtype, or fp32 for an int8 pool, whose gathered window is
+        dequantized in fp32 (``q8 * (s * (1/127))``; only this window,
+        never the pool, exists in fp); the result is returned in q's
+        dtype, as the reference's ``wo`` takes it. Grouped-query without
+        repeating K/V: q is [B, T, KH, rep, D]."""
         cfg = self.cfg
         B, T = q.shape[:2]
         hd, KH = cfg.head_dim, cfg.n_kv_heads
         pt = pc.page_table.long()
         L = pt.shape[1] * pc.page_size
-        kg = pc.pages_k[:, pt].reshape(KH, B, L, hd)
-        vg = pc.pages_v[:, pt].reshape(KH, B, L, hd)
+        kg = pc.pages_k[:, pt]                       # [KH, B, MP, Pg, D]
+        vg = pc.pages_v[:, pt]
+        if pc.quantized:
+            kg = kg.float() * (pc.scales_k[:, pt] * (1.0 / 127.0))[..., None]
+            vg = vg.float() * (pc.scales_v[:, pt] * (1.0 / 127.0))[..., None]
+        kg = kg.reshape(KH, B, L, hd)
+        vg = vg.reshape(KH, B, L, hd)
         qg = q.reshape(B, T, KH, cfg.n_heads // KH, hd)
         scores = torch.einsum("btkrd,kbsd->bkrts", qg.float(),
                               kg.float()) / math.sqrt(hd)
@@ -181,7 +197,8 @@ class LlamaAttention(nn.Module):
                  <= q_pos[:, :, None])                       # [B, T, L]
         scores = scores.masked_fill(~valid[:, None, None], -1e30)
         probs = torch.softmax(scores, dim=-1)
-        return torch.einsum("bkrts,kbsd->btkrd", probs.to(vg.dtype), vg)
+        return torch.einsum("bkrts,kbsd->btkrd", probs.to(vg.dtype),
+                            vg).to(q.dtype)
 
 
 class LlamaMLP(nn.Module):
@@ -374,9 +391,12 @@ def init_params(cfg: LlamaConfig, seed: int, device=None
 
 
 def build_model(cfg: LlamaConfig, state_dict: Dict[str, torch.Tensor],
-                device) -> Llama:
-    """A Llama on ``device`` holding ``state_dict``'s weights (cast to
-    cfg.dtype, norm scales fp32), built without a throwaway init."""
+                device=None) -> Llama:
+    """A Llama on ``device`` (the card by default, ``"cpu"`` when asked;
+    raises ``NoCudaError`` without a card) holding ``state_dict``'s
+    weights (cast to cfg.dtype, norm scales fp32), built without a
+    throwaway init."""
+    device = resolve_device(device)
     model = Llama(cfg, device="meta")
     target = {k: (v.dtype, v.shape) for k, v in model.state_dict().items()}
     model.load_state_dict(

@@ -5,8 +5,9 @@ A source in ``csrc/`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into a shared library with a plain C interface, under
 ``build/ray_tpu_torch/`` at the root of the checkout, at first use
 (``compile_all`` starts one nvcc per source, all at once). The
-library's file name carries a digest of its source and of the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+library's file name carries a digest of its source, of the headers
+beside it and of the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.
 Python binds the C entries with ``ctypes`` (pointers and the stream as
 ``c_void_p``, ints as ``c_int``). Nothing here runs at import.
 """
@@ -45,9 +46,11 @@ def nvcc() -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where ``source`` is built: named by a digest of its text and of
-    the nvcc flags."""
+    """Where ``source`` is built: named by a digest of its text, of the
+    headers in ``csrc/`` it may include, and of the nvcc flags."""
     digest = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}-{digest.hexdigest()[:16]}.so"
 

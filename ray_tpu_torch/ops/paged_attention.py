@@ -12,16 +12,21 @@ Layout contract (matches models/kv_cache.py):
   q:               [n_slots, n_heads, head_dim] (grouped-query: head
                    h uses kv head h // (n_heads // n_kv_heads))
 
-``paged_decode_attention`` launches the hand-written CUDA kernel
-(csrc/paged_decode_attention.cu, the Hopper counterpart of the TPU
-kernel ``ray_tpu/ops/paged_attention.py::_kernel``) for tensors on a
-CUDA device, and runs its plain PyTorch version,
-``paged_decode_attention_reference``, for tensors on the CPU. Nothing
-else is taken: a CUDA tensor the kernel does not accept raises.
+``paged_decode_attention`` launches a hand-written CUDA kernel for
+tensors on a CUDA device — K1 (csrc/paged_decode_attention.cu), the
+Hopper counterpart of the TPU kernel
+``ray_tpu/ops/paged_attention.py::_kernel``, for fp pages, and K2
+(csrc/paged_decode_attention_int8.cu), the counterpart of
+``_kernel_q``, for int8 pages with their scales — and runs the plain
+PyTorch version, ``paged_decode_attention_reference``, for tensors on
+the CPU. Nothing else is taken: a CUDA tensor the kernel does not
+accept raises. K1 counts its launches in
+``paged_decode_attention.launches``, K2 in
+``paged_decode_attention.launches_int8``.
 
-Only fp pages exist in this slice; int8 pages (``paged_append``'s
-three-scatter and the kernel ``_kernel_q``) are the next slice
-(ROADMAP.md, queue 1).
+Int8 pages use a symmetric absmax code: value = q * scale / 127 with q
+in [-127, 127] (-128 unused), one fp32 scale per (kv head, physical
+page), ``[KH, n_pages, 1]``.
 """
 from __future__ import annotations
 
@@ -31,8 +36,10 @@ import math
 import torch
 
 _NEG_INF = -1e30
+_QMAX = 127.0
 
-_SOURCE = "paged_decode_attention.cu"
+_SOURCE = "paged_decode_attention.cu"             # K1
+_SOURCE_INT8 = "paged_decode_attention_int8.cu"   # K2
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8
@@ -98,12 +105,27 @@ def _check_append_shapes(pages_k, pages_v, page_table, pos, k, v):
             f"{tuple(pos.shape)}")
 
 
-def paged_append(pages_k, pages_v, page_table, pos, k, v) -> None:
+def _check_scale_shapes(pages_k, scales_k, scales_v):
+    KH, n_pages = pages_k.shape[:2]
+    want = (KH, n_pages, 1)
+    for name, s in (("scales_k", scales_k), ("scales_v", scales_v)):
+        if tuple(s.shape) != want:
+            raise PagedShapeError(
+                f"{name} must be [KH, n_pages, 1]={want} to pair with "
+                f"pool {tuple(pages_k.shape)}; got {tuple(s.shape)}")
+    if pages_k.dtype != torch.int8:
+        raise PagedShapeError(
+            f"per-page scales supplied but the pool is {pages_k.dtype}"
+            f", not int8 — scales only pair with quantized pools")
+
+
+def paged_append(pages_k, pages_v, page_table, pos, k, v,
+                 scales_k=None, scales_v=None) -> None:
     """Scatter a [B, T] chunk of new K/V into the head-major page pool
     at each slot's current write offset, IN PLACE: ``pages_k`` and
-    ``pages_v`` are modified and nothing is returned (the JAX version
-    returns new arrays; this port keeps one pool for the engine's
-    lifetime and never copies it).
+    ``pages_v`` (and, for int8, ``scales_k``/``scales_v``) are modified
+    and nothing is returned (the JAX version returns new arrays; this
+    port keeps one pool for the engine's lifetime and never copies it).
 
     pages_k/pages_v: [KH, n_pages, Pg, D]
     page_table:      [B, max_pages] int (0 = null page)
@@ -121,10 +143,41 @@ def paged_append(pages_k, pages_v, page_table, pos, k, v) -> None:
     may then hit the same null-page cell; which one wins is
     unspecified there, and only there.
 
+    Int8 pools pass ``scales_k``/``scales_v`` ([KH, n_pages, 1] fp32
+    per-page absmax), and the append does three scatters per tensor,
+    in the reference's fp32 operation order (the bytes and scales come
+    out identical to the reference's for the same write history):
+
+    1. SCALE RESET: a page whose in-page offset 0 the chunk writes
+       starts over — its old scale came from a previous owner (the
+       allocator reuses page ids) and counts as 0.
+    2. RUNNING ABSMAX: each token's absmax is scatter-maxed into the
+       (reset-adjusted) page scales, so a live page's scale only grows.
+    3. REQUANTIZE + STORE: every touched page is re-coded from its old
+       scale to its new one (``round(q_old * s_old/s_new)``, 0 where
+       it was reset), then the chunk's tokens are quantized at the new
+       scale (``round(x * 127/s_new)``, clipped to ±127) on top.
+
+    Every old page is gathered (per token, as the reference does: no
+    ``unique``, so no host sync) before anything is written; duplicate
+    page entries write identical bytes, so scatter order cannot matter.
+
     Raises :class:`PagedShapeError` on any rank / head / head-dim /
-    batch mismatch between the chunk and the pool.
+    batch mismatch between the chunk and the pool, when scales are
+    given for a pool that is not int8, and when an int8 pool comes
+    without them.
     """
     _check_append_shapes(pages_k, pages_v, page_table, pos, k, v)
+    quantized = scales_k is not None or scales_v is not None
+    if quantized and (scales_k is None or scales_v is None):
+        raise PagedShapeError(
+            "scales_k and scales_v must be supplied together")
+    if not quantized and pages_k.dtype == torch.int8:
+        raise PagedShapeError(
+            "int8 pool appended without its per-page scales — pass "
+            "scales_k/scales_v (kv_dtype='int8' wiring bug)")
+    if quantized:
+        _check_scale_shapes(pages_k, scales_k, scales_v)
     B, T = k.shape[:2]
     Pg = pages_k.shape[2]
     max_pages = page_table.shape[1]
@@ -136,26 +189,74 @@ def paged_append(pages_k, pages_v, page_table, pos, k, v) -> None:
     # [B, T, KH, D] -> [KH, B*T, D] to match the head-major pool.
     kT = k.reshape(B * T, k.shape[2], k.shape[3]).transpose(0, 1)
     vT = v.reshape(B * T, v.shape[2], v.shape[3]).transpose(0, 1)
-    pages_k[:, flat_p, flat_o] = kT.to(pages_k.dtype)
-    pages_v[:, flat_p, flat_o] = vT.to(pages_v.dtype)
+    if not quantized:
+        pages_k[:, flat_p, flat_o] = kT.to(pages_k.dtype)
+        pages_v[:, flat_p, flat_o] = vT.to(pages_v.dtype)
+        return
+    # (1) pages whose offset-0 cell this chunk writes start over; one
+    # mask for K and V
+    reset = torch.zeros(pages_k.shape[1], dtype=torch.int32,
+                        device=k.device).scatter_reduce_(
+        0, flat_p, (flat_o == 0).int(), "amax").bool()     # [n_pages]
+    _append_q(pages_k, scales_k, kT, flat_p, flat_o, reset)
+    _append_q(pages_v, scales_v, vT, flat_p, flat_o, reset)
+
+
+def _append_q(pages, scales, xT, flat_p, flat_o, reset) -> None:
+    """Steps 2 and 3 of the int8 append for one tensor, in place."""
+    xT32 = xT.float()                                      # [KH, BT, D]
+    s_base = torch.where(reset[None, :, None], 0.0, scales.float())
+    # (2) running absmax, monotone while the page is live
+    amax = xT32.abs().amax(dim=2)                          # [KH, BT]
+    s_new = s_base[:, :, 0].scatter_reduce(
+        1, flat_p[None].expand_as(amax), amax, "amax")[:, :, None]
+    # (3a) re-code the touched pages, all gathered before any write
+    old_q = pages[:, flat_p].float()                       # [KH, BT, Pg, D]
+    sb = s_base[:, flat_p]                                 # [KH, BT, 1]
+    sn = s_new[:, flat_p]
+    ratio = torch.where(sn > 0.0, sb / sn.clamp(min=1e-30), 0.0)
+    pages[:, flat_p] = torch.round(old_q * ratio[..., None]).clamp(
+        -_QMAX, _QMAX).to(torch.int8)
+    # (3b) the chunk's tokens at the new scale; a zero scale means the
+    # token itself is all zero, so the guarded divide is exact
+    inv = torch.where(sn > 0.0, _QMAX / sn.clamp(min=1e-30), 0.0)
+    pages[:, flat_p, flat_o] = torch.round(xT32 * inv).clamp(
+        -_QMAX, _QMAX).to(torch.int8)
+    scales.copy_(s_new)
+
+
+def dequantize_pages(pages, scales):
+    """Test helper: the fp32 view of an int8 pool (``q * s / 127``).
+    Never used on the serving path — the point of the int8 pool is
+    that this tensor never exists there."""
+    return pages.float() * (scales.float() / _QMAX)[..., None]
 
 
 def paged_decode_attention_reference(q, pages_k, pages_v, page_table,
-                                     positions):
-    """Plain PyTorch version of the decode kernel: gather each slot's
-    page window dense, then a masked fp32 softmax, with the kernel's
-    guards — keys past ``positions[b]`` are masked, and a row with no
-    visible key gives zeros (``m_safe`` and the ``l`` floor of the TPU
-    kernel) instead of a uniform average. PV is taken in fp32, as the
-    kernel does; the output is cast to ``q.dtype``."""
+                                     positions, scales_k=None,
+                                     scales_v=None):
+    """Plain PyTorch version of the decode kernels (K1, and K2 when
+    scales are given): gather each slot's page window dense — for int8
+    pages dequantized in fp32 as ``q8 * (s * (1/127))`` with the
+    gathered per-page scales, the TPU kernel's order — then a masked
+    fp32 softmax, with the kernel's guards: keys past ``positions[b]``
+    are masked, and a row with no visible key gives zeros (``m_safe``
+    and the ``l`` floor of the TPU kernel) instead of a uniform
+    average. PV is taken in fp32, as the kernels do; the output is cast
+    to ``q.dtype``."""
     B, H, D = q.shape
     KH, _, Pg, _ = pages_k.shape
     rep = H // KH
     max_pages = page_table.shape[1]
     L = max_pages * Pg
     pt = page_table.long()
-    kg = pages_k[:, pt].reshape(KH, B, L, D).float()
-    vg = pages_v[:, pt].reshape(KH, B, L, D).float()
+    kg = pages_k[:, pt].float()                        # [KH, B, MP, Pg, D]
+    vg = pages_v[:, pt].float()
+    if scales_k is not None:
+        kg = kg * (scales_k[:, pt].float() * (1.0 / _QMAX))[..., None]
+        vg = vg * (scales_v[:, pt].float() * (1.0 / _QMAX))[..., None]
+    kg = kg.reshape(KH, B, L, D)
+    vg = vg.reshape(KH, B, L, D)
     qg = q.reshape(B, KH, rep, D).float()
     s = torch.einsum("bkrd,kbsd->bkrs", qg, kg) / math.sqrt(D)
     valid = (torch.arange(L, device=q.device)[None]
@@ -169,16 +270,23 @@ def paged_decode_attention_reference(q, pages_k, pages_v, page_table,
     return o.reshape(B, H, D).to(q.dtype)
 
 
-def _check_decode_args(q, pages_k, pages_v, page_table, positions):
-    """What the CUDA kernel accepts; anything else raises."""
+def _check_decode_args(q, pages_k, pages_v, page_table, positions,
+                       scales_k=None, scales_v=None):
+    """What the CUDA kernels accept (K1: pages in q's dtype; K2: int8
+    pages with fp32 scales); anything else raises."""
     if q.ndim != 3 or pages_k.ndim != 4:
         raise ValueError(
             f"q must be [B, H, D] and pages [KH, n_pages, Pg, D]; got "
             f"q {tuple(q.shape)}, pages {tuple(pages_k.shape)}")
     B, H, D = q.shape
-    KH, _, _, Dk = pages_k.shape
+    KH, n_pages, _, Dk = pages_k.shape
     tensors = {"q": q, "pages_k": pages_k, "pages_v": pages_v,
                "page_table": page_table, "positions": positions}
+    if (scales_k is None) != (scales_v is None):
+        raise ValueError("scales_k and scales_v must be given together")
+    quantized = scales_k is not None
+    if quantized:
+        tensors.update(scales_k=scales_k, scales_v=scales_v)
     for name, t in tensors.items():
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -187,9 +295,21 @@ def _check_decode_args(q, pages_k, pages_v, page_table, positions):
     if q.dtype not in _DTYPE_CODES:
         raise ValueError(f"q dtype {q.dtype} unsupported (float32 or "
                          f"bfloat16)")
-    if pages_k.dtype != q.dtype or pages_v.dtype != q.dtype:
+    page_dtype = torch.int8 if quantized else q.dtype
+    if pages_k.dtype != page_dtype or pages_v.dtype != page_dtype:
         raise ValueError(f"pages ({pages_k.dtype}, {pages_v.dtype}) "
-                         f"must match q ({q.dtype})")
+                         f"must be {page_dtype}"
+                         + (" with scales" if quantized else
+                            " to match q"))
+    if quantized:
+        for name in ("scales_k", "scales_v"):
+            t = tensors[name]
+            if t.dtype != torch.float32 or tuple(t.shape) != (KH, n_pages,
+                                                              1):
+                raise ValueError(
+                    f"{name} must be float32 [KH, n_pages, 1]="
+                    f"{(KH, n_pages, 1)}; got {t.dtype} "
+                    f"{tuple(t.shape)}")
     if pages_v.shape != pages_k.shape:
         raise ValueError(f"pages_k {tuple(pages_k.shape)} and pages_v "
                          f"{tuple(pages_v.shape)} disagree")
@@ -211,19 +331,25 @@ def _check_decode_args(q, pages_k, pages_v, page_table, positions):
             raise ValueError(f"{name} must be 16-byte aligned")
 
 
-def load_kernel() -> ctypes.CDLL:
-    """The decode kernel's library, compiled with nvcc at first use."""
+def load_kernel(int8: bool = False) -> ctypes.CDLL:
+    """K1's library, or K2's with ``int8``, compiled with nvcc at first
+    use."""
     from ray_tpu_torch.ops import _build
+    if int8:
+        return _build.load(_SOURCE_INT8, _bind_int8)
     return _build.load(_SOURCE, _bind)
 
 
 def _launch_kernel(q, pages_k, pages_v, page_table, positions,
-                   split_keys: int = _SPLIT_KEYS):
-    """Launch the kernel; ``split_keys`` (keys per block of the split-K
-    pass) is left at its default everywhere but the profiling tool's
-    sweep."""
-    _check_decode_args(q, pages_k, pages_v, page_table, positions)
-    lib = load_kernel()
+                   split_keys: int = _SPLIT_KEYS, scales_k=None,
+                   scales_v=None):
+    """Launch K1, or K2 when scales are given; ``split_keys`` (keys per
+    block of the split-K pass) is left at its default everywhere but
+    the profiling tool's sweep."""
+    _check_decode_args(q, pages_k, pages_v, page_table, positions,
+                       scales_k, scales_v)
+    quantized = scales_k is not None
+    lib = load_kernel(int8=quantized)
     B, H, D = q.shape
     KH, n_pages, Pg, _ = pages_k.shape
     max_pages = page_table.shape[1]
@@ -236,28 +362,41 @@ def _launch_kernel(q, pages_k, pages_v, page_table, positions,
                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.paged_decode_attention_launch(
-            q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr(),
-            page_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
-            part_acc.data_ptr(), part_ml[0].data_ptr(),
+        ptrs = [q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr()]
+        if quantized:
+            launch = lib.paged_decode_attention_int8_launch
+            ptrs += [scales_k.data_ptr(), scales_v.data_ptr()]
+        else:
+            launch = lib.paged_decode_attention_launch
+        err = launch(
+            *ptrs, page_table.data_ptr(), positions.data_ptr(),
+            out.data_ptr(), part_acc.data_ptr(), part_ml[0].data_ptr(),
             part_ml[1].data_ptr(), B, H, KH, D, n_pages, Pg, max_pages,
             split_keys, _DTYPE_CODES[q.dtype], stream)
+    kernel = "K2" if quantized else "K1"
     if err:
         raise RuntimeError(
-            f"paged_decode_attention kernel launch failed: CUDA error "
+            f"paged_decode_attention {kernel} launch failed: CUDA error "
             f"{err} ({lib.paged_decode_attention_error(err).decode()})")
-    paged_decode_attention.launches += 1
+    if quantized:
+        paged_decode_attention.launches_int8 += 1
+    else:
+        paged_decode_attention.launches += 1
     return out
 
 
-def paged_decode_attention(q, pages_k, pages_v, page_table, positions):
+def paged_decode_attention(q, pages_k, pages_v, page_table, positions,
+                           scales_k=None, scales_v=None):
     """One decode step of paged attention: q [B, H, D] against each
-    slot's pages; returns [B, H, D] in q.dtype.
+    slot's pages; returns [B, H, D] in q.dtype. Int8 pools pass
+    ``scales_k``/``scales_v`` ([KH, n_pages, 1] fp32).
 
-    On a CUDA tensor this launches the hand-written kernel and adds
-    one to ``paged_decode_attention.launches``; it raises if the
-    kernel does not take the inputs (dtype, head_dim, group size,
-    contiguity) or if the launch fails. On a CPU tensor it runs
+    On a CUDA tensor this launches K1 (fp pages; adds one to
+    ``paged_decode_attention.launches``) or K2 (int8 pages with scales,
+    dequantized in registers; adds one to
+    ``paged_decode_attention.launches_int8``); it raises if the kernel
+    does not take the inputs (dtype, head_dim, group size, contiguity,
+    scale shape) or if the launch fails. On a CPU tensor it runs
     ``paged_decode_attention_reference``.
 
     The page ids a slot's window reaches (``page_table[b, :pos//Pg+1]``)
@@ -265,24 +404,40 @@ def paged_decode_attention(q, pages_k, pages_v, page_table, positions):
     and does not check them, since checking on the host would cost a
     device sync per call. The engine builds its tables from allocator
     ids only."""
+    if scales_k is not None or scales_v is not None:
+        if scales_k is None or scales_v is None:
+            raise PagedShapeError(
+                "scales_k and scales_v must be supplied together")
+        _check_scale_shapes(pages_k, scales_k, scales_v)
     if q.device.type == "cuda":
-        return _launch_kernel(q, pages_k, pages_v, page_table, positions)
+        return _launch_kernel(q, pages_k, pages_v, page_table, positions,
+                              scales_k=scales_k, scales_v=scales_v)
     if q.device.type == "cpu":
         return paged_decode_attention_reference(
-            q, pages_k, pages_v, page_table, positions)
+            q, pages_k, pages_v, page_table, positions, scales_k,
+            scales_v)
     raise ValueError(f"paged_decode_attention: unsupported device "
                      f"{q.device}")
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention.launches = 0          # K1
+paged_decode_attention.launches_int8 = 0     # K2
 
 
 def _bind(lib: ctypes.CDLL) -> None:
-    """argtypes/restype of the kernel library's C entries (run once,
-    when _build loads the library)."""
-    fn = lib.paged_decode_attention_launch
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-                   + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
+    """argtypes/restype of K1's C entries (run once, when _build loads
+    the library)."""
+    _bind_entries(lib, lib.paged_decode_attention_launch, 9)
+
+
+def _bind_int8(lib: ctypes.CDLL) -> None:
+    """The same for K2's library, whose launch also takes the scales."""
+    _bind_entries(lib, lib.paged_decode_attention_int8_launch, 11)
+
+
+def _bind_entries(lib: ctypes.CDLL, launch, n_ptrs: int) -> None:
+    launch.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 9
+                       + [ctypes.c_void_p])
+    launch.restype = ctypes.c_int
     lib.paged_decode_attention_error.argtypes = [ctypes.c_int]
     lib.paged_decode_attention_error.restype = ctypes.c_char_p

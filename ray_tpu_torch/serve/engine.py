@@ -7,9 +7,19 @@ device (``"cuda"`` by default, ``"cpu"`` when the caller asks).
 
 - KV lives in a paged pool (models/kv_cache.py) that is allocated once
   and updated IN PLACE by every step (ops/paged_attention.py
-  ``paged_append``): nothing is copied per step. The host-side
+  ``paged_append``): nothing is copied per step. The pool is fp
+  (``cfg.dtype``) or int8 with per-page scales (``kv_dtype``, env
+  ``RAY_TPU_KV_DTYPE`` wins), half the bytes per page. The host-side
   ``BlockAllocator`` hands pages to sequences as they grow; completion
   or preemption returns them. Inactive slots point at the null page.
+- With ``prefix_cache=True`` a radix tree (serve/prefix_cache.py)
+  keeps retired prompts' full pages: admission matches the longest
+  cached page-aligned prefix, points the slot's page table at those
+  shared pages read-only and prefills only the rest; a fully cached
+  prompt copies its boundary page (every tensor of the layer, scales
+  included) into a private page first (copy-on-write). Refcount-0
+  cached pages are evicted LRU-first before admission waits or a
+  growing slot preempts another.
 - Decode is DEVICE-PACED: the per-slot next-token input (``cur``) and
   write position (``pos``) stay on the device between dispatches;
   admission seeds slot rows with an on-stream scatter. A dispatch of
@@ -32,10 +42,11 @@ device (``"cuda"`` by default, ``"cpu"`` when the caller asks).
   arithmetic and readbacks trail; with an eos, every round drains
   readbacks before planning.
 
-Not ported yet (ROADMAP.md, queue 1): prefix cache, speculative
-decoding, KV pull, ``swap_weights``, fault injection, priority lanes
-and replica roles, the overlapped loop, logprob capture, int8 KV,
-tensor parallelism, deadlines and the event log.
+Not ported yet (ROADMAP.md, queue 1): speculative decoding, KV pull
+(``kv_pin_prefix``/``kv_export_pages``/``kv_release_pages``),
+``swap_weights``, fault injection, priority lanes and replica roles,
+the overlapped loop, logprob capture, tensor parallelism, deadlines,
+the metrics registry and the event log.
 """
 from __future__ import annotations
 
@@ -58,7 +69,9 @@ from ray_tpu_torch.models.llama import _pick_token
 from ray_tpu_torch.serve.errors import (EngineDraining, EngineOverloaded,
                                         EngineShutdown, RequestCancelled,
                                         RequestError)
+from ray_tpu_torch.serve.prefix_cache import PrefixCache
 from ray_tpu_torch.serve.scheduler import SlotView, StepPlan, plan_step
+from ray_tpu_torch.util.envknobs import resolve_kv_dtype
 
 _DONE = object()
 
@@ -156,6 +169,8 @@ class _Slot:
     decoded: int = 0             # decode steps ridden (dispatch-time
                                  # arithmetic, ahead of emission)
     preempted: bool = False      # in-flight tokens must be discarded
+    shared: int = 0              # leading pages owned by the prefix
+                                 # cache (read-only for this slot)
 
     @property
     def prefill_remaining(self) -> int:
@@ -209,6 +224,15 @@ class LLMEngine:
     max_queued: bounded admission — with this many requests already
         waiting, ``submit`` sheds with ``EngineOverloaded``. None
         (default) keeps the queue unbounded.
+    prefix_cache: share the KV pages of identical page-aligned prompt
+        prefixes across requests (radix tree + refcounts + LRU
+        eviction, serve/prefix_cache.py). Off by default.
+    kv_dtype: ``"fp"`` (pages in ``cfg.dtype``, default) or ``"int8"``
+        (int8 pages plus one fp32 scale per (kv head, page): half the
+        bytes; decode through K2). ``RAY_TPU_KV_DTYPE`` overrides it;
+        junk in either raises.
+    prefix_digest_max: most path hashes ``load_report``'s
+        ``prefix_digest`` advertises (prefix-closed, longest first).
     device: ``None``/``"cuda"`` (default: the card; raises without
         one) or ``"cpu"``.
     """
@@ -220,6 +244,9 @@ class LLMEngine:
                  temperature: float = 0.0,
                  eos_id: Optional[int] = None, seed: int = 0,
                  max_queued: Optional[int] = None,
+                 prefix_cache: bool = False,
+                 kv_dtype: Optional[str] = None,
+                 prefix_digest_max: int = 512,
                  device=None):
         self.device = resolve_device(device)
         for p in model.parameters():
@@ -242,11 +269,15 @@ class LLMEngine:
         # what the model can address
         self.max_pages = min(n_pages - 1,
                              -(-self.cfg.max_seq_len // page_size))
-        self.kv_dtype = "fp"
-        self.page_bytes = kv_pool_page_bytes(self.cfg, page_size)
+        self.kv_dtype = resolve_kv_dtype(kv_dtype)
+        self.page_bytes = kv_pool_page_bytes(self.cfg, page_size,
+                                             self.kv_dtype)
         self.alloc = BlockAllocator(n_pages, page_bytes=self.page_bytes)
         self.pages = init_kv_pool(self.cfg, n_pages, page_size,
-                                  device=self.device)
+                                  self.kv_dtype, device=self.device)
+        self.prefix_cache = (PrefixCache(self.alloc, page_size)
+                             if prefix_cache else None)
+        self.prefix_digest_max = max(0, int(prefix_digest_max))
         self.max_queued = max_queued
         self.slots: List[Optional[_Slot]] = [None] * max_slots
         self._wait: "collections.deque[_Request]" = collections.deque()
@@ -416,6 +447,9 @@ class LLMEngine:
                 "stopped": self._stopped,
                 "fetchq_depth": len(self._fetchq),
                 "pending_prefills": len(self._pending_prefill),
+                "prefix_digest": (self.prefix_cache.digest(
+                    self.prefix_digest_max)
+                    if self.prefix_cache is not None else frozenset()),
                 "has_work": bool(self._wait or any(self.slots)
                                  or self._fetchq
                                  or self._pending_prefill),
@@ -488,12 +522,13 @@ class LLMEngine:
 
     def _teardown_slot_locked(self, ix: int, err: BaseException,
                               count: Optional[str] = None) -> None:
-        """Fail a slotted request and free its slot and pages; in-flight
-        readback rows for it are discarded (``preempted``)."""
+        """Fail a slotted request and free its slot, its private pages
+        and its shared prefix-page references (the tree keeps the KV);
+        in-flight readback rows for it are discarded (``preempted``)."""
         slot = self.slots[ix]
         self.slots[ix] = None
         slot.preempted = True
-        self.alloc.free(slot.pages)
+        self._free_slot_pages_locked(slot, retire=False)
         self._fail_req_locked(slot.req, err, count)
 
     def step(self) -> bool:
@@ -559,7 +594,7 @@ class LLMEngine:
             if (slot is not None and slot.cur is not None
                     and self._owed(slot) <= 0):
                 self.slots[i] = None
-                self.alloc.free(slot.pages)
+                self._free_slot_pages_locked(slot, retire=True)
 
     # ------------------------------------------------------- scheduler
 
@@ -613,7 +648,17 @@ class LLMEngine:
     def _admit_locked(self):
         """Chunk-budget admission: the queue head takes a free slot as
         soon as pages for its FIRST prefill chunk exist. FIFO: closed
-        requests at the head are dropped, nothing is reordered."""
+        requests at the head are dropped, nothing is reordered.
+
+        With the prefix cache on, admission first matches the longest
+        cached page-aligned prefix: the slot's page table points at
+        those shared pages read-only, prefill resumes at the matched
+        offset, and only the uncached tokens are prefilled. A fully
+        cached prompt copies its final matched page into a private page
+        (COW: the model still needs the last position's logits, and
+        that one-token re-prefill must not write into a shared page).
+        When the pool is dry, refcount-0 cached pages are evicted
+        LRU-first before admission gives up."""
         while self._wait:
             while self._wait and self._wait[0].closed:
                 self._wait.popleft()
@@ -624,23 +669,109 @@ class LLMEngine:
                 return
             req = self._wait[0]
             prompt = req.recompute_prompt
-            first = max(1, min(len(prompt), self.PC))
-            page_ids = self.alloc.alloc(-(-first // self.Pg))
+            shared_pages: List[int] = []
+            matched = 0
+            copy_src: Optional[int] = None
+            if self.prefix_cache is not None:
+                shared_pages, matched = self.prefix_cache.match(prompt)
+                if matched and matched == len(prompt):
+                    # whole prompt cached: re-prefill only the LAST
+                    # token, into a private copy of the final page
+                    copy_src = shared_pages.pop()
+                    matched -= 1
+            start = matched
+            first = max(1, min(len(prompt) - start, self.PC))
+            need = -(-(start + first) // self.Pg) - len(shared_pages)
+            page_ids = self.alloc.alloc(need)
+            if page_ids is None and self.prefix_cache is not None:
+                # reclaim LRU refcount-0 cached pages before failing
+                if self.prefix_cache.evict(need - self.alloc.n_free) > 0:
+                    page_ids = self.alloc.alloc(need)
             if page_ids is None:
-                return         # pool dry: wait for completions
+                # pool dry: hand the matched references back and wait
+                if self.prefix_cache is not None:
+                    if copy_src is not None:
+                        shared_pages = shared_pages + [copy_src]
+                    if shared_pages:
+                        self.prefix_cache.release(shared_pages)
+                return         # wait for completions
+            if copy_src is not None:
+                # duplicate the boundary page on-stream before any write
+                # can target it, then drop the borrowed reference
+                self._copy_page(copy_src, page_ids[0])
+                self.prefix_cache.release([copy_src])
             self._wait.popleft()
             self.slots[free[0]] = _Slot(
-                req=req, pages=page_ids, pos=0, cur=None,
-                admit_seq=next(self._admit_seq), prompt=prompt,
+                req=req, pages=shared_pages + page_ids, pos=start,
+                cur=None, admit_seq=next(self._admit_seq), prompt=prompt,
+                prefilled=start,
                 # tokens already delivered count against the budget
-                decoded=len(req.generated))
+                decoded=len(req.generated), shared=len(shared_pages))
             self.stats["admitted"] += 1
+            if self.prefix_cache is not None:
+                self.prefix_cache.account(start, len(prompt) - start)
+                self.stats["cache_hit_tokens"] += start
+                self.stats["cache_miss_tokens"] += len(prompt) - start
+                if start:
+                    self.stats["cache_hit_admissions"] += 1
+
+    def _copy_page(self, src: int, dst: int) -> None:
+        """The prefix cache's one COW copy: physical page ``src`` into
+        ``dst`` for every tensor of every layer — the int8 pool's scale
+        columns too, so the copy dequantizes exactly as its source.
+        Stream-ordered on the card, like every other pool write."""
+        for layer in self.pages:
+            for t in layer:
+                t[:, dst].copy_(t[:, src])
+
+    def _check_cow_locked(self, slot: _Slot, write_pos: int) -> None:
+        """Copy-on-write invariant: the pool is written in place, so a
+        write may only target a page the slot owns alone. Shared
+        (cache-owned) pages are the slot's leading ``slot.shared`` page
+        table entries and must sit strictly behind the write
+        frontier."""
+        if slot.shared and write_pos < slot.shared * self.Pg:
+            raise RuntimeError(
+                f"COW violation: slot for rid={slot.req.rid} would "
+                f"scatter at pos {write_pos} into shared page index "
+                f"{write_pos // self.Pg} (< {slot.shared} cache-owned "
+                f"pages)")
+
+    def _free_slot_pages_locked(self, slot: _Slot, *,
+                                retire: bool) -> None:
+        """Return a slot's pages: every page route goes through here.
+        Without the prefix cache this is a plain free. With it, shared
+        pages only ever drop a reference (the tree keeps the KV); on
+        retirement the finished prompt's full pages are INSERTED into
+        the tree instead of freed (private ones donated, shared ones
+        deduped), and only the boundary/generated tail is freed."""
+        if self.prefix_cache is None:
+            self.alloc.free(slot.pages)
+            return
+        if retire:
+            n_full = min(len(slot.prompt) // self.Pg, len(slot.pages))
+            self.prefix_cache.insert(slot.prompt, slot.pages[:n_full],
+                                     slot.shared)
+            tail = slot.pages[n_full:]
+        else:
+            self.prefix_cache.release(slot.pages[:slot.shared])
+            tail = slot.pages[slot.shared:]
+        if tail:
+            self.alloc.free(tail)
+
+    def prefix_stats(self) -> Optional[Dict[str, Any]]:
+        """Prefix-cache counters (None when the cache is off)."""
+        if self.prefix_cache is None:
+            return None
+        with self._lock:
+            return self.prefix_cache.stats()
 
     def _grow_locked(self, ix: int, slot: _Slot, need: int) -> None:
-        """Grow ``slot``'s pages to ``need``, preempting the youngest
-        OTHER slot while the pool is dry. Stops early if a preemption's
-        drain closed this slot. A lone slot always fits: ``submit``
-        rejects requests larger than the pool."""
+        """Grow ``slot``'s pages to ``need`` while the pool is dry:
+        first evict refcount-0 prefix-cache pages, then preempt the
+        youngest OTHER slot. Stops early if a preemption's drain closed
+        this slot. A lone slot always fits: ``submit`` rejects requests
+        larger than the pool."""
         while len(slot.pages) < need:
             if self.slots[ix] is not slot:
                 return
@@ -648,6 +779,10 @@ class LLMEngine:
             if got is not None:
                 slot.pages.extend(got)
                 return
+            if (self.prefix_cache is not None
+                    and self.prefix_cache.evict(
+                        need - len(slot.pages) - self.alloc.n_free) > 0):
+                continue        # reclaimed cached pages; retry alloc
             victim = self._victim_locked(ix)
             if victim is None:
                 raise RuntimeError(
@@ -668,6 +803,7 @@ class LLMEngine:
             take = min(g.tokens, slot.prefill_remaining)
             if take <= 0:
                 continue
+            self._check_cow_locked(slot, slot.prefilled)
             self._grow_locked(g.sid, slot,
                               -(-(slot.prefilled + take) // self.Pg))
             if self.slots[g.sid] is slot:
@@ -702,7 +838,9 @@ class LLMEngine:
             return            # the drain closed it: pages already freed
         self.slots[ix] = None
         victim.preempted = True
-        self.alloc.free(victim.pages)
+        # never frees shared pages: other slots' page tables may point
+        # at them; the references drop and the tree keeps the KV
+        self._free_slot_pages_locked(victim, retire=False)
         self.stats["preemptions"] += 1
         self._wait.appendleft(victim.req)
 
@@ -715,6 +853,7 @@ class LLMEngine:
         for i, slot in enumerate(self.slots):
             if slot is None or slot.cur is None:
                 continue
+            self._check_cow_locked(slot, slot.pos)
             pt[i, :len(slot.pages)] = slot.pages
             # tokens this slot still owes from THIS dispatch (the tail
             # of an overshooting window is junk)
@@ -809,7 +948,7 @@ class LLMEngine:
             slot = self.slots[ix]
             if slot is not None and slot.req is req:
                 self.slots[ix] = None
-                self.alloc.free(slot.pages)
+                self._free_slot_pages_locked(slot, retire=True)
             self.stats["completed"] += 1
             req.out_q.put(_DONE)
 

@@ -3,8 +3,9 @@ replica behind one continuous-batching engine (serve/engine.py).
 
 Wrap it with a serve deployment at the use site; here it is a plain
 class whose ``__call__``/``stream``/``generate_batch`` are the request
-entry points. The engine pool, fleet, autoscaler, watchdog, prefix
-cache, speculative decoding and tensor parallelism of the reference
+entry points. The engine's int8 KV pool (``kv_dtype``) and prefix cache
+(``prefix_cache``) pass through. The engine pool, fleet, autoscaler,
+watchdog, speculative decoding and tensor parallelism of the reference
 are not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
@@ -36,6 +37,10 @@ class LlamaDeployment:
         pending (default 8).
     prefill_chunk: prompt tokens per scheduling round (default 256).
     eos_id: token that ends a request early.
+    kv_dtype: the KV pool's storage, ``"fp"`` (default) or ``"int8"``
+        (``RAY_TPU_KV_DTYPE`` overrides it when the engine is built).
+    prefix_cache: share KV pages of identical page-aligned prompt
+        prefixes across requests (default off).
     device: ``None``/``"cuda"`` (the card; raises without one) or
         ``"cpu"``.
     """
@@ -47,7 +52,9 @@ class LlamaDeployment:
                  n_pages: Optional[int] = None,
                  decode_chunk: Optional[int] = None,
                  prefill_chunk: Optional[int] = None,
-                 eos_id: Optional[int] = None, device=None):
+                 eos_id: Optional[int] = None,
+                 kv_dtype: Optional[str] = None,
+                 prefix_cache: bool = False, device=None):
         self.device = resolve_device(device)
         self.cfg = config or llama_tiny()
         if params is None:
@@ -61,7 +68,7 @@ class LlamaDeployment:
         self._engine_opts = dict(
             max_slots=max_slots, page_size=page_size, n_pages=n_pages,
             chunk=decode_chunk or 8, prefill_chunk=prefill_chunk,
-            eos_id=eos_id)
+            eos_id=eos_id, kv_dtype=kv_dtype, prefix_cache=prefix_cache)
         self._engine = None
         self._engine_lock = threading.Lock()
 

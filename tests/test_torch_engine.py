@@ -143,8 +143,13 @@ def test_kv_pool_layout_and_bytes_match_jax(dtype):
     assert view.page_size == 16
     store = kv_layer_store(view)
     assert store[0] is tpool[0][0] and store[1] is tpool[0][1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_kv_pool(tcfg, 8, 16, kv_dtype="int8")
+    jq = jkv.init_kv_pool(jcfg, 8, 16, kv_dtype="int8")
+    tq = init_kv_pool(tcfg, 8, 16, kv_dtype="int8", device="cpu")
+    assert [(tuple(t.shape), str(t.dtype)) for layer in tq for t in layer] \
+        == [(tuple(a.shape), f"torch.{a.dtype.name}")
+            for layer in jq for a in layer]
+    assert kv_pool_page_bytes(tcfg, 16, "int8") == \
+        jkv.kv_pool_page_bytes(jcfg, 16, "int8")
     with pytest.raises(ValueError):
         kv_pool_page_bytes(tcfg, 16, kv_dtype="int4")
 

@@ -91,7 +91,9 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.ops.flash_attention",
                  "ray_tpu_torch.ops.attention",
                  "ray_tpu_torch.models.gpt2",
-                 "ray_tpu_torch.train.spmd"):
+                 "ray_tpu_torch.train.spmd",
+                 "ray_tpu_torch.util.envknobs",
+                 "ray_tpu_torch.serve.prefix_cache"):
         assert name in res["modules"]
 
 
@@ -116,9 +118,15 @@ def test_entry_points_raise_without_cuda_unless_cpu():
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(NoCudaError):
         init_params(cfg, seed=0)
-    model = build_model(cfg, init_params(cfg, seed=0, device="cpu"), "cpu")
+    sd = init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(NoCudaError):
+        build_model(cfg, sd)
+    model = build_model(cfg, sd, "cpu")
+    assert model.tok_embeddings.device.type == "cpu"
     with pytest.raises(NoCudaError):
         LLMEngine(model)
+    with pytest.raises(NoCudaError):
+        LLMEngine(model, kv_dtype="int8", prefix_cache=True)
     with pytest.raises(NoCudaError):
         LlamaDeployment(cfg)
     eng = LLMEngine(model, device="cpu")
@@ -127,7 +135,13 @@ def test_entry_points_raise_without_cuda_unless_cpu():
     assert dep.model.tok_embeddings.device.type == "cpu"
     with pytest.raises(NoCudaError):
         init_kv_pool(cfg, 4, 8)
+    with pytest.raises(NoCudaError):
+        init_kv_pool(cfg, 4, 8, kv_dtype="int8")
     assert init_kv_pool(cfg, 4, 8, device="cpu")[0][0].device.type == "cpu"
+    assert all(t.device.type == "cpu" for t in init_kv_pool(
+        cfg, 4, 8, kv_dtype="int8", device="cpu")[0])
+    assert LLMEngine(model, kv_dtype="int8", prefix_cache=True,
+                     device="cpu").kv_dtype == "int8"
     gcfg = gpt2.gpt2_tiny(dtype=torch.float32)
     with pytest.raises(NoCudaError):
         gpt2.init_params(gcfg, seed=0)

@@ -9,7 +9,8 @@ it:
 
 Tolerances: fp32 inputs 1e-4 (abs and rel; the kernel and the plain
 version sum in different orders, and the kernel multiplies q by
-1/sqrt(D) before the dot product); bf16 inputs 4e-3 abs plus 2^-7 rel
+1/sqrt(D) before the dot product), for K1 and for K2 (int8 pages,
+dequantized in the same order by both); bf16 inputs 4e-3 abs plus 2^-7 rel
 (both compute in fp32 and round the output to bf16 once, so they may
 differ by one bf16 ulp, at most 2^-7 of the value).
 
@@ -40,10 +41,22 @@ def dev():
 
 
 def _layout(seed, B, H, KH, D, Pg, max_pages, n_pages, dtype, dev,
-            positions=None, null_rows=()):
+            positions=None, null_rows=(), int8=False):
+    """(q, pk, pv, pt, pos) with pages in ``dtype`` from a standard
+    normal; with ``int8`` (K2's inputs), int8 pages from
+    integers(-127, 128) and their scales (sk, sv) from uniform(0.1, 2.0)
+    appended."""
     rng = np.random.default_rng(seed)
-    pk = rng.standard_normal((KH, n_pages, Pg, D)).astype(np.float32)
-    pv = rng.standard_normal((KH, n_pages, Pg, D)).astype(np.float32)
+    shape, sshape = (KH, n_pages, Pg, D), (KH, n_pages, 1)
+    if int8:
+        pk, pv = (rng.integers(-127, 128, shape).astype(np.int8)
+                  for _ in range(2))
+        scales = [rng.uniform(0.1, 2.0, sshape).astype(np.float32)
+                  for _ in range(2)]
+    else:
+        pk, pv = (rng.standard_normal(shape).astype(np.float32)
+                  for _ in range(2))
+        scales = []
     perm = rng.permutation(n_pages - 1)[:B * max_pages] + 1
     pt = perm.reshape(B, max_pages).astype(np.int32)
     for b in null_rows:
@@ -53,8 +66,9 @@ def _layout(seed, B, H, KH, D, Pg, max_pages, n_pages, dtype, dev,
     pos = np.asarray(positions, np.int32)
     q = rng.standard_normal((B, H, D)).astype(np.float32)
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    return (t(q).to(dtype), t(pk).to(dtype), t(pv).to(dtype), t(pt),
-            t(pos))
+    page_dtype = torch.int8 if int8 else dtype
+    return (t(q).to(dtype), t(pk).to(page_dtype), t(pv).to(page_dtype),
+            t(pt), t(pos), *map(t, scales))
 
 
 @pytest.mark.parametrize("rep", [1, 4, 8])
@@ -176,6 +190,132 @@ def test_bf16_deployment_on_card(dev):
                 == steps * cfg.n_layers)
     finally:
         dep.shutdown()
+
+
+# --------------------------------------------------------------------
+# K2: int8 pages with per-page fp32 scales
+# --------------------------------------------------------------------
+
+@pytest.mark.parametrize("rep", [1, 4, 8])
+@pytest.mark.parametrize("D", [64, 128])
+def test_k2_matches_plain_fp32(dev, rep, D):
+    args = _layout(rep * 100 + D, 3, 2 * rep, 2, D, 16, 4, 40,
+                   torch.float32, dev, int8=True)
+    out = pa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_attention_reference(*args)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_k2_position_zero_full_window_and_null_page(dev):
+    args = _layout(17, 4, 8, 2, 64, 8, 3, 32, torch.float32, dev,
+                   positions=[0, 3 * 8 - 1, 5, 12], null_rows=(2,),
+                   int8=True)
+    out = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_attention_reference(*args)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    _q, _pk, pv, pt, _pos, _sk, sv = args
+    v0 = pv[0, pt[0, 0], 0].float() * (sv[0, pt[0, 0], 0] * (1 / 127))
+    torch.testing.assert_close(out[0, 0], v0, rtol=1e-5, atol=1e-5)
+
+
+def test_k2_tinyllama_decode_shape_fp32_across_splits(dev):
+    split, Pg, mp = pa._SPLIT_KEYS, 64, 32
+    positions = [0, split - 1, split, split + 1, 2 * split - 1, 2 * split,
+                 Pg - 1, Pg, 5 * split - 1, 5 * split, 5 * split + 1,
+                 mp * Pg - 2, mp * Pg - 1, 1000, 1500, 300]
+    args = _layout(21, 16, 32, 4, 64, Pg, mp, 513, torch.float32, dev,
+                   positions=positions, int8=True)
+    out = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_attention_reference(*args)
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_k2_tinyllama_decode_shape_bf16(dev):
+    args = _layout(23, 16, 32, 4, 64, 64, 32, 513, torch.bfloat16, dev,
+                   int8=True)
+    out = pa.paged_decode_attention(*args)
+    ref = pa.paged_decode_attention_reference(*args)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=4e-3)
+
+
+def test_k2_counts_its_own_launches(dev):
+    args = _layout(25, 2, 8, 2, 64, 8, 2, 16, torch.float32, dev, int8=True)
+    k1, k2 = (pa.paged_decode_attention.launches,
+              pa.paged_decode_attention.launches_int8)
+    pa.paged_decode_attention(*args)
+    pa.paged_decode_attention_reference(*args)
+    assert (pa.paged_decode_attention.launches,
+            pa.paged_decode_attention.launches_int8) == (k1, k2 + 1)
+
+
+@pytest.mark.parametrize("bad", ["head_dim", "rep", "q_dtype", "pages_fp",
+                                 "scale_dtype", "scale_shape", "one_scale",
+                                 "noncontig_scale"])
+def test_k2_refuses_what_it_does_not_take(dev, bad):
+    q, pk, pv, pt, pos, sk, sv = _layout(27, 2, 8, 2, 64, 8, 2, 16,
+                                         torch.float32, dev, int8=True)
+    err = ValueError
+    if bad == "head_dim":
+        q, pk, pv = (t[..., :32].contiguous() for t in (q, pk, pv))
+    elif bad == "rep":
+        q = torch.cat([q, q, q], dim=1)[:, :18].contiguous()
+    elif bad == "q_dtype":
+        q = q.half()
+    elif bad == "pages_fp":
+        pk, pv = pk.float(), pv.float()
+        err = pa.PagedShapeError
+    elif bad == "scale_dtype":
+        sk = sk.double()
+    elif bad == "scale_shape":
+        sk, sv = sk[:, :, 0], sv[:, :, 0]
+        err = pa.PagedShapeError
+    elif bad == "one_scale":
+        sv = None
+        err = pa.PagedShapeError
+    else:
+        sk = torch.cat([sk, sk], dim=2)[:, :, :1]
+    with pytest.raises(err):
+        pa.paged_decode_attention(q, pk, pv, pt, pos, sk, sv)
+
+
+def test_int8_prefix_engine_on_card_matches_cpu(dev):
+    """The int8 pool with the prefix cache, the same fp32 weights on the
+    card (K2) and on the CPU (plain version): identical greedy streams
+    over a cold wave, a fully cached page-aligned repeat (the COW path)
+    and a prompt sharing its first page; both engines leak-free."""
+    from ray_tpu_torch.models.llama import build_model, init_params, \
+        llama_tiny
+    from ray_tpu_torch.serve.engine import LLMEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama_tiny(dtype=torch.float32, dim=128, n_heads=2,
+                     n_kv_heads=1)
+    sd = init_params(cfg, seed=0, device="cpu")
+    waves = [[[3], list(range(1, 9)), [4] * 9, list(range(1, 30))],
+             [list(range(1, 9)), list(range(1, 9)) + [7] * 6]]
+    streams = []
+    for d in ("cpu", dev):
+        eng = LLMEngine(build_model(cfg, sd, d), max_slots=4, page_size=8,
+                        n_pages=64, chunk=4, kv_dtype="int8",
+                        prefix_cache=True, device=d)
+        k2 = pa.paged_decode_attention.launches_int8
+        out = []
+        for wave in waves:
+            hs = [eng.submit(p, max_new_tokens=12) for p in wave]
+            while eng.step():
+                pass
+            out.append([h.result() for h in hs])
+        streams.append(out)
+        assert eng.stats["cache_hit_admissions"] == 2
+        assert eng.alloc.occupancy() == eng.prefix_cache.cached_pages
+        eng.prefix_cache.check_invariants()
+        if d != "cpu":
+            assert (pa.paged_decode_attention.launches_int8 - k2
+                    == eng.stats["decode_steps"] * cfg.n_layers)
+    assert streams[0] == streams[1]
 
 
 # --------------------------------------------------------------------

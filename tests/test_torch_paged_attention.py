@@ -236,3 +236,22 @@ def test_build_names_libraries_by_content():
     assert path.name.startswith("paged_decode_attention-")
     assert path == _build.library_path("paged_decode_attention.cu")
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+
+
+def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
+    """K1 and K2 are built from two sources that include one header: an
+    edit to the header alone must name a new library for each, so a
+    stale build is never loaded."""
+    for name in (tpa._SOURCE, tpa._SOURCE_INT8,
+                 "paged_decode_attention.cuh"):
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = [_build.library_path(s)
+              for s in (tpa._SOURCE, tpa._SOURCE_INT8)]
+    assert before[0].name.startswith("paged_decode_attention-")
+    assert before[1].name.startswith("paged_decode_attention_int8-")
+    header = tmp_path / "paged_decode_attention.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [_build.library_path(s)
+             for s in (tpa._SOURCE, tpa._SOURCE_INT8)]
+    assert before[0] != after[0] and before[1] != after[1]

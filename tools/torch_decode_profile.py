@@ -1,23 +1,26 @@
 """Where the time of the port's serving step goes, on one NVIDIA GPU.
 
-    python3 tools/torch_decode_profile.py [--steps 20] [--seed 0]
-        [--split-keys 64,128,256] [--out profile.json]
+    python3 tools/torch_decode_profile.py [--kv-dtype fp|int8]
+        [--steps 20] [--seed 0] [--split-keys 64,128,256]
+        [--out profile.json]
 
 Runs from the root of a checkout of the repo (it imports
-``ray_tpu_torch``; no JAX). Three measurements, each printed with the
-card's name and power limit:
+``ray_tpu_torch``; no JAX). Three measurements on a pool of
+``--kv-dtype`` (``fp``: bf16 pages, kernel K1; ``int8``: int8 pages
+with per-page scales, kernel K2), each printed with the card's name
+and power limit:
 
-1. K1 (``paged_decode_attention``) at the TinyLlama-1.1B decode shape
-   (16 slots, 32 q / 4 kv heads, head_dim 64, 64-token pages, bf16,
-   positions drawn over the 2048-token window) for each split size in
-   ``--split-keys``: median time over 50 launches, CUDA events, L2
-   flushed before each.
+1. The decode kernel (``paged_decode_attention``: K1, or K2 for int8)
+   at the TinyLlama-1.1B decode shape (16 slots, 32 q / 4 kv heads,
+   head_dim 64, 64-token pages, bf16 q, positions drawn over the
+   2048-token window) for each split size in ``--split-keys``: median
+   time over 50 launches, CUDA events, L2 flushed before each.
 2. One decode step of TinyLlama-1.1B at 16 slots (the engine's decode
-   body: a single-token forward over the paged pool plus the greedy
-   pick), ``--steps`` times under ``torch.profiler``: wall time per
-   step, device-busy time per step (sum of kernel times), the idle
-   share, kernel launches per step and the kernels that take the most
-   device time.
+   body: a single-token forward over the paged pool — its append and
+   its decode kernel — plus the greedy pick), ``--steps`` times under
+   ``torch.profiler``: wall time per step, device-busy time per step
+   (sum of kernel times), the idle share, kernel launches per step and
+   the kernels that take the most device time.
 3. The same for one chunked-prefill call (4 rows x 256 tokens).
 
 Random weights from ``--seed``; nothing is downloaded.
@@ -43,6 +46,9 @@ from ray_tpu_torch.models.kv_cache import (init_kv_pool,  # noqa: E402
 from ray_tpu_torch.ops import paged_attention as pa  # noqa: E402
 
 
+SPIN_CYCLES = 4_000_000   # ~2 ms at the H100's 1.6-2 GHz SM clock
+
+
 def _card() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -50,35 +56,49 @@ def _card() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def k1_split_sweep(splits, seed: int) -> dict:
+def kernel_split_sweep(splits, seed: int, kv_dtype: str) -> dict:
     g = np.random.default_rng(seed)
     B, H, KH, D, Pg, mp = 16, 32, 4, 64, 64, 32
     n_pages = B * mp + 1
     dev = torch.device("cuda")
-    pk = torch.from_numpy(g.standard_normal((KH, n_pages, Pg, D)).astype(
-        np.float32)).to(dev, torch.bfloat16)
-    pv = torch.from_numpy(g.standard_normal((KH, n_pages, Pg, D)).astype(
-        np.float32)).to(dev, torch.bfloat16)
+    scales = {}
+    if kv_dtype == "int8":
+        pk, pv = (torch.from_numpy(g.integers(
+            -127, 128, (KH, n_pages, Pg, D)).astype(np.int8)).to(dev)
+            for _ in range(2))
+        scales = {name: torch.from_numpy(g.uniform(
+            0.1, 2.0, (KH, n_pages, 1)).astype(np.float32)).to(dev)
+            for name in ("scales_k", "scales_v")}
+    else:
+        pk, pv = (torch.from_numpy(g.standard_normal(
+            (KH, n_pages, Pg, D)).astype(np.float32)).to(
+                dev, torch.bfloat16) for _ in range(2))
     pt = torch.from_numpy((g.permutation(n_pages - 1)[:B * mp] + 1).reshape(
         B, mp).astype(np.int32)).to(dev)
     pos = torch.from_numpy(g.integers(0, mp * Pg, B).astype(np.int32)).to(dev)
     q = torch.from_numpy(g.standard_normal((B, H, D)).astype(
         np.float32)).to(dev, torch.bfloat16)
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device=dev)
-    ref = pa.paged_decode_attention_reference(q, pk, pv, pt, pos)
+    ref = pa.paged_decode_attention_reference(q, pk, pv, pt, pos,
+                                              **scales)
     out = {}
     for split in splits:
-        err = (pa._launch_kernel(q, pk, pv, pt, pos, split).float()
+        err = (pa._launch_kernel(q, pk, pv, pt, pos, split,
+                                 **scales).float()
                - ref.float()).abs().max().item()
-        # all launches queued behind their flushes, one sync at the
-        # end: the events time the device, not the host's launch
+        # all launches queued behind their flushes and a ~2 ms spin
+        # that keeps the device behind the host (a wrapper call can
+        # cost the host more than the flush costs the device), one
+        # sync at the end: the events time the device, not the host's
+        # launch
         events = []
         for _ in range(50):
             flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
             s = torch.cuda.Event(enable_timing=True)
             e = torch.cuda.Event(enable_timing=True)
             s.record()
-            pa._launch_kernel(q, pk, pv, pt, pos, split)
+            pa._launch_kernel(q, pk, pv, pt, pos, split, **scales)
             e.record()
             events.append((s, e))
         torch.cuda.synchronize()
@@ -131,6 +151,7 @@ def _profile(fn, n: int, top: Optional[int] = 12) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kv-dtype", choices=("fp", "int8"), default="fp")
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--split-keys", default="64,128,256")
@@ -141,17 +162,20 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     card = _card()
-    res = {"card": card, "torch": torch.__version__}
-    res["k1_split_ms"] = k1_split_sweep(
-        [int(s) for s in args.split_keys.split(",")], args.seed)
-    print(f"K1 by split size on {card}: {res['k1_split_ms']}")
+    res = {"card": card, "torch": torch.__version__,
+           "kv_dtype": args.kv_dtype}
+    kernel = "K2" if args.kv_dtype == "int8" else "K1"
+    res["kernel_split_ms"] = kernel_split_sweep(
+        [int(s) for s in args.split_keys.split(",")], args.seed,
+        args.kv_dtype)
+    print(f"{kernel} by split size on {card}: {res['kernel_split_ms']}")
 
     cfg = tl.tinyllama_1_1b()
     model = tl.build_model(cfg, tl.init_params(cfg, args.seed, "cuda"),
                            "cuda")
     g = np.random.default_rng(args.seed)
     S, mp, Pg = 16, 32, 64
-    pool = init_kv_pool(cfg, S * mp + 1, Pg, device="cuda")
+    pool = init_kv_pool(cfg, S * mp + 1, Pg, args.kv_dtype, device="cuda")
     pt = torch.arange(1, S * mp + 1, dtype=torch.int32,
                       device="cuda").reshape(S, mp)
     kv = [kv_layer_view(layer, pt) for layer in pool]
@@ -162,7 +186,7 @@ def main(argv=None) -> int:
         tl._pick_token(model(cur[:, None], kv, pos)[:, -1], 0.0)
 
     res["decode_step"] = _profile(decode, args.steps)
-    print(f"decode step, 16 slots, on {card}: "
+    print(f"decode step, 16 slots, {args.kv_dtype} pool, on {card}: "
           f"{json.dumps(res['decode_step'], indent=1)}")
 
     ids = torch.from_numpy(g.integers(0, cfg.vocab_size, (4, 256)).astype(
@@ -175,7 +199,7 @@ def main(argv=None) -> int:
         model(ids, kv4, start)
 
     res["prefill_4x256"] = _profile(prefill, max(3, args.steps // 4))
-    print(f"prefill 4 x 256 tokens on {card}: "
+    print(f"prefill 4 x 256 tokens, {args.kv_dtype} pool, on {card}: "
           f"{json.dumps(res['prefill_4x256'], indent=1)}")
     if args.out:
         with open(args.out, "w") as f:
