@@ -9,8 +9,10 @@ and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure:
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
-   limit. Builds the port's CUDA sources (K1, K2, K3-K5) with nvcc, one
-   process per source, all started together.
+   limit. Builds the port's CUDA sources (K1, K2, the scalar K3-K5 and
+   the tensor-core bf16 K3/K5) with nvcc, one process per source, all
+   started together, and prints ptxas's registers and spills for the
+   tensor-core kernels.
 2. Every kernel against its plain PyTorch version on the card: K1
    (``paged_decode_attention``) in fp32 over head_dim 64/128 and GQA
    groups 1/4/8 (tolerance 1e-4), with pos 0, a full window and
@@ -69,11 +71,16 @@ which raises on failure:
    hit tokens.
 5. The flash-attention kernels against their plain versions on the
    card, each on the same inputs as its plain version: K3 (forward),
-   K4 (dQ) and K5 (dK, dV) in fp32 at T 128/256/512 (one and several
-   kv tiles), head_dim 16 (zero-padded to 64, as ``flash_attention``
-   pads it), 64 and 128, causal and not (1e-4 abs and rel); at the
-   GPT-2-124M shape (B 24, T 1024, H 12, D 64, causal) in fp32 (1e-4)
-   and bf16 (output 4e-3 + 2^-7·|ref|, gradients 1e-2 + 2^-6·|ref|).
+   K4 (dQ) and K5 (dK, dV) in fp32 (the scalar kernels) at T
+   128/256/512 (one and several kv tiles), head_dim 16 (zero-padded to
+   64, as ``flash_attention`` pads it), 64 and 128, causal and not
+   (1e-4 abs and rel); in bf16 (K3 and K5 on the tensor cores) at T
+   128/192/512 (192: a trailing 64-row tile), D 64 and 128, causal and
+   not, at Tq 128 / Tk 384 non-causal, and on the strided column views
+   of a fused qkv projection (output 4e-3 + 2^-7·|ref|, lse 1e-4,
+   gradients 1e-2 + 2^-6·|ref|); at the GPT-2-124M shape (B 24, T
+   1024, H 12, D 64, causal) in fp32 (1e-4) and bf16 (the same bf16
+   limits).
    Times each kernel, its plain version and the library yardstick
    (SDPA forward, backward and forward+backward, never called by the
    port) with CUDA events, L2 flushed before each launch, and computes
@@ -103,6 +110,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -738,16 +746,29 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
 # Training: flash attention (K3, K4, K5) and the GPT-2 train step
 # --------------------------------------------------------------------
 
-def _flash_inputs(seed, B, T, H, D, dtype, pad_to=None):
+def _flash_inputs(seed, B, T, H, D, dtype, pad_to=None, Tk=None):
     g = np.random.default_rng(seed)
     out = []
-    for _ in range(4):
-        x = torch.from_numpy(g.standard_normal((B, T, H, D)).astype(
+    for i in range(4):
+        rows = Tk if Tk and i in (1, 2) else T
+        x = torch.from_numpy(g.standard_normal((B, rows, H, D)).astype(
             np.float32)).to("cuda", dtype)
         if pad_to:
             x = torch.nn.functional.pad(x, (0, pad_to - D))
         out.append(x)
     return out
+
+
+def _qkv_views(seed, B, T, H, D):
+    """bf16 q, k, v as the column views of one fused [B, T, 3 H D]
+    projection (GPT-2's c_attn layout, row stride 3 H D), and dO."""
+    g = np.random.default_rng(seed)
+    qkv = torch.from_numpy(g.standard_normal((B, T, 3 * H * D)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    do = torch.from_numpy(g.standard_normal((B, T, H, D)).astype(
+        np.float32)).to("cuda", torch.bfloat16)
+    return q, k, v, do
 
 
 def _flash_errors(fa, q, k, v, do, causal, scale, limits):
@@ -791,6 +812,27 @@ def phase_flash_kernels(fa, seed: int) -> list:
     print(f"phase 5: K3/K4/K5 fp32 at T 128/256/512, D 16 (padded to 64)/"
           f"64/128, causal and not: max abs err {worst} (tol "
           f"{FLASH_FP32_TOL})")
+
+    bf16 = {"o": FLASH_BF16_O, "grad": FLASH_BF16_GRAD}
+    cases = [(_flash_inputs(seed + T + D, 2, T, 3, D, torch.bfloat16),
+              causal, D) for T in (128, 192, 512) for D in (64, 128)
+             for causal in (True, False)]
+    cases.append((_flash_inputs(seed + 5, 1, 128, 2, 64, torch.bfloat16,
+                                Tk=384), False, 64))
+    cases.append((_qkv_views(seed + 6, 2, 256, 3, 64), True, 64))
+    worst16 = {}
+    for args, causal, D in cases:
+        errs = _flash_errors(fa, *args, causal, D ** -0.5, bf16)
+        errs.pop("max_abs_ref")
+        for key, err in errs.items():
+            worst16[key] = max(worst16.get(key, 0.0), err)
+    del cases
+    print(f"phase 5: K3/K4/K5 bf16 (K3/K5 on the tensor cores) at T "
+          f"128/192/512, D 64/128, causal and not, Tq 128 / Tk 384, and "
+          f"strided qkv views: max abs err {worst16} (tol o "
+          f"{FLASH_BF16_O[0]} + {FLASH_BF16_O[1]} * |ref|, lse "
+          f"{FLASH_FP32_TOL}, grads {FLASH_BF16_GRAD[0]} + "
+          f"{FLASH_BF16_GRAD[1]} * |ref|)")
 
     B, T, H, D = 24, 1024, 12, 64
     scale = D ** -0.5
@@ -850,18 +892,26 @@ def phase_flash_kernels(fa, seed: int) -> list:
             "dq": (6 * x + lse_bytes, 6 * pairs * D),
             "dkv": (7 * x + lse_bytes, 8 * pairs * D)}
     rows = []
-    for key, name, body, lib_ms, errs in (
-            ("fwd", "flash_fwd", 91, lib["fwd"], ("o",)),
-            ("dq", "flash_bwd_dq", 204, lib["bwd"], ("dq",)),
-            ("dkv", "flash_bwd_dkv", 259, lib["bwd"], ("dk", "dv"))):
+    tensor = ("wgmma, bf16 in, fp32 accumulators; TMA ring of 2 "
+              "swizzled stages; 1 consumer warpgroup + 1 producer warp "
+              "per 64-row tile; CTAs grouped by (batch, head); ")
+    for key, name, body, lib_ms, errs, source, design in (
+            ("fwd", "flash_fwd", 91, lib["fwd"], ("o",), fa._SOURCE_SM90,
+             tensor + "Q and P as register A operands"),
+            ("dq", "flash_bwd_dq", 204, lib["bwd"], ("dq",), fa._SOURCE,
+             "scalar fp32 FMAs from shared memory, 64-row tiles, 128 "
+             "threads"),
+            ("dkv", "flash_bwd_dkv", 259, lib["bwd"], ("dk", "dv"),
+             fa._SOURCE_SM90, tensor + "P^T and dS^T as register A "
+             "operands; delta pass before it")):
         nbytes, flops = spec[key]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
         rows.append({
             "name": name, "route": "cuda",
-            "source": "ray_tpu_torch/ops/csrc/flash_attention.cu",
+            "source": f"ray_tpu_torch/ops/csrc/{source}",
             "replaces": f"ray_tpu/ops/flash_attention.py:{body}",
-            "launches": None,
+            "design": design, "launches": None,
             "max_abs_err": max(err16[e] for e in errs),
             "max_abs_err_fp32": max(err32[e] for e in errs),
             "ms": ms[key], "plain_ms": plain[key],
@@ -871,7 +921,8 @@ def phase_flash_kernels(fa, seed: int) -> list:
             "shape": {"B": B, "T": T, "H": H, "D": D, "causal": True,
                       "bytes": nbytes, "flops": flops,
                       "dtype": "bfloat16"}})
-        print(f"phase 5: {name} bf16: kernel {ms[key]:.4f} ms, plain "
+        print(f"phase 5: {name} bf16: kernel {ms[key]:.4f} ms "
+              f"({flops / ms[key] / 1e9:.1f} TFLOP/s), plain "
               f"{plain[key]:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
               f"({nbytes} bytes, {flops} flops)")
     print(f"phase 5: SDPA (is_causal) yardstick: forward {lib['fwd']:.4f}"
@@ -996,6 +1047,26 @@ def phase_train_main_path(fa, seed: int, smi: str) -> dict:
     return res
 
 
+def _ptxas_summary(report: str) -> dict:
+    """{kernel<D>: (registers, spill store bytes, spill load bytes)} from
+    ``nvcc -Xptxas -v``'s report of the tensor-core source."""
+    out, name = {}, None
+    for line in report.splitlines():
+        m = re.search(r"entry function '.*?\d(fwd_sm90|dkv_sm90|delta_kernel)"
+                      r"ILi(\d+)E",
+                      line)
+        if m:
+            name = f"{m.group(1)}<{m.group(2)}>"
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name] = [None, int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name in out:
+            out[name][0] = int(m.group(1))
+    return {k: tuple(v) for k, v in out.items()}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1018,13 +1089,16 @@ def main(argv=None) -> int:
           f"{torch.version.cuda}")
     print(smi)
     tb = time.monotonic()
-    sources = [pa._SOURCE, pa._SOURCE_INT8, fa._SOURCE]
+    sources = [pa._SOURCE, pa._SOURCE_INT8, fa._SOURCE, fa._SOURCE_SM90]
     _build.compile_all(sources)
     pa.load_kernel()
     pa.load_kernel(int8=True)
     fa.load_kernel()
+    fa.load_kernel(sm90=True)
     print(f"phase 1: built {', '.join(sources)} for sm_90a in "
           f"{time.monotonic() - tb:.1f} s")
+    ptxas = _ptxas_summary(_build.ptxas_report(fa._SOURCE_SM90))
+    print(f"phase 1: ptxas, {fa._SOURCE_SM90}: {ptxas or 'no report'}")
 
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
@@ -1051,6 +1125,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kernels": kernels["kernels"],
+                       "ptxas_sm90": ptxas,
                        "main_path": main_path,
                        "int8_prefix_path": int8_path,
                        "train_main_path": train,

@@ -9,7 +9,9 @@ library's file name carries a digest of its source, of the headers
 beside it and of the flags, so an edited source or header is rebuilt
 and a stale library is never loaded.
 Python binds the C entries with ``ctypes`` (pointers and the stream as
-``c_void_p``, ints as ``c_int``). Nothing here runs at import.
+``c_void_p``, ints as ``c_int``). ptxas's report of each build (``-Xptxas
+-v``: registers, shared memory and spills per kernel) is kept beside the
+library. Nothing here runs at import.
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ from typing import Callable, Dict, Iterable
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -79,8 +81,16 @@ def _finish(source: str, job) -> Path:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f"nvcc failed on {source} (exit "
                            f"{proc.returncode}):\n{out}{err}")
+    path.with_suffix(".ptxas.txt").write_text(err)
     os.replace(tmp, path)
     return path
+
+
+def ptxas_report(source: str) -> str:
+    """What ptxas said (registers, shared memory, spills per kernel)
+    when ``source``'s library was built; "" if it is not built."""
+    report = library_path(source).with_suffix(".ptxas.txt")
+    return report.read_text() if report.is_file() else ""
 
 
 def _compile(source: str) -> Path:

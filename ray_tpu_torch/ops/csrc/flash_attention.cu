@@ -1,6 +1,8 @@
-// Flash attention for Hopper (sm_90a): the forward (K3) and the two
-// backward kernels (K4: dQ, K5: dK and dV) of blockwise attention over
-// the [B, T, H, D] layout, with an fp32 online softmax.
+// Flash attention for Hopper (sm_90a), scalar fp32 FMAs: the forward
+// (K3) and the two backward kernels (K4: dQ, K5: dK and dV) of blockwise
+// attention over the [B, T, H, D] layout, with an fp32 online softmax.
+// K3 and K5 are built here for fp32 only: bf16 inputs go to the
+// tensor-core kernels of flash_attention_sm90.cu. K4 takes both types.
 //
 // Replaces the TPU kernels of ray_tpu/ops/flash_attention.py:
 //   fwd_kernel     <- _fwd_kernel     (launched by _flash_fwd)
@@ -35,8 +37,8 @@
 // Inputs are read through their strides (batch, row, head; the last
 // dimension must be contiguous), so q, k and v may be the strided
 // column views of one fused qkv projection.
-// Not yet done (a later change): mma/wgmma tensor-core products, TMA or
-// cp.async double buffering, a persistent schedule.
+// Not yet done for K4 (a later change): tensor-core products and staged
+// copies, as flash_attention_sm90.cu does for K3 and K5.
 //
 // Plain C interface, bound with ctypes by ray_tpu_torch/ops/_build.py
 // and ray_tpu_torch/ops/flash_attention.py. Each launch returns
@@ -600,16 +602,20 @@ bool shape_ok(int B, int T_q, int T_k, int H, int causal) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; D: 64 or 128. Pointers are device
+// dtype: 0 = float32, 1 = bfloat16 (dQ only: flash_fwd_launch and
+// flash_bwd_dkv_launch take float32); D: 64 or 128. Pointers are device
 // pointers; `strides` is a host array of (batch, row, head) element
 // strides, three per tensor in argument order (the last dimension of
 // every tensor is contiguous); lse is a contiguous [B, H, T_q] fp32
 // tensor. Causal needs T_q == T_k. Returns a cudaError_t,
-// cudaErrorInvalidValue for shapes the kernels do not take (the Python
-// wrapper checks them first).
-#define RTT_DISPATCH(CALL)                                                  \
+// cudaErrorInvalidValue for shapes or types the kernels do not take (the
+// Python wrapper checks them first).
+#define RTT_DISPATCH_F32(CALL)                                              \
   if (dtype == 0 && D == 64) return static_cast<int>(CALL(float, 64));      \
-  if (dtype == 0 && D == 128) return static_cast<int>(CALL(float, 128));    \
+  if (dtype == 0 && D == 128) return static_cast<int>(CALL(float, 128));
+
+#define RTT_DISPATCH(CALL)                                                  \
+  RTT_DISPATCH_F32(CALL)                                                    \
   if (dtype == 1 && D == 64)                                                \
     return static_cast<int>(CALL(__nv_bfloat16, 64));                       \
   if (dtype == 1 && D == 128)                                               \
@@ -627,7 +633,8 @@ extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
 #define RTT_FWD(T, DD)                                                      \
   launch_fwd<T, DD>(q, k, v, o, static_cast<float*>(lse), strides, B, T_q, \
                     T_k, H, causal, scale, st)
-  RTT_DISPATCH(RTT_FWD);
+  RTT_DISPATCH_F32(RTT_FWD);
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef RTT_FWD
 }
 
@@ -662,11 +669,13 @@ extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
 #define RTT_DKV(T, DD)                                                      \
   launch_dkv<T, DD>(q, k, v, o, dout, static_cast<const float*>(lse), dk, \
                     dv, strides, B, T_q, T_k, H, causal, scale, st)
-  RTT_DISPATCH(RTT_DKV);
+  RTT_DISPATCH_F32(RTT_DKV);
+  return static_cast<int>(cudaErrorInvalidValue);
 #undef RTT_DKV
 }
 
 #undef RTT_DISPATCH
+#undef RTT_DISPATCH_F32
 
 extern "C" const char* flash_attention_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,14 +1,22 @@
 """Port of ``ray_tpu/ops/flash_attention.py``: blockwise (flash)
 attention, forward and backward, behind one ``torch.autograd.Function``.
 
-Three kernel wrappers, each a hand-written CUDA kernel on the card
-(csrc/flash_attention.cu) and its plain PyTorch version on the CPU:
+Three kernel wrappers, each a hand-written CUDA kernel on the card and
+its plain PyTorch version on the CPU:
 
 - ``flash_fwd`` (K3, the counterpart of the TPU kernel ``_fwd_kernel``):
   O and the per-row logsumexp;
 - ``flash_bwd_dq`` (K4, ``_bwd_dq_kernel``): dQ from the saved lse, with
   ``delta = rowsum(dO * O)`` formed inside;
 - ``flash_bwd_dkv`` (K5, ``_bwd_dkv_kernel``): dK and dV.
+
+On the card the kernel follows the dtype. bf16 K3 and K5 run on the
+tensor cores (csrc/flash_attention_sm90.cu: wgmma products, TMA copies
+into a ring of swizzled bf16 tiles; K5 forms delta once per row in a
+pass before it). fp32 K3 and K5, and K4 in both dtypes, run the scalar
+fp32-FMA kernels of csrc/flash_attention.cu: tensor cores cannot hold
+fp32 inputs to 1e-4. Each dtype has exactly one kernel; none falls back
+to another.
 
 The autograd function (the ``jax.custom_vjp`` ``_flash_packed`` of the
 reference) saves ``(q, k, v, o, lse)`` and runs K4 then K5 in its
@@ -41,7 +49,8 @@ _NEG_INF = -1e30
 _SEQ_MULTIPLE = 128               # flash_attention's T contract
 _TILE = 64                        # the kernels' q and kv tile
 _HEAD_DIMS = (64, 128)
-_SOURCE = "flash_attention.cu"
+_SOURCE = "flash_attention.cu"            # K4; K3 and K5 in fp32
+_SOURCE_SM90 = "flash_attention_sm90.cu"  # K3 and K5 in bf16
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -105,9 +114,12 @@ def flash_bwd_dkv_reference(q, k, v, o, do, lse, causal: bool,
 # Kernel wrappers
 # --------------------------------------------------------------------
 
-def load_kernel() -> ctypes.CDLL:
-    """The flash kernels' library, compiled with nvcc at first use."""
+def load_kernel(sm90: bool = False) -> ctypes.CDLL:
+    """The scalar kernels' library, or with ``sm90`` the tensor-core
+    kernels' (bf16 K3 and K5), compiled with nvcc at first use."""
     from ray_tpu_torch.ops import _build
+    if sm90:
+        return _build.load(_SOURCE_SM90, _bind_sm90)
     return _build.load(_SOURCE, _bind)
 
 
@@ -147,6 +159,16 @@ def _check_kernel_args(q, k, v, causal: bool, **more) -> None:
                              f"{tuple(q.shape)}")
 
 
+def _check_tma(**tensors) -> None:
+    """The bf16 kernels copy tiles with TMA: every input needs a 16-byte
+    aligned base and batch, row and head strides of whole 16 bytes."""
+    for name, t in tensors.items():
+        if t.data_ptr() % 16 or any(s % 8 for s in t.stride()[:3]):
+            raise ValueError(f"{name}: the bf16 kernels need a 16-byte "
+                             f"aligned base and strides that are multiples "
+                             f"of 8 elements; got strides {t.stride()}")
+
+
 def _strides(*tensors) -> ctypes.Array:
     vals = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
@@ -170,23 +192,31 @@ def _lse_ok(lse, q) -> None:
 def flash_fwd(q, k, v, causal: bool, scale: float
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: (o [B, Tq, H, D] in q.dtype, lse [B, H, Tq] fp32). Launches
-    the kernel on a CUDA tensor (adding one to ``flash_fwd.launches``),
-    runs ``flash_fwd_reference`` on a CPU tensor."""
+    the kernel on a CUDA tensor (adding one to ``flash_fwd.launches``):
+    the tensor-core kernel for bf16, the scalar one for fp32. Runs
+    ``flash_fwd_reference`` on a CPU tensor."""
     if q.device.type == "cpu":
         return flash_fwd_reference(q, k, v, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_fwd: unsupported device {q.device}")
     _check_kernel_args(q, k, v, causal)
-    lib = load_kernel()
+    sm90 = q.dtype == torch.bfloat16
+    if sm90:
+        _check_tma(q=q, k=k, v=v)
+    lib = load_kernel(sm90)
     B, Tq, H, D = q.shape
     o = torch.empty_like(q, memory_format=torch.contiguous_format)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_fwd_launch", lib, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-                _strides(q, k, v, o), B, Tq, k.shape[1], H, D, int(causal),
-                scale, _DTYPE_CODES[q.dtype], stream)
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                lse.data_ptr(), _strides(q, k, v, o), B, Tq, k.shape[1], H,
+                D, int(causal), scale)
+        if sm90:
+            _launch("flash_fwd_sm90_launch", lib, *args, stream)
+        else:
+            _launch("flash_fwd_launch", lib, *args, _DTYPE_CODES[q.dtype],
+                    stream)
     flash_fwd.launches += 1
     return o, lse
 
@@ -218,25 +248,36 @@ def flash_bwd_dq(q, k, v, o, do, lse, causal: bool, scale: float
 def flash_bwd_dkv(q, k, v, o, do, lse, causal: bool, scale: float
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K5: (dK, dV) in k.dtype. Kernel on a CUDA tensor (counted in
-    ``flash_bwd_dkv.launches``), ``flash_bwd_dkv_reference`` on the
-    CPU."""
+    ``flash_bwd_dkv.launches``): for bf16 the tensor-core kernel, after
+    a pass that writes delta = rowsum(dO * O) once per row into a
+    scratch [B, H, Tq] fp32 tensor; for fp32 the scalar kernel.
+    ``flash_bwd_dkv_reference`` on the CPU."""
     if q.device.type == "cpu":
         return flash_bwd_dkv_reference(q, k, v, o, do, lse, causal, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_bwd_dkv: unsupported device {q.device}")
     _check_kernel_args(q, k, v, causal, o=o, do=do)
     _lse_ok(lse, q)
-    lib = load_kernel()
+    sm90 = q.dtype == torch.bfloat16
+    if sm90:
+        _check_tma(q=q, k=k, v=v, o=o, do=do)
+    lib = load_kernel(sm90)
     B, Tq, H, D = q.shape
     dk = torch.empty_like(k, memory_format=torch.contiguous_format)
     dv = torch.empty_like(v, memory_format=torch.contiguous_format)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        _launch("flash_bwd_dkv_launch", lib, q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), do.data_ptr(), lse.data_ptr(),
-                dk.data_ptr(), dv.data_ptr(),
-                _strides(q, k, v, o, do, dk, dv), B, Tq, k.shape[1], H, D,
-                int(causal), scale, _DTYPE_CODES[q.dtype], stream)
+        ptrs = [t.data_ptr() for t in (q, k, v, o, do, lse)]
+        tail = (_strides(q, k, v, o, do, dk, dv), B, Tq, k.shape[1], H, D,
+                int(causal), scale)
+        if sm90:
+            delta = torch.empty_like(lse)
+            _launch("flash_bwd_dkv_sm90_launch", lib, *ptrs,
+                    delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *tail,
+                    stream)
+        else:
+            _launch("flash_bwd_dkv_launch", lib, *ptrs, dk.data_ptr(),
+                    dv.data_ptr(), *tail, _DTYPE_CODES[q.dtype], stream)
     flash_bwd_dkv.launches += 1
     return dk, dv
 
@@ -310,17 +351,30 @@ def flash_attention(q, k, v, causal: bool = True) -> torch.Tensor:
     return o[..., :D] if Dp != D else o
 
 
-def _bind(lib: ctypes.CDLL) -> None:
-    """argtypes/restype of the library's C entries (run once, when
-    _build loads it)."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    tail = [i32] * 6 + [ctypes.c_float, i32, ptr]
+def _declare(lib: ctypes.CDLL, entries, tail) -> None:
+    """argtypes/restype of a flash library's C entries: (name, number of
+    device pointers) each, then the strides array and ``tail``."""
     strides = ctypes.POINTER(ctypes.c_longlong)
-    for name, n_ptrs in (("flash_fwd_launch", 5),
-                         ("flash_bwd_dq_launch", 7),
-                         ("flash_bwd_dkv_launch", 8)):
+    for name, n_ptrs in entries:
         fn = getattr(lib, name)
-        fn.argtypes = [ptr] * n_ptrs + [strides] + tail
-        fn.restype = i32
-    lib.flash_attention_error.argtypes = [i32]
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [strides] + tail
+        fn.restype = ctypes.c_int
+    lib.flash_attention_error.argtypes = [ctypes.c_int]
     lib.flash_attention_error.restype = ctypes.c_char_p
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    """The scalar library's entries (run once, when _build loads it):
+    six ints, the scale, the dtype code and the stream after the
+    strides."""
+    i32 = ctypes.c_int
+    _declare(lib, (("flash_fwd_launch", 5), ("flash_bwd_dq_launch", 7),
+                   ("flash_bwd_dkv_launch", 8)),
+             [i32] * 6 + [ctypes.c_float, i32, ctypes.c_void_p])
+
+
+def _bind_sm90(lib: ctypes.CDLL) -> None:
+    """The tensor-core library's entries: bf16 only, so no dtype code."""
+    _declare(lib, (("flash_fwd_sm90_launch", 5),
+                   ("flash_bwd_dkv_sm90_launch", 9)),
+             [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])

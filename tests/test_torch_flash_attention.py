@@ -143,6 +143,48 @@ def test_cpu_wrappers_count_no_launches():
             fa.flash_bwd_dkv.launches) == before
 
 
+@pytest.mark.parametrize("case", ["contiguous", "c_attn_view",
+                                  "odd_row_stride"])
+def test_bf16_tma_contract(case):
+    """bf16 K3/K5 copy tiles with TMA: an input must start on 16 bytes
+    and step in whole 16 bytes, as contiguous tensors and GPT-2's
+    c_attn column views do; ``_check_tma`` (run before every bf16
+    launch) refuses the rest."""
+    bf16 = torch.bfloat16
+    if case == "contiguous":
+        t = torch.zeros(2, 128, 2, 64, dtype=bf16)
+    elif case == "c_attn_view":
+        qkv = torch.zeros(2, 128, 3 * 2 * 64, dtype=bf16)
+        t = qkv.split(128, dim=-1)[1].view(2, 128, 2, 64)
+        assert t.stride() == (128 * 384, 384, 64, 1)
+    else:
+        t = torch.zeros(2, 128, 2, 68, dtype=bf16)[..., :64]
+    if case == "odd_row_stride":
+        with pytest.raises(ValueError, match="16-byte"):
+            fa._check_tma(q=t)
+    else:
+        fa._check_tma(q=t)
+
+
+def test_flash_sources_build_apart_with_ptxas_reports(tmp_path,
+                                                      monkeypatch):
+    """The scalar and the tensor-core sources are two libraries named by
+    their own digests; each build leaves ptxas's report beside its
+    library, and an unbuilt source has none."""
+    from ray_tpu_torch.ops import _build
+    paths = [_build.library_path(s) for s in (fa._SOURCE, fa._SOURCE_SM90)]
+    assert paths[0].name.startswith("flash_attention-")
+    assert paths[1].name.startswith("flash_attention_sm90-")
+    assert "-v" in _build.NVCC_FLAGS
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
+    assert _build.ptxas_report(fa._SOURCE_SM90) == ""
+    lib = _build.library_path(fa._SOURCE_SM90)
+    lib.with_suffix(".ptxas.txt").write_text("ptxas info : Used 125 "
+                                             "registers")
+    assert "125 registers" in _build.ptxas_report(fa._SOURCE_SM90)
+    assert _build.ptxas_report(fa._SOURCE) == ""
+
+
 def test_attention_dispatch_on_cpu():
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(9, 1, 128, 2, 32))
     dense = multi_head_attention(q, k, v, impl="dense")

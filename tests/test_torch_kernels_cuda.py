@@ -14,11 +14,12 @@ dequantized in the same order by both); bf16 inputs 4e-3 abs plus 2^-7 rel
 (both compute in fp32 and round the output to bf16 once, so they may
 differ by one bf16 ulp, at most 2^-7 of the value).
 
-Flash attention (K3 forward, K4 dQ, K5 dK/dV): fp32 within 1e-4 abs
-and rel of the plain versions; bf16 at the GPT-2-124M shape: the
-output within 4e-3 + 2^-7·|ref| (one rounding of an fp32 result, as
-K1), the gradients within 1e-2 + 2^-6·|ref| (they also round P and dS
-to bf16 before the products, and the kernel rounds P under its running
+Flash attention (K3 forward, K4 dQ, K5 dK/dV): fp32 (the scalar
+kernels) within 1e-4 abs and rel of the plain versions; bf16 (K3 and
+K5 on the tensor cores, K4 scalar): the output within 4e-3 +
+2^-7·|ref| (one rounding of an fp32 result, as K1), lse within 1e-4,
+the gradients within 1e-2 + 2^-6·|ref| (they also round P and dS to
+bf16 before the products, and the forward rounds P under its running
 maximum while the plain version uses the row's final one).
 """
 import dataclasses
@@ -358,27 +359,42 @@ def test_flash_kernels_match_plain_fp32(dev, T, D, causal):
                                    msg=lambda m: f"{name}: {m}")
 
 
-@pytest.mark.parametrize("T,D,causal", [
-    (128, 64, True), (512, 64, False), (256, 128, True), (256, 128, False)])
-def test_flash_kernels_match_plain_bf16(dev, T, D, causal):
-    """Every bf16 instantiation (D 64 and 128) at the bf16 limits."""
-    q, k, v, do = _flash_case(T * D, 2, T, 3, D, torch.bfloat16, dev)
-    out = _flash_all(q, k, v, do, causal, 1 / D ** 0.5, kernel=True)
-    ref = _flash_all(q, k, v, do, causal, 1 / D ** 0.5, kernel=False)
-    limits = [(4e-3, 2 ** -7), (1e-4, 1e-4)] + [(1e-2, 2 ** -6)] * 3
+_BF16_LIMITS = [(4e-3, 2 ** -7), (1e-4, 1e-4)] + [(1e-2, 2 ** -6)] * 3
+
+
+def _assert_bf16_close(out, ref):
     for name, a, b, (atol, rtol) in zip(("o", "lse", "dq", "dk", "dv"),
-                                        out, ref, limits):
-        assert a.dtype == b.dtype, name
+                                        out, ref, _BF16_LIMITS):
+        assert a.dtype == b.dtype and a.shape == b.shape, name
         torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
                                    atol=atol, msg=lambda m: f"{name}: {m}")
 
 
-def test_flash_kernels_cross_length_non_causal(dev):
-    q, k, v, do = _flash_case(4, 1, 128, 2, 64, torch.float32, dev, Tk=384)
+@pytest.mark.parametrize("T,D,causal", [
+    (128, 64, True), (128, 64, False), (192, 64, True), (192, 64, False),
+    (512, 64, False), (1024, 64, True), (128, 128, True), (192, 128, True),
+    (192, 128, False), (256, 128, True), (256, 128, False),
+    (1024, 128, False)])
+def test_flash_kernels_match_plain_bf16(dev, T, D, causal):
+    """The tensor-core K3/K5 (and scalar K4) in bf16 at D 64 and 128, one
+    tile, a trailing 64-row tile past a 128 multiple (T 192), several
+    tiles, at the bf16 limits."""
+    q, k, v, do = _flash_case(T * D, 2, T, 3, D, torch.bfloat16, dev)
+    out = _flash_all(q, k, v, do, causal, 1 / D ** 0.5, kernel=True)
+    ref = _flash_all(q, k, v, do, causal, 1 / D ** 0.5, kernel=False)
+    _assert_bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernels_cross_length_non_causal(dev, dtype):
+    q, k, v, do = _flash_case(4, 1, 128, 2, 64, dtype, dev, Tk=384)
     out = _flash_all(q, k, v, do, False, 0.125, kernel=True)
     ref = _flash_all(q, k, v, do, False, 0.125, kernel=False)
-    for a, b in zip(out, ref):
-        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    if dtype == torch.bfloat16:
+        _assert_bf16_close(out, ref)
+    else:
+        for a, b in zip(out, ref):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def test_flash_kernels_gpt2_shape_bf16(dev):
@@ -386,11 +402,31 @@ def test_flash_kernels_gpt2_shape_bf16(dev):
     q, k, v, do = _flash_case(1, 24, 1024, 12, 64, torch.bfloat16, dev)
     out = _flash_all(q, k, v, do, True, 0.125, kernel=True)
     ref = _flash_all(q, k, v, do, True, 0.125, kernel=False)
-    limits = [(4e-3, 2 ** -7), (1e-4, 1e-4)] + [(1e-2, 2 ** -6)] * 3
-    for name, a, b, (atol, rtol) in zip(("o", "lse", "dq", "dk", "dv"),
-                                        out, ref, limits):
-        torch.testing.assert_close(a.float(), b.float(), rtol=rtol,
-                                   atol=atol, msg=lambda m: f"{name}: {m}")
+    _assert_bf16_close(out, ref)
+
+
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_kernels_on_strided_qkv_views_bf16(dev, D):
+    """bf16 q, k, v as the column views of one fused projection (row
+    stride 3C, GPT-2's c_attn layout), read in place by the tensor maps;
+    o and dO strided the same way."""
+    g = np.random.default_rng(D)
+    B, T, H = 2, 256, 3
+    qkv, odo = (torch.from_numpy(g.standard_normal(
+        (B, T, n * H * D)).astype(np.float32)).to(dev, torch.bfloat16)
+        for n in (3, 2))
+    q, k, v = (t.view(B, T, H, D) for t in qkv.split(H * D, dim=-1))
+    _, do = (t.view(B, T, H, D) for t in odo.split(H * D, dim=-1))
+    assert q.stride(1) == 3 * H * D and not q.is_contiguous()
+    out = _flash_all(q, k, v, do, True, 1 / D ** 0.5, kernel=True)
+    ref = _flash_all(q, k, v, do, True, 1 / D ** 0.5, kernel=False)
+    _assert_bf16_close(out, ref)
+    # the backward kernels on a strided o as well
+    o = odo[..., :H * D].view(B, T, H, D).copy_(out[0])
+    dk, dv = fa.flash_bwd_dkv(q, k, v, o, do, out[1], True, 1 / D ** 0.5)
+    torch.testing.assert_close((dk.float(), dv.float()),
+                               (out[3].float(), out[4].float()), rtol=0,
+                               atol=0)
 
 
 def test_flash_attention_on_strided_views_and_padded_head(dev):
@@ -416,23 +452,33 @@ def test_flash_attention_on_strided_views_and_padded_head(dev):
                                atol=1e-4)
 
 
-def test_flash_launch_counters_count_kernel_launches_only(dev):
-    q, k, v, do = _flash_case(6, 1, 128, 2, 64, torch.float32, dev)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_launch_counters_count_kernel_launches_only(dev, dtype):
+    """One forward and backward through ``flash_attention`` adds one to
+    each kernel's count, in either dtype (bf16 through the tensor-core
+    K3/K5, fp32 through the scalar ones); the plain versions add none."""
+    q, k, v, do = _flash_case(6, 1, 128, 2, 64, dtype, dev)
     q.requires_grad_(True)
     before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
               fa.flash_bwd_dkv.launches)
     o = fa.flash_attention(q, k, v)
     o.backward(do)
+    torch.cuda.synchronize()
+    assert torch.isfinite(q.grad.float()).all()
     _flash_all(q.detach(), k, v, do, True, 0.125, kernel=False)
     assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
             fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride", "length",
-                                 "cross_causal", "mixed"])
+                                 "cross_causal", "mixed", "tma_stride"])
 def test_flash_kernels_refuse_what_they_do_not_take(dev, bad):
     q, k, v, _ = _flash_case(8, 1, 128, 2, 64, torch.float32, dev)
     causal = True
+    if bad == "tma_stride":
+        # bf16 rows 68 elements apart: not whole 16 bytes for TMA
+        q, k, v = (torch.nn.functional.pad(t, (0, 4)).bfloat16()[..., :64]
+                   for t in (q, k, v))
     if bad == "head_dim":
         q, k, v = (t[..., :32].contiguous() for t in (q, k, v))
     elif bad == "dtype":

@@ -12,8 +12,8 @@ AdamW, flash attention through the port's CUDA kernels. Under
 wall time per step (without the profiler), device-busy time per step
 (sum of kernel times), the idle share, kernel launches per step, the
 kernels that take the most device time, and the device time per step
-of three groups: the flash kernels (K3, K4, K5), matrix products, and
-everything else.
+of the flash kernels (K3, K4 and K5 each, and together), matrix
+products, and everything else.
 """
 from __future__ import annotations
 
@@ -34,8 +34,12 @@ from ray_tpu_torch.models import gpt2  # noqa: E402
 from ray_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from ray_tpu_torch.train import spmd  # noqa: E402
 
-# the kernels of csrc/flash_attention.cu, as the profiler names them
-_FLASH = ("::fwd_kernel<", "::bwd_dq_kernel<", "::bwd_dkv_kernel<")
+# the flash kernels as the profiler names them: csrc/flash_attention.cu
+# (scalar; fp32 K3/K5 and K4) and csrc/flash_attention_sm90.cu (bf16 K3,
+# and K5 with its delta pass)
+_FLASH = {"k3_ms": ("::fwd_kernel<", "::fwd_sm90<"),
+          "k4_ms": ("::bwd_dq_kernel<",),
+          "k5_ms": ("::bwd_dkv_kernel<", "::dkv_sm90<", "::delta_kernel<")}
 _GEMM = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
 
@@ -46,9 +50,13 @@ def _loss(model, b):
 
 
 def _groups(top_all) -> dict:
-    out = {"flash_kernels_ms": 0.0, "matmul_ms": 0.0, "other_ms": 0.0}
+    out = dict.fromkeys(("flash_kernels_ms", *_FLASH, "matmul_ms",
+                         "other_ms"), 0.0)
     for name, ms in top_all:
-        if any(k in name for k in _FLASH):
+        kernel = next((key for key, names in _FLASH.items()
+                       if any(k in name for k in names)), None)
+        if kernel:
+            out[kernel] += ms
             out["flash_kernels_ms"] += ms
         elif any(k in name.lower() for k in _GEMM):
             out["matmul_ms"] += ms
@@ -69,6 +77,7 @@ def main(argv=None) -> int:
         return 2
     card = _card()
     fa.load_kernel()
+    fa.load_kernel(sm90=True)
     cfg = gpt2.gpt2_124m()
     B, T = 24, 1024
     model = gpt2.build_model(cfg, gpt2.init_params(cfg, args.seed, "cuda"),
