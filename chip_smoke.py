@@ -9,10 +9,11 @@ and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure:
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
-   limit. Builds the port's CUDA sources (K1, K2, the scalar K3-K5 and
-   the tensor-core bf16 K3/K5) with nvcc, one process per source, all
-   started together, and prints ptxas's registers and spills for the
-   tensor-core kernels.
+   limit. Builds the port's CUDA sources (K1, K2, the scalar fp32
+   K3-K5 and the tensor-core bf16 K3-K5 with their delta pass) with
+   nvcc, one process per source, all started together, checks that
+   ptxas reported every tensor-core kernel at D 64 and 128, and prints
+   their registers, spills and ptxas's performance warnings.
 2. Every kernel against its plain PyTorch version on the card: K1
    (``paged_decode_attention``) in fp32 over head_dim 64/128 and GQA
    groups 1/4/8 (tolerance 1e-4), with pos 0, a full window and
@@ -74,17 +75,21 @@ which raises on failure:
    K4 (dQ) and K5 (dK, dV) in fp32 (the scalar kernels) at T
    128/256/512 (one and several kv tiles), head_dim 16 (zero-padded to
    64, as ``flash_attention`` pads it), 64 and 128, causal and not
-   (1e-4 abs and rel); in bf16 (K3 and K5 on the tensor cores) at T
+   (1e-4 abs and rel); in bf16 (K3, K4 and K5 on the tensor cores,
+   which torch.profiler's kernel names show for every case) at T
    128/192/512 (192: a trailing 64-row tile), D 64 and 128, causal and
    not, at Tq 128 / Tk 384 non-causal, and on the strided column views
    of a fused qkv projection (output 4e-3 + 2^-7·|ref|, lse 1e-4,
    gradients 1e-2 + 2^-6·|ref|); at the GPT-2-124M shape (B 24, T
    1024, H 12, D 64, causal) in fp32 (1e-4) and bf16 (the same bf16
-   limits).
-   Times each kernel, its plain version and the library yardstick
-   (SDPA forward, backward and forward+backward, never called by the
-   port) with CUDA events, L2 flushed before each launch, and computes
-   each kernel's bound from this run's inputs.
+   limits), where K4 and K5 on one shared delta must equal K4 and K5
+   called alone.
+   Times each kernel (K4 and K5 on a delta formed beforehand), the
+   delta pass, one whole backward (delta pass + K4 + K5), each plain
+   version and the library yardstick (SDPA forward, backward and
+   forward+backward, never called by the port) with CUDA events, L2
+   flushed before each launch, and computes each bound from this run's
+   inputs.
 6. The train step on the card against the train step on the CPU: a
    reduced fp32 GPT-2 (2 layers, C 128, H 4, vocab 1024, T 128, batch
    4) with flash attention, the same weights and batch on both sides,
@@ -94,7 +99,8 @@ which raises on failure:
    weights from ``--seed``, batch 24 of ``RandomState(0)`` token ids,
    ``adamw(3e-4, weight_decay=0.1)``, as ``bench.py`` drives the JAX
    package: 1 warm-up step, then 10 timed steps on the fixed batch.
-   Checks that K3, K4 and K5 were each launched 12 x 11 times, that
+   Checks that K3, K4, K5 and the delta pass were each launched 12 x 11
+   times (one delta pass per backward), that
    every loss is finite and the last below the first, and that step
    1's loss and grad norm agree with the same step computed on the
    card with dense fp32-score attention (1e-2 and 2 %). Prints train
@@ -110,7 +116,6 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
-import re
 import subprocess
 import sys
 import threading
@@ -794,9 +799,38 @@ def _flash_errors(fa, q, k, v, do, causal, scale, limits):
             "max_abs_ref": max(r.abs().max().item() for r in refs.values())}
 
 
-def phase_flash_kernels(fa, seed: int) -> list:
+def _device_kernels(fn) -> list:
+    """Names of the kernels ``fn`` ran on the card, from torch.profiler
+    (demangled, e.g. ``void (anonymous namespace)::dq_sm90<64>(...)``)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and not e.is_user_annotation]
+
+
+def _check_tensor_core_route(names, calls: int, where: str) -> dict:
+    """Every bf16 K3, K4 and K5 call of ``calls`` ran its tensor-core
+    kernel (and its delta pass) and none a scalar flash kernel."""
+    count = {k: sum(f"::{k}<" in n for n in names)
+             for k in ("fwd_sm90", "delta_kernel", "dq_sm90", "dkv_sm90",
+                       "fwd_kernel", "bwd_dq_kernel", "bwd_dkv_kernel")}
+    want = {"fwd_sm90": calls, "delta_kernel": 2 * calls,
+            "dq_sm90": calls, "dkv_sm90": calls, "fwd_kernel": 0,
+            "bwd_dq_kernel": 0, "bwd_dkv_kernel": 0}
+    if count != want:
+        raise AssertionError(f"{where}: device kernels {count}, want "
+                             f"{want}")
+    return count
+
+
+def phase_flash_kernels(fa, seed: int) -> tuple:
     """K3, K4, K5 against their plain versions (fp32 small cases, then
-    the GPT-2-124M shape in fp32 and bf16), with times and bounds."""
+    the GPT-2-124M shape in fp32 and bf16), with times and bounds; the
+    kernel rows and the whole backward's times."""
     fp32 = {"o": (FLASH_FP32_TOL,), "grad": (FLASH_FP32_TOL,)}
     worst = 0.0
     for T in (128, 256, 512):
@@ -821,18 +855,23 @@ def phase_flash_kernels(fa, seed: int) -> list:
                                 Tk=384), False, 64))
     cases.append((_qkv_views(seed + 6, 2, 256, 3, 64), True, 64))
     worst16 = {}
-    for args, causal, D in cases:
-        errs = _flash_errors(fa, *args, causal, D ** -0.5, bf16)
-        errs.pop("max_abs_ref")
-        for key, err in errs.items():
-            worst16[key] = max(worst16.get(key, 0.0), err)
-    del cases
-    print(f"phase 5: K3/K4/K5 bf16 (K3/K5 on the tensor cores) at T "
-          f"128/192/512, D 64/128, causal and not, Tq 128 / Tk 384, and "
-          f"strided qkv views: max abs err {worst16} (tol o "
-          f"{FLASH_BF16_O[0]} + {FLASH_BF16_O[1]} * |ref|, lse "
-          f"{FLASH_FP32_TOL}, grads {FLASH_BF16_GRAD[0]} + "
+
+    def bf16_cases():
+        for args, causal, D in cases:
+            errs = _flash_errors(fa, *args, causal, D ** -0.5, bf16)
+            errs.pop("max_abs_ref")
+            for key, err in errs.items():
+                worst16[key] = max(worst16.get(key, 0.0), err)
+
+    route = _check_tensor_core_route(_device_kernels(bf16_cases),
+                                     len(cases), "bf16 cases")
+    print(f"phase 5: K3/K4/K5 bf16 on the tensor cores at T 128/192/512, "
+          f"D 64/128, causal and not, Tq 128 / Tk 384, and strided qkv "
+          f"views ({len(cases)} cases; device kernels {route}): max abs "
+          f"err {worst16} (tol o {FLASH_BF16_O[0]} + {FLASH_BF16_O[1]} * "
+          f"|ref|, lse {FLASH_FP32_TOL}, grads {FLASH_BF16_GRAD[0]} + "
           f"{FLASH_BF16_GRAD[1]} * |ref|)")
+    del cases
 
     B, T, H, D = 24, 1024, 12, 64
     scale = D ** -0.5
@@ -842,13 +881,30 @@ def phase_flash_kernels(fa, seed: int) -> list:
           f"max abs err {err32} (tol {FLASH_FP32_TOL})")
     del args
     q, k, v, do = _flash_inputs(seed, B, T, H, D, torch.bfloat16)
-    err16 = _flash_errors(fa, q, k, v, do, True, scale,
-                          {"o": FLASH_BF16_O, "grad": FLASH_BF16_GRAD})
-    print(f"phase 5: K3/K4/K5 bf16 at the same shape: max abs err {err16} "
-          f"(tol o {FLASH_BF16_O[0]} + {FLASH_BF16_O[1]} * |ref|, grads "
-          f"{FLASH_BF16_GRAD[0]} + {FLASH_BF16_GRAD[1]} * |ref|)")
+    err16 = {}
+
+    def gpt2_case():
+        err16.update(_flash_errors(fa, q, k, v, do, True, scale, bf16))
+
+    _check_tensor_core_route(_device_kernels(gpt2_case), 1, "GPT-2 shape")
+    print(f"phase 5: K3/K4/K5 bf16 on the tensor cores at the same shape: "
+          f"max abs err {err16} (tol o {FLASH_BF16_O[0]} + "
+          f"{FLASH_BF16_O[1]} * |ref|, grads {FLASH_BF16_GRAD[0]} + "
+          f"{FLASH_BF16_GRAD[1]} * |ref|)")
 
     ro, rlse = fa.flash_fwd_reference(q, k, v, True, scale)
+    # K4 and K5 on one delta give what each gives alone
+    delta = fa.flash_bwd_delta(ro, do)
+    _max_err(delta, fa.flash_bwd_delta_reference(ro, do), FLASH_FP32_TOL)
+    shared = (fa.flash_bwd_dq(q, k, v, ro, do, rlse, True, scale, delta),
+              *fa.flash_bwd_dkv(q, k, v, ro, do, rlse, True, scale, delta))
+    alone = (fa.flash_bwd_dq(q, k, v, ro, do, rlse, True, scale),
+             *fa.flash_bwd_dkv(q, k, v, ro, do, rlse, True, scale))
+    if not all(torch.equal(a, b) for a, b in zip(shared, alone)):
+        raise AssertionError("K4/K5 on a shared delta differ from K4/K5 "
+                             "called alone")
+    del shared, alone
+
     # library yardstick, on its own [B, H, T, D] layout
     sq, sk, sv, sdo = (t.transpose(1, 2).contiguous()
                        for t in (q, k, v, do))
@@ -862,73 +918,98 @@ def phase_flash_kernels(fa, seed: int) -> list:
         o = sdpa(gq, gk, gv, is_causal=True)
         torch.autograd.grad(o, (gq, gk, gv), sdo)
 
+    def backward():
+        d = fa.flash_bwd_delta(ro, do)
+        fa.flash_bwd_dq(q, k, v, ro, do, rlse, True, scale, d)
+        fa.flash_bwd_dkv(q, k, v, ro, do, rlse, True, scale, d)
+
     flush = torch.empty(256 * 2**20, dtype=torch.uint8, device="cuda")
     ms = {
         "fwd": _time_ms(lambda: fa.flash_fwd(q, k, v, True, scale), 20,
                         flush),
+        "delta": _time_ms(lambda: fa.flash_bwd_delta(ro, do), 20, flush),
         "dq": _time_ms(lambda: fa.flash_bwd_dq(q, k, v, ro, do, rlse, True,
-                                               scale), 20, flush),
+                                               scale, delta), 20, flush),
         "dkv": _time_ms(lambda: fa.flash_bwd_dkv(q, k, v, ro, do, rlse,
-                                                 True, scale), 20, flush)}
+                                                 True, scale, delta), 20,
+                        flush),
+        "bwd": _time_ms(backward, 20, flush)}
     plain = {
         "fwd": _time_ms(lambda: fa.flash_fwd_reference(q, k, v, True,
                                                        scale), 5, flush),
         "dq": _time_ms(lambda: fa.flash_bwd_dq_reference(
-            q, k, v, ro, do, rlse, True, scale), 5, flush),
+            q, k, v, ro, do, rlse, True, scale, delta), 5, flush),
         "dkv": _time_ms(lambda: fa.flash_bwd_dkv_reference(
-            q, k, v, ro, do, rlse, True, scale), 5, flush)}
+            q, k, v, ro, do, rlse, True, scale, delta), 5, flush)}
     lib = {"fwd": _time_ms(lambda: sdpa(sq, sk, sv, is_causal=True), 20,
                            flush),
            "bwd": _time_ms(lambda: torch.autograd.grad(
                out, (gq, gk, gv), sdo, retain_graph=True), 20, flush),
            "fwd_bwd": _time_ms(sdpa_fwd_bwd, 20, flush)}
 
-    # least work: every input read once, every output written once;
-    # flops over the visible (query, key) pairs of this causal run
+    # least work: every input read once, every output written once (K4
+    # and K5 read lse and the delta formed beforehand, the whole
+    # backward reads o instead of delta); flops over the visible (query,
+    # key) pairs of this causal run
     x = q.numel() * q.element_size()
-    lse_bytes = rlse.numel() * 4
+    vec = rlse.numel() * 4
     pairs = B * H * T * (T + 1) // 2
-    spec = {"fwd": (4 * x + lse_bytes, 4 * pairs * D),
-            "dq": (6 * x + lse_bytes, 6 * pairs * D),
-            "dkv": (7 * x + lse_bytes, 8 * pairs * D)}
+    spec = {"fwd": (4 * x + vec, 4 * pairs * D),
+            "delta": (2 * x + vec, 2 * B * T * H * D),
+            "dq": (5 * x + 2 * vec, 6 * pairs * D),
+            "dkv": (6 * x + 2 * vec, 8 * pairs * D),
+            "bwd": (8 * x + vec, 14 * pairs * D)}
+    bound = {}
+    for key, (nbytes, flops) in spec.items():
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        bound[key] = (max(t_bytes, t_ops),
+                      "bytes" if t_bytes >= t_ops else "operations")
     rows = []
     tensor = ("wgmma, bf16 in, fp32 accumulators; TMA ring of 2 "
               "swizzled stages; 1 consumer warpgroup + 1 producer warp "
               "per 64-row tile; CTAs grouped by (batch, head); ")
-    for key, name, body, lib_ms, errs, source, design in (
-            ("fwd", "flash_fwd", 91, lib["fwd"], ("o",), fa._SOURCE_SM90,
+    for key, name, body, lib_ms, errs, design in (
+            ("fwd", "flash_fwd", 91, lib["fwd"], ("o",),
              tensor + "Q and P as register A operands"),
-            ("dq", "flash_bwd_dq", 204, lib["bwd"], ("dq",), fa._SOURCE,
-             "scalar fp32 FMAs from shared memory, 64-row tiles, 128 "
-             "threads"),
+            ("dq", "flash_bwd_dq", 204, lib["bwd"], ("dq",),
+             tensor + "Q and dO as register A operands of S and dP, dS of "
+             "dQ += dS K; delta from the shared pass"),
             ("dkv", "flash_bwd_dkv", 259, lib["bwd"], ("dk", "dv"),
-             fa._SOURCE_SM90, tensor + "P^T and dS^T as register A "
-             "operands; delta pass before it")):
+             tensor + "P^T and dS^T as register A operands; delta from "
+             "the shared pass")):
         nbytes, flops = spec[key]
-        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / BF16_FLOPS * 1e3
         rows.append({
             "name": name, "route": "cuda",
-            "source": f"ray_tpu_torch/ops/csrc/{source}",
+            "source": f"ray_tpu_torch/ops/csrc/{fa._SOURCE_SM90}",
             "replaces": f"ray_tpu/ops/flash_attention.py:{body}",
             "design": design, "launches": None,
             "max_abs_err": max(err16[e] for e in errs),
             "max_abs_err_fp32": max(err32[e] for e in errs),
             "ms": ms[key], "plain_ms": plain[key],
-            "bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound[key][0], "bound_by": bound[key][1],
             "library_ms": lib_ms,
             "shape": {"B": B, "T": T, "H": H, "D": D, "causal": True,
                       "bytes": nbytes, "flops": flops,
                       "dtype": "bfloat16"}})
         print(f"phase 5: {name} bf16: kernel {ms[key]:.4f} ms "
               f"({flops / ms[key] / 1e9:.1f} TFLOP/s), plain "
-              f"{plain[key]:.4f} ms, bound {max(t_bytes, t_ops):.4f} ms "
+              f"{plain[key]:.4f} ms, bound {bound[key][0]:.4f} ms "
               f"({nbytes} bytes, {flops} flops)")
+    backward_ms = {"delta_ms": ms["delta"], "delta_bound_ms":
+                   bound["delta"][0], "backward_ms": ms["bwd"],
+                   "backward_bound_ms": bound["bwd"][0],
+                   "sdpa_backward_ms": lib["bwd"]}
+    print(f"phase 5: delta pass {ms['delta']:.4f} ms (bound "
+          f"{bound['delta'][0]:.4f} ms); one backward, delta pass + K4 + "
+          f"K5, {ms['bwd']:.4f} ms ({spec['bwd'][1] / ms['bwd'] / 1e9:.1f}"
+          f" TFLOP/s, bound {bound['bwd'][0]:.4f} ms) beside SDPA's "
+          f"backward (dq, dk, dv) {lib['bwd']:.4f} ms: "
+          f"{ms['bwd'] / lib['bwd']:.3f}x")
     print(f"phase 5: SDPA (is_causal) yardstick: forward {lib['fwd']:.4f}"
           f" ms, backward {lib['bwd']:.4f} ms, forward+backward "
           f"{lib['fwd_bwd']:.4f} ms")
-    return rows
+    return rows, backward_ms
 
 
 def _gpt2_loss(model, b):
@@ -997,7 +1078,8 @@ def phase_train_main_path(fa, seed: int, smi: str) -> dict:
     torch.cuda.synchronize()
     t_setup = time.monotonic() - t0
     torch.cuda.reset_peak_memory_stats()
-    kernels = (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv)
+    kernels = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+               fa.flash_bwd_dkv)
     for kern in kernels:
         kern.launches = 0
     state, m = step(state, b)                    # warm-up: step 1
@@ -1013,8 +1095,8 @@ def phase_train_main_path(fa, seed: int, smi: str) -> dict:
     peak = torch.cuda.max_memory_allocated()
     losses = [float(x) for x in losses]
     want = cfg.n_layer * (n_steps + 1)
-    if launches != [want] * 3:
-        raise AssertionError(f"K3/K4/K5 launches {launches} != "
+    if launches != [want] * 4:
+        raise AssertionError(f"K3/delta/K4/K5 launches {launches} != "
                              f"{cfg.n_layer} layers x {n_steps + 1} steps")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise AssertionError(f"losses not finite and falling: {losses}")
@@ -1033,8 +1115,9 @@ def phase_train_main_path(fa, seed: int, smi: str) -> dict:
            "step1_loss": losses[0], "step1_loss_dense_fp32": ref_loss,
            "step1_grad_norm": first_norm,
            "step1_grad_norm_dense_fp32": ref_norm,
-           "launches": dict(zip(("flash_fwd", "flash_bwd_dq",
-                                 "flash_bwd_dkv"), launches)),
+           "launches": dict(zip(("flash_fwd", "flash_bwd_delta",
+                                 "flash_bwd_dq", "flash_bwd_dkv"),
+                                launches)),
            "setup_s": t_setup}
     print(f"phase 7: GPT-2-124M train, batch {B} x T {T}, bf16 on fp32 "
           f"params, on {smi}: {tok_s:.1f} tokens/s, {res['step_ms']:.2f} "
@@ -1042,29 +1125,9 @@ def phase_train_main_path(fa, seed: int, smi: str) -> dict:
           f"{res['peak_mem_gb']:.2f} GB; loss {losses[0]:.4f} -> "
           f"{last:.4f} over {n_steps + 1} steps; step 1 vs dense fp32 "
           f"attention: loss {losses[0]:.5f} / {ref_loss:.5f}, grad norm "
-          f"{first_norm:.5f} / {ref_norm:.5f}; K3/K4/K5 launched "
+          f"{first_norm:.5f} / {ref_norm:.5f}; K3/delta/K4/K5 launched "
           f"{launches} = {cfg.n_layer} layers x {n_steps + 1} steps")
     return res
-
-
-def _ptxas_summary(report: str) -> dict:
-    """{kernel<D>: (registers, spill store bytes, spill load bytes)} from
-    ``nvcc -Xptxas -v``'s report of the tensor-core source."""
-    out, name = {}, None
-    for line in report.splitlines():
-        m = re.search(r"entry function '.*?\d(fwd_sm90|dkv_sm90|delta_kernel)"
-                      r"ILi(\d+)E",
-                      line)
-        if m:
-            name = f"{m.group(1)}<{m.group(2)}>"
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m and name:
-            out[name] = [None, int(m.group(1)), int(m.group(2))]
-        m = re.search(r"Used (\d+) registers", line)
-        if m and name in out:
-            out[name][0] = int(m.group(1))
-    return {k: tuple(v) for k, v in out.items()}
 
 
 def main(argv=None) -> int:
@@ -1097,8 +1160,20 @@ def main(argv=None) -> int:
     fa.load_kernel(sm90=True)
     print(f"phase 1: built {', '.join(sources)} for sm_90a in "
           f"{time.monotonic() - tb:.1f} s")
-    ptxas = _ptxas_summary(_build.ptxas_report(fa._SOURCE_SM90))
-    print(f"phase 1: ptxas, {fa._SOURCE_SM90}: {ptxas or 'no report'}")
+    report = _build.ptxas_report(fa._SOURCE_SM90)
+    ptxas = _build.ptxas_summary(report, fa._SM90_KERNELS)
+    missing = [f"{k}<{d}>" for k in fa._SM90_KERNELS for d in (64, 128)
+               if f"{k}<{d}>" not in ptxas]
+    if missing:
+        raise AssertionError(f"ptxas reported no {missing} for "
+                             f"{fa._SOURCE_SM90}")
+    for kernel, info in ptxas.items():
+        print(f"phase 1: ptxas, {fa._SOURCE_SM90} {kernel}: "
+              f"{info.get('registers')} registers, spill stores/loads "
+              f"{info.get('spill_stores')}/{info.get('spill_loads')} bytes")
+    for line in report.splitlines():
+        if "warning" in line.lower() or "Performance Loss" in line:
+            print(f"phase 1: ptxas: {line.strip()}")
 
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
@@ -1113,7 +1188,7 @@ def main(argv=None) -> int:
     k2["launches"] = int8_path["k2_launches"]
     print(f"phase 4b done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    flash = phase_flash_kernels(fa, args.seed)
+    flash, backward_ms = phase_flash_kernels(fa, args.seed)
     print(f"phase 5 done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     phase_train_parity(args.seed)
@@ -1126,6 +1201,7 @@ def main(argv=None) -> int:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kernels": kernels["kernels"],
                        "ptxas_sm90": ptxas,
+                       "flash_backward": backward_ms,
                        "main_path": main_path,
                        "int8_prefix_path": int8_path,
                        "train_main_path": train,

@@ -18,11 +18,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Callable, Dict, Iterable
+from typing import Callable, Dict, Iterable, Sequence
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ray_tpu_torch"
@@ -91,6 +92,38 @@ def ptxas_report(source: str) -> str:
     when ``source``'s library was built; "" if it is not built."""
     report = library_path(source).with_suffix(".ptxas.txt")
     return report.read_text() if report.is_file() else ""
+
+
+def ptxas_summary(report: str, kernels: Sequence[str]) -> Dict[str, dict]:
+    """{"name<D>": {"registers", "spill_stores", "spill_loads",
+    "warnings"}} for each instance of the ``kernels`` (templated on one
+    int, D) in a ptxas report; "warnings" holds ptxas's performance
+    warnings for it (e.g. C7520, wgmma serialized) as it wrote them."""
+    pattern = re.compile(r"\d(%s)ILi(\d+)E" % "|".join(map(re.escape,
+                                                        kernels)))
+    out: Dict[str, dict] = {}
+    name = None
+    for line in report.splitlines():
+        m = pattern.search(line)
+        key = f"{m.group(1)}<{m.group(2)}>" if m else None
+        if "Performance Loss" in line and key:
+            reason = line.split("Performance Loss", 1)[1].lstrip(": ")
+            out.setdefault(key, {"warnings": []})["warnings"].append(
+                reason.split(" in the function")[0])
+            continue
+        if "Compiling entry function" in line:
+            name = key
+            if name:
+                out.setdefault(name, {"warnings": []})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and name:
+            out[name].update(spill_stores=int(m.group(1)),
+                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    return out
 
 
 def _compile(source: str) -> Path:

@@ -1,26 +1,22 @@
 // Flash attention for Hopper (sm_90a), scalar fp32 FMAs: the forward
 // (K3) and the two backward kernels (K4: dQ, K5: dK and dV) of blockwise
 // attention over the [B, T, H, D] layout, with an fp32 online softmax.
-// K3 and K5 are built here for fp32 only: bf16 inputs go to the
-// tensor-core kernels of flash_attention_sm90.cu. K4 takes both types.
+// All three are built here for fp32 only: bf16 inputs go to the
+// tensor-core kernels of flash_attention_sm90.cu.
 //
 // Replaces the TPU kernels of ray_tpu/ops/flash_attention.py:
 //   fwd_kernel     <- _fwd_kernel     (launched by _flash_fwd)
 //   bwd_dq_kernel  <- _bwd_dq_kernel  (launched by _flash_bwd_packed)
 //   bwd_dkv_kernel <- _bwd_dkv_kernel (launched by _flash_bwd_packed)
-// Same functions and the same rounding points: scores in fp32 from the
-// operand type, scaled after the dot product; masked scores -1e30; the
-// row sum l floored at 1e-30; P (and dS) rounded to the operand type
-// before the products that consume them; delta = rowsum(dO * O) in
-// fp32, computed in-kernel; fp32 accumulation; outputs in the operand
-// type. lse = m + log(l) is stored [B, H, T] fp32.
+// Same functions: scores scaled after the dot product; masked scores
+// -1e30; the row sum l floored at 1e-30; delta = rowsum(dO * O),
+// computed in-kernel. lse = m + log(l) is stored [B, H, T] fp32.
 //
-// Bound: device memory at the GPT-2 shape (every input read once, every
-// output written once: ~0.05-0.08 ms per call at 3.35 TB/s, above the
-// tensor-core time of the 4-8 * D flops per visible (query, key) pair).
-// This first design is simple and right, not fast: products are scalar
-// fp32 FMAs from shared memory (no tensor cores), so it is bound by the
-// SM's FMA and shared-memory issue rate, far above the memory bound.
+// Bound: the 4-8 * D flops per visible (query, key) pair at the 67
+// TFLOP/s of scalar fp32 FMAs (tensor cores cannot hold fp32 inputs to
+// 1e-4). The design is simple and right, not fast: products are scalar
+// fp32 FMAs from shared memory, so it is bound by the SM's FMA and
+// shared-memory issue rate.
 // What it does keep from the TPU design: scores and probabilities never
 // leave the SM, causal tiles above the diagonal are never visited, and
 // each output tile has exactly one owning block, so there are no atomics
@@ -37,14 +33,11 @@
 // Inputs are read through their strides (batch, row, head; the last
 // dimension must be contiguous), so q, k and v may be the strided
 // column views of one fused qkv projection.
-// Not yet done for K4 (a later change): tensor-core products and staged
-// copies, as flash_attention_sm90.cu does for K3 and K5.
 //
 // Plain C interface, bound with ctypes by ray_tpu_torch/ops/_build.py
 // and ray_tpu_torch/ops/flash_attention.py. Each launch returns
 // cudaGetLastError().
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -61,30 +54,6 @@ constexpr int kPLD = kBK + 1;  // padded row of a score tile
 struct Strides {
   long long b, t, h;
 };
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(
-    float x) {
-  return __float2bfloat16(x);
-}
-
-// x rounded to T and back: the cast the reference applies before a
-// product whose other operand is of type T.
-template <typename T>
-__device__ __forceinline__ float round_to(float x) {
-  return to_float(from_float<T>(x));
-}
 
 // Reductions over the 16 lanes of a half-warp.
 __device__ __forceinline__ float half_max(float v) {
@@ -106,42 +75,42 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-__device__ __forceinline__ const void* at(const void* base, size_t elem,
-                                          const Strides& s, int b, int t,
-                                          int h) {
-  return static_cast<const char*>(base) +
-         (b * s.b + static_cast<long long>(t) * s.t + h * s.h) * elem;
+// Row t of head h, batch b of a [B, T, H, D] tensor with strides s.
+template <typename P>
+__device__ __forceinline__ P* at(P* base, const Strides& s, int b, int t,
+                                 int h) {
+  return base + (b * s.b + static_cast<long long>(t) * s.t + h * s.h);
 }
 
 // Rows [row0, row0 + 64) of head h, batch b, into a [64][D + 1] fp32
 // tile; neighbouring threads read neighbouring elements of a row.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           const Strides& s, int b,
                                           int row0, int h) {
-  const T* base = static_cast<const T*>(at(src, sizeof(T), s, b, row0, h));
+  const float* base = at(src, s, b, row0, h);
   for (int i = threadIdx.x; i < 64 * D; i += kThreads) {
     const int r = i / D;
     const int c = i - r * D;
-    dst[r * (D + 1) + c] = to_float(base[r * s.t + c]);
+    dst[r * (D + 1) + c] = base[r * s.t + c];
   }
 }
 
 // delta[r] = sum_d dO[r, d] * O[r, d] (fp32) and the saved lse of the
 // 64 query rows from q0: one warp per row.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void row_stats(float* delta_s, float* lse_s,
-                                          const float* dOs, const T* o,
+                                          const float* dOs, const float* o,
                                           const Strides& so,
                                           const float* lse, int b, int q0,
                                           int h, int H, int T_q) {
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const T* base = static_cast<const T*>(at(o, sizeof(T), so, b, q0, h));
+  const float* base = at(o, so, b, q0, h);
   for (int r = warp; r < kBQ; r += kThreads / 32) {
     float acc = 0.f;
     for (int d = lane; d < D; d += 32)
-      acc += dOs[r * (D + 1) + d] * to_float(base[r * so.t + d]);
+      acc += dOs[r * (D + 1) + d] * base[r * so.t + d];
     acc = warp_sum(acc);
     if (lane == 0) {
       delta_s[r] = acc;
@@ -153,10 +122,11 @@ __device__ __forceinline__ void row_stats(float* delta_s, float* lse_s,
 // --------------------------------------------------------------------
 // K3: forward. O = softmax(scale * Q K^T) V, and lse per query row.
 // --------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) fwd_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, float* __restrict__ o,
+    float* __restrict__ lse,
     Strides sq, Strides sk, Strides sv, Strides so, int T_q, int T_k, int H,
     int causal, float scale) {
   constexpr int LD = D + 1;
@@ -174,7 +144,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
   const int rg = threadIdx.x / 16;
   const int cg = threadIdx.x % 16;
 
-  load_tile<T, D>(Qs, q, sq, b, q0, h);
+  load_tile<D>(Qs, q, sq, b, q0, h);
 
   float m[kRows], l[kRows], acc[kRows][NJ];
 #pragma unroll
@@ -191,8 +161,8 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the previous tile's Ks, Vs and Ps are consumed
-    load_tile<T, D>(Ks, k, sk, b, k0, h);
-    load_tile<T, D>(Vs, v, sv, b, k0, h);
+    load_tile<D>(Ks, k, sk, b, k0, h);
+    load_tile<D>(Vs, v, sv, b, k0, h);
     __syncthreads();
 
     float s[kRows][kCols];
@@ -232,7 +202,7 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
       for (int j = 0; j < kCols; ++j) {
         const float p = expf(s[i][j] - m_new);
         sum += p;
-        Ps[r * kPLD + cg + 16 * j] = round_to<T>(p);
+        Ps[r * kPLD + cg + 16 * j] = p;
       }
       sum = half_sum(sum);
       l[i] = l[i] * alpha + sum;
@@ -261,11 +231,10 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
   for (int i = 0; i < kRows; ++i) {
     const int r = rg * kRows + i;
     const float ls = fmaxf(l[i], 1e-30f);
-    T* orow = static_cast<T*>(const_cast<void*>(
-        at(o, sizeof(T), so, b, q0 + r, h)));
+    float* orow = at(o, so, b, q0 + r, h);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      orow[cg + 16 * j] = from_float<T>(acc[i][j] / ls);
+      orow[cg + 16 * j] = acc[i][j] / ls;
     if (cg == 0)
       lse[(static_cast<size_t>(b) * H + h) * T_q + q0 + r] =
           m[i] + logf(ls);
@@ -276,12 +245,12 @@ __global__ void __launch_bounds__(kThreads) fwd_kernel(
 // K4: dQ = scale * sum_kv (P o (dP - delta)) K, P = exp(scale Q K^T -
 // lse), dP = dO V^T.
 // --------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ o,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    T* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides so,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ o,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ dq, Strides sq, Strides sk, Strides sv, Strides so,
     Strides sdo, Strides sdq, int T_q, int T_k, int H, int causal,
     float scale) {
   constexpr int LD = D + 1;
@@ -302,10 +271,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
   const int rg = threadIdx.x / 16;
   const int cg = threadIdx.x % 16;
 
-  load_tile<T, D>(Qs, q, sq, b, q0, h);
-  load_tile<T, D>(dOs, dout, sdo, b, q0, h);
+  load_tile<D>(Qs, q, sq, b, q0, h);
+  load_tile<D>(dOs, dout, sdo, b, q0, h);
   __syncthreads();
-  row_stats<T, D>(delta_s, lse_s, dOs, o, so, lse, b, q0, h, H, T_q);
+  row_stats<D>(delta_s, lse_s, dOs, o, so, lse, b, q0, h, H, T_q);
 
   float acc[kRows][NJ];
 #pragma unroll
@@ -317,8 +286,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
   for (int kt = 0; kt < n_kv; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // delta_s/lse_s written; previous Ks, dSs consumed
-    load_tile<T, D>(Ks, k, sk, b, k0, h);
-    load_tile<T, D>(Vs, v, sv, b, k0, h);
+    load_tile<D>(Ks, k, sk, b, k0, h);
+    load_tile<D>(Vs, v, sv, b, k0, h);
     __syncthreads();
 
     float s[kRows][kCols], dp[kRows][kCols];
@@ -357,7 +326,7 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
         float sc = s[i][j] * scale;
         if (diag && cg + 16 * j > r) sc = -1e30f;
         const float p = expf(sc - lr);
-        dSs[r * kPLD + cg + 16 * j] = round_to<T>(p * (dp[i][j] - dr));
+        dSs[r * kPLD + cg + 16 * j] = p * (dp[i][j] - dr);
       }
     }
     __syncthreads();
@@ -379,11 +348,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
 
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
-    T* row = static_cast<T*>(const_cast<void*>(
-        at(dq, sizeof(T), sdq, b, q0 + rg * kRows + i, h)));
+    float* row = at(dq, sdq, b, q0 + rg * kRows + i, h);
 #pragma unroll
     for (int j = 0; j < NJ; ++j)
-      row[cg + 16 * j] = from_float<T>(acc[i][j] * scale);
+      row[cg + 16 * j] = acc[i][j] * scale;
   }
 }
 
@@ -392,12 +360,12 @@ __global__ void __launch_bounds__(kThreads) bwd_dq_kernel(
 // delta). Scores are formed transposed (kv rows, q columns), so the
 // block's threads own kv rows throughout.
 // --------------------------------------------------------------------
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const T* __restrict__ o,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    T* __restrict__ dk, T* __restrict__ dv, Strides sq, Strides sk,
+    const float* __restrict__ q, const float* __restrict__ k,
+    const float* __restrict__ v, const float* __restrict__ o,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    float* __restrict__ dk, float* __restrict__ dv, Strides sq, Strides sk,
     Strides sv, Strides so, Strides sdo, Strides sdk, Strides sdv, int T_q,
     int T_k, int H, int causal, float scale) {
   constexpr int LD = D + 1;
@@ -407,8 +375,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(
   float* Vs = Ks + kBK * LD;
   float* Qs = Vs + kBK * LD;
   float* dOs = Qs + kBQ * LD;
-  float* Pt = dOs + kBQ * LD;  // [kBK][kPLD]: P^T, rounded to T
-  float* dSt = Pt + kBK * kPLD;  // [kBK][kPLD]: dS^T, rounded to T
+  float* Pt = dOs + kBQ * LD;  // [kBK][kPLD]: P^T
+  float* dSt = Pt + kBK * kPLD;  // [kBK][kPLD]: dS^T
   float* delta_s = dSt + kBK * kPLD;
   float* lse_s = delta_s + kBQ;
 
@@ -419,8 +387,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(
   const int rg = threadIdx.x / 16;
   const int cg = threadIdx.x % 16;
 
-  load_tile<T, D>(Ks, k, sk, b, k0, h);
-  load_tile<T, D>(Vs, v, sv, b, k0, h);
+  load_tile<D>(Ks, k, sk, b, k0, h);
+  load_tile<D>(Vs, v, sv, b, k0, h);
 
   float gk[kRows][NJ], gv[kRows][NJ];
 #pragma unroll
@@ -433,10 +401,10 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(
   for (int qt = causal ? kt : 0; qt < n_q; ++qt) {
     const int q0 = qt * kBQ;
     __syncthreads();  // the previous q tile's Qs, dOs, Pt, dSt consumed
-    load_tile<T, D>(Qs, q, sq, b, q0, h);
-    load_tile<T, D>(dOs, dout, sdo, b, q0, h);
+    load_tile<D>(Qs, q, sq, b, q0, h);
+    load_tile<D>(dOs, dout, sdo, b, q0, h);
     __syncthreads();
-    row_stats<T, D>(delta_s, lse_s, dOs, o, so, lse, b, q0, h, H, T_q);
+    row_stats<D>(delta_s, lse_s, dOs, o, so, lse, b, q0, h, H, T_q);
     __syncthreads();
 
     float st[kRows][kCols], dpt[kRows][kCols];
@@ -474,8 +442,8 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(
         float sc = st[i][j] * scale;
         if (diag && r > c) sc = -1e30f;
         const float p = expf(sc - lse_s[c]);
-        Pt[r * kPLD + c] = round_to<T>(p);
-        dSt[r * kPLD + c] = round_to<T>(p * (dpt[i][j] - delta_s[c]));
+        Pt[r * kPLD + c] = p;
+        dSt[r * kPLD + c] = p * (dpt[i][j] - delta_s[c]);
       }
     }
     __syncthreads();
@@ -505,12 +473,12 @@ __global__ void __launch_bounds__(kThreads) bwd_dkv_kernel(
 #pragma unroll
   for (int i = 0; i < kRows; ++i) {
     const int r = k0 + rg * kRows + i;
-    T* krow = static_cast<T*>(const_cast<void*>(at(dk, sizeof(T), sdk, b, r, h)));
-    T* vrow = static_cast<T*>(const_cast<void*>(at(dv, sizeof(T), sdv, b, r, h)));
+    float* krow = at(dk, sdk, b, r, h);
+    float* vrow = at(dv, sdv, b, r, h);
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      krow[cg + 16 * j] = from_float<T>(gk[i][j] * scale);
-      vrow[cg + 16 * j] = from_float<T>(gv[i][j]);
+      krow[cg + 16 * j] = gk[i][j] * scale;
+      vrow[cg + 16 * j] = gv[i][j];
     }
   }
 }
@@ -540,142 +508,115 @@ Strides strides_at(const long long* s, int i) {
   return Strides{s[3 * i], s[3 * i + 1], s[3 * i + 2]};
 }
 
-template <typename T, int D>
-cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
-                       float* lse, const long long* s, int B, int T_q,
-                       int T_k, int H, int causal, float scale,
+template <int D>
+cudaError_t launch_fwd(const float* q, const float* k, const float* v,
+                       float* o, float* lse, const long long* s, int B,
+                       int T_q, int T_k, int H, int causal, float scale,
                        cudaStream_t stream) {
-  auto kernel = fwd_kernel<T, D>;
+  auto kernel = fwd_kernel<D>;
   cudaError_t err = allow_smem(kernel, fwd_smem<D>());
   if (err != cudaSuccess) return err;
   kernel<<<dim3(T_q / kBQ, H, B), kThreads, fwd_smem<D>() * sizeof(float),
-           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<T*>(o), lse,
-                     strides_at(s, 0), strides_at(s, 1), strides_at(s, 2),
-                     strides_at(s, 3), T_q, T_k, H, causal, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* o, const void* dout, const float* lse,
-                      void* dq, const long long* s, int B, int T_q, int T_k,
-                      int H, int causal, float scale, cudaStream_t stream) {
-  auto kernel = bwd_dq_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, dq_smem<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(T_q / kBQ, H, B), kThreads, dq_smem<D>() * sizeof(float),
-           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<const T*>(o),
-                     static_cast<const T*>(dout), lse, static_cast<T*>(dq),
-                     strides_at(s, 0), strides_at(s, 1), strides_at(s, 2),
-                     strides_at(s, 3), strides_at(s, 4), strides_at(s, 5),
-                     T_q, T_k, H, causal, scale);
-  return cudaGetLastError();
-}
-
-template <typename T, int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const float* lse,
-                       void* dk, void* dv, const long long* s, int B,
-                       int T_q, int T_k, int H, int causal, float scale,
-                       cudaStream_t stream) {
-  auto kernel = bwd_dkv_kernel<T, D>;
-  cudaError_t err = allow_smem(kernel, dkv_smem<D>());
-  if (err != cudaSuccess) return err;
-  kernel<<<dim3(T_k / kBK, H, B), kThreads, dkv_smem<D>() * sizeof(float),
-           stream>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                     static_cast<const T*>(v), static_cast<const T*>(o),
-                     static_cast<const T*>(dout), lse, static_cast<T*>(dk),
-                     static_cast<T*>(dv), strides_at(s, 0), strides_at(s, 1),
-                     strides_at(s, 2), strides_at(s, 3), strides_at(s, 4),
-                     strides_at(s, 5), strides_at(s, 6), T_q, T_k, H, causal,
+           stream>>>(q, k, v, o, lse, strides_at(s, 0), strides_at(s, 1),
+                     strides_at(s, 2), strides_at(s, 3), T_q, T_k, H, causal,
                      scale);
   return cudaGetLastError();
 }
 
-bool shape_ok(int B, int T_q, int T_k, int H, int causal) {
+template <int D>
+cudaError_t launch_dq(const float* q, const float* k, const float* v,
+                      const float* o, const float* dout, const float* lse,
+                      float* dq, const long long* s, int B, int T_q, int T_k,
+                      int H, int causal, float scale, cudaStream_t stream) {
+  auto kernel = bwd_dq_kernel<D>;
+  cudaError_t err = allow_smem(kernel, dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(T_q / kBQ, H, B), kThreads, dq_smem<D>() * sizeof(float),
+           stream>>>(q, k, v, o, dout, lse, dq, strides_at(s, 0),
+                     strides_at(s, 1), strides_at(s, 2), strides_at(s, 3),
+                     strides_at(s, 4), strides_at(s, 5), T_q, T_k, H, causal,
+                     scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const float* q, const float* k, const float* v,
+                       const float* o, const float* dout, const float* lse,
+                       float* dk, float* dv, const long long* s, int B,
+                       int T_q, int T_k, int H, int causal, float scale,
+                       cudaStream_t stream) {
+  auto kernel = bwd_dkv_kernel<D>;
+  cudaError_t err = allow_smem(kernel, dkv_smem<D>());
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(T_k / kBK, H, B), kThreads, dkv_smem<D>() * sizeof(float),
+           stream>>>(q, k, v, o, dout, lse, dk, dv, strides_at(s, 0),
+                     strides_at(s, 1), strides_at(s, 2), strides_at(s, 3),
+                     strides_at(s, 4), strides_at(s, 5), strides_at(s, 6),
+                     T_q, T_k, H, causal, scale);
+  return cudaGetLastError();
+}
+
+bool shape_ok(int B, int T_q, int T_k, int H, int D, int causal) {
   return B > 0 && H > 0 && T_q > 0 && T_k > 0 && T_q % kBQ == 0 &&
          T_k % kBK == 0 && (!causal || T_q == T_k) && B <= 65535 &&
-         H <= 65535;
+         H <= 65535 && (D == 64 || D == 128);
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (dQ only: flash_fwd_launch and
-// flash_bwd_dkv_launch take float32); D: 64 or 128. Pointers are device
-// pointers; `strides` is a host array of (batch, row, head) element
-// strides, three per tensor in argument order (the last dimension of
-// every tensor is contiguous); lse is a contiguous [B, H, T_q] fp32
-// tensor. Causal needs T_q == T_k. Returns a cudaError_t,
-// cudaErrorInvalidValue for shapes or types the kernels do not take (the
-// Python wrapper checks them first).
-#define RTT_DISPATCH_F32(CALL)                                              \
-  if (dtype == 0 && D == 64) return static_cast<int>(CALL(float, 64));      \
-  if (dtype == 0 && D == 128) return static_cast<int>(CALL(float, 128));
-
-#define RTT_DISPATCH(CALL)                                                  \
-  RTT_DISPATCH_F32(CALL)                                                    \
-  if (dtype == 1 && D == 64)                                                \
-    return static_cast<int>(CALL(__nv_bfloat16, 64));                       \
-  if (dtype == 1 && D == 128)                                               \
-    return static_cast<int>(CALL(__nv_bfloat16, 128));                      \
-  return static_cast<int>(cudaErrorInvalidValue)
-
-extern "C" int flash_fwd_launch(const void* q, const void* k, const void* v,
-                                void* o, void* lse, const long long* strides,
-                                int B, int T_q, int T_k, int H, int D,
-                                int causal, float scale, int dtype,
-                                void* stream) {
-  if (!shape_ok(B, T_q, T_k, H, causal))
+// fp32 only; D 64 or 128. Pointers are device pointers to fp32 tensors;
+// `strides` is a host array of (batch, row, head) element strides, three
+// per tensor in argument order (the last dimension of every tensor is
+// contiguous); lse is a contiguous [B, H, T_q] fp32 tensor. Causal needs
+// T_q == T_k. Returns a cudaError_t, cudaErrorInvalidValue for shapes
+// the kernels do not take (the Python wrapper checks them first).
+extern "C" int flash_fwd_launch(const float* q, const float* k,
+                                const float* v, float* o, float* lse,
+                                const long long* strides, int B, int T_q,
+                                int T_k, int H, int D, int causal,
+                                float scale, void* stream) {
+  if (!shape_ok(B, T_q, T_k, H, D, causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RTT_FWD(T, DD)                                                      \
-  launch_fwd<T, DD>(q, k, v, o, static_cast<float*>(lse), strides, B, T_q, \
-                    T_k, H, causal, scale, st)
-  RTT_DISPATCH_F32(RTT_FWD);
-  return static_cast<int>(cudaErrorInvalidValue);
-#undef RTT_FWD
+  return static_cast<int>(
+      D == 64 ? launch_fwd<64>(q, k, v, o, lse, strides, B, T_q, T_k, H,
+                               causal, scale, st)
+              : launch_fwd<128>(q, k, v, o, lse, strides, B, T_q, T_k, H,
+                                causal, scale, st));
 }
 
-extern "C" int flash_bwd_dq_launch(const void* q, const void* k,
-                                   const void* v, const void* o,
-                                   const void* dout, const void* lse,
-                                   void* dq, const long long* strides, int B,
-                                   int T_q, int T_k, int H, int D,
-                                   int causal, float scale, int dtype,
-                                   void* stream) {
-  if (!shape_ok(B, T_q, T_k, H, causal))
+extern "C" int flash_bwd_dq_launch(const float* q, const float* k,
+                                   const float* v, const float* o,
+                                   const float* dout, const float* lse,
+                                   float* dq, const long long* strides,
+                                   int B, int T_q, int T_k, int H, int D,
+                                   int causal, float scale, void* stream) {
+  if (!shape_ok(B, T_q, T_k, H, D, causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RTT_DQ(T, DD)                                                      \
-  launch_dq<T, DD>(q, k, v, o, dout, static_cast<const float*>(lse), dq,  \
-                   strides, B, T_q, T_k, H, causal, scale, st)
-  RTT_DISPATCH(RTT_DQ);
-#undef RTT_DQ
+  return static_cast<int>(
+      D == 64 ? launch_dq<64>(q, k, v, o, dout, lse, dq, strides, B, T_q,
+                              T_k, H, causal, scale, st)
+              : launch_dq<128>(q, k, v, o, dout, lse, dq, strides, B, T_q,
+                               T_k, H, causal, scale, st));
 }
 
-extern "C" int flash_bwd_dkv_launch(const void* q, const void* k,
-                                    const void* v, const void* o,
-                                    const void* dout, const void* lse,
-                                    void* dk, void* dv,
+extern "C" int flash_bwd_dkv_launch(const float* q, const float* k,
+                                    const float* v, const float* o,
+                                    const float* dout, const float* lse,
+                                    float* dk, float* dv,
                                     const long long* strides, int B,
                                     int T_q, int T_k, int H, int D,
-                                    int causal, float scale, int dtype,
-                                    void* stream) {
-  if (!shape_ok(B, T_q, T_k, H, causal))
+                                    int causal, float scale, void* stream) {
+  if (!shape_ok(B, T_q, T_k, H, D, causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RTT_DKV(T, DD)                                                      \
-  launch_dkv<T, DD>(q, k, v, o, dout, static_cast<const float*>(lse), dk, \
-                    dv, strides, B, T_q, T_k, H, causal, scale, st)
-  RTT_DISPATCH_F32(RTT_DKV);
-  return static_cast<int>(cudaErrorInvalidValue);
-#undef RTT_DKV
+  return static_cast<int>(
+      D == 64 ? launch_dkv<64>(q, k, v, o, dout, lse, dk, dv, strides, B,
+                               T_q, T_k, H, causal, scale, st)
+              : launch_dkv<128>(q, k, v, o, dout, lse, dk, dv, strides, B,
+                                T_q, T_k, H, causal, scale, st));
 }
-
-#undef RTT_DISPATCH
-#undef RTT_DISPATCH_F32
 
 extern "C" const char* flash_attention_error(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -1,13 +1,14 @@
 // Flash attention on Hopper's tensor cores (sm_90a), bf16: the forward
-// (K3) and the dK/dV backward (K5) over the [B, T, H, D] layout, D 64 or
-// 128, with an fp32 online softmax.
+// (K3), the dQ backward (K4) and the dK/dV backward (K5) over the
+// [B, T, H, D] layout, D 64 or 128, with an fp32 online softmax.
 //
 // Replaces, for bf16 inputs, the TPU kernels of
 // ray_tpu/ops/flash_attention.py:
 //   fwd_sm90 <- _fwd_kernel     (launched by _flash_fwd)
+//   dq_sm90  <- _bwd_dq_kernel  (launched by _flash_bwd_packed)
 //   dkv_sm90 <- _bwd_dkv_kernel (launched by _flash_bwd_packed)
 // fp32 inputs stay on the scalar kernels of flash_attention.cu (tensor
-// cores cannot hold fp32 to 1e-4), and so does K4 (dQ) in both types.
+// cores cannot hold fp32 to 1e-4).
 // Same functions and rounding points as those kernels: fp32 scores from
 // bf16 operands, scaled after the product; masked scores -1e30; the row
 // sum l of the unrounded P, floored at 1e-30; P (and dS) rounded to
@@ -16,11 +17,12 @@
 // Exponentials are exp2f((x - m) * log2(e)), x the scaled score.
 //
 // Bound. At the GPT-2-124M shape (B 24, T 1024, H 12, D 64, causal) K3
-// does 4 * D flops and K5 8 * D per visible (query, key) pair: 38.7 and
-// 77.4 GFLOP, 0.04 and 0.08 ms at the 989 TFLOP/s bf16 tensor-core
-// peak, about the time the card needs to read the inputs once (0.05
-// and 0.08 ms at 3.35 TB/s). Scalar fp32 FMAs (67 TFLOP/s) cannot go
-// below 0.58 and 1.16 ms, so every product here is a wgmma.
+// does 4 * D flops, K4 6 * D and K5 8 * D per visible (query, key)
+// pair: 38.7, 58.1 and 77.4 GFLOP, 0.04, 0.06 and 0.08 ms at the 989
+// TFLOP/s bf16 tensor-core peak, about the time the card needs to read
+// the inputs once (0.05-0.08 ms at 3.35 TB/s). Scalar fp32 FMAs (67
+// TFLOP/s) cannot go below 0.58, 0.87 and 1.16 ms, so every product
+// here is a wgmma.
 //
 // Design (one CTA = one consumer warpgroup + one producer warp):
 //   - The producer warp's first lane streams tiles with TMA into a ring
@@ -39,6 +41,13 @@
 //     O += P V, V read MN-major (transposed by the instruction). Under
 //     causal a CTA visits kv tiles up to its diagonal tile, the only
 //     masked one.
+//   - K4: a CTA owns 64 q rows, as in K3; Q and dO are loaded once and
+//     kept in registers as the A operands of S = Q K^T and dP = dO V^T
+//     (K and V read K-major; both products issued before the wait), K
+//     and V stream. P and dS are formed on the accumulator fragments;
+//     dS goes to bf16 in registers and is the A operand of dQ += dS K,
+//     K read MN-major: K3's O += P V with K in V's place. dQ is scaled
+//     once at the end. Under causal the kv tiles run as in K3.
 //   - K5: a CTA owns 64 keys; K and V are loaded once, Q, dO and the q
 //     tile's lse and delta stream. S^T = K Q^T and dP^T = V dO^T with
 //     both operands in shared memory, then dV += P^T dO and dK += dS^T
@@ -47,12 +56,13 @@
 //     tile on.
 //   - The CTAs of one (batch, head) are consecutive in the grid (under
 //     causal, longest first), so the tiles they all stream (K and V in
-//     K3; Q and dO in K5) come from device memory once and then from
-//     L2 (in (tile, head, batch) order the resident CTAs' working set
-//     outgrew the 50 MB L2 and the streams were re-read from device
+//     K3 and K4; Q and dO in K5) come from device memory once and then
+//     from L2 (in (tile, head, batch) order the resident CTAs' working
+//     set outgrew the 50 MB L2 and the streams were re-read from device
 //     memory).
-//   - delta = rowsum(dO * O) is formed once per row by delta_kernel
-//     before dkv_sm90 (the TPU kernel recomputes it for every kv block).
+//   - delta = rowsum(dO * O) is formed once per row by delta_kernel, its
+//     own launch, and K4 and K5 of one backward read the same delta (the
+//     TPU kernels recompute it for every block).
 //   - Every output tile has one owner: no atomics, deterministic.
 // A wait on an mbarrier that outlasts ~2^32 cycles traps (a launch
 // error) rather than hanging the card.
@@ -485,6 +495,153 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---------------------------------------------------------------------
+// K4: dQ = scale * sum_kv dS K, dS = P o (dP - delta), P = exp(scale S -
+// lse), dP = dO V^T. The q tile's rows are the rows of every product, as
+// in K3, so P and dS stay on the accumulator fragments.
+// ---------------------------------------------------------------------
+template <int D>
+constexpr int dq_smem() {
+  return (2 + 2 * kStages) * kTile * D * 2 + 8 * (1 + 2 * kStages) + 1024;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    dq_sm90(const __grid_constant__ CUtensorMap tm_q,
+            const __grid_constant__ CUtensorMap tm_k,
+            const __grid_constant__ CUtensorMap tm_v,
+            const __grid_constant__ CUtensorMap tm_do,
+            const float* __restrict__ lse, const float* __restrict__ delta,
+            bf16* __restrict__ dq, Strides sdq, int T_q, int T_k, int H,
+            int causal, float scale) {
+  constexpr int kTileBytes = kTile * D * 2;
+  extern __shared__ __align__(1024) uint8_t smem[];
+  const uint32_t sq = (smem_u32(smem) + 1023) & ~1023u;
+  const uint32_t sdo = sq + kTileBytes;
+  const uint32_t sk = sdo + kTileBytes;           // kStages K tiles
+  const uint32_t sv = sk + kStages * kTileBytes;  // kStages V tiles
+  const uint32_t q_bar = sv + kStages * kTileBytes;  // Q and dO loaded
+  const uint32_t full = q_bar + 8;                // + 8 s: stage s loaded
+  const uint32_t empty = full + 8 * kStages;      // + 8 s: stage s free
+
+  // grid order as in K3: the q tiles of one (b, h) side by side, longest
+  // first under causal
+  const int n_q = T_q / kTile;
+  const int bh = blockIdx.x / n_q;
+  const int qt = causal ? n_q - 1 - blockIdx.x % n_q : blockIdx.x % n_q;
+  const int h = bh % H;
+  const int b = bh / H;
+  const int q0 = qt * kTile;
+  const int n_kv = causal ? qt + 1 : T_k / kTile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_bar, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumers);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {  // the producer warp
+    if (threadIdx.x == kConsumers) {
+      mbar_expect_tx(q_bar, 2 * kTileBytes);
+      tma_tile<D>(sq, &tm_q, q_bar, b, h, q0);
+      tma_tile<D>(sdo, &tm_do, q_bar, b, h, q0);
+      for (int j = 0; j < n_kv; ++j) {
+        const int s = j % kStages;
+        if (j >= kStages) mbar_wait(empty + 8 * s, ((j / kStages) - 1) & 1);
+        mbar_expect_tx(full + 8 * s, 2 * kTileBytes);
+        tma_tile<D>(sk + s * kTileBytes, &tm_k, full + 8 * s, b, h,
+                    j * kTile);
+        tma_tile<D>(sv + s * kTileBytes, &tm_v, full + 8 * s, b, h,
+                    j * kTile);
+      }
+    }
+    return;
+  }
+
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int r0 = 16 * warp + lane / 4;  // rows r0 and r0 + 8
+  const int c0 = 2 * (lane % 4);
+
+  // this thread's two rows' lse and delta
+  const long long vec = (static_cast<long long>(b) * H + h) * T_q + q0 + r0;
+  const float ls[2] = {lse[vec], lse[vec + 8]};
+  const float dl[2] = {delta[vec], delta[vec + 8]};
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  // Q and dO stay in registers as the A operands of every S and dP
+  mbar_wait(q_bar, 0);
+  uint32_t qa[D / 16][4], ga[D / 16][4];
+#pragma unroll
+  for (int ks = 0; ks < D / 16; ++ks) {
+    load_a(sq, ks, qa[ks]);
+    load_a(sdo, ks, ga[ks]);
+  }
+  float sc[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+
+  for (int j = 0; j < n_kv; ++j) {
+    const int s = j % kStages;
+    const uint32_t ks_tile = sk + s * kTileBytes;
+    const uint32_t vs_tile = sv + s * kTileBytes;
+    mbar_wait(full + 8 * s, (j / kStages) & 1);
+
+    // S and dP in one group: no accumulator is touched while a wgmma
+    // that owns one is in flight
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_rs<0>(sc, qa[ks], kmajor(ks_tile, ks), ks > 0);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      wgmma_rs<0>(dp, ga[ks], kmajor(vs_tile, ks), ks > 0);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(sc);
+    fence_regs(dp);
+
+    const bool diag = causal && j == qt;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float x = sc[i] * scale;
+      if (diag && c0 + acc_col(i) > r0 + 8 * acc_row(i)) x = -1e30f;
+      const float p = exp2f((x - ls[acc_row(i)]) * kLog2e);
+      dp[i] = p * (dp[i] - dl[acc_row(i)]);
+    }
+    uint32_t da[4][4];
+    to_a_operand(dp, da);
+
+    wg_fence();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<1>(acc, da[kk], mnmajor(ks_tile, kk), 1);
+    wg_commit();
+    wg_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(empty + 8 * s);
+  }
+
+#pragma unroll
+  for (int u = 0; u < 2; ++u) {
+    const long long row = q0 + r0 + 8 * u;
+    bf16* drow = dq + b * sdq.b + row * sdq.t + h * sdq.h;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(drow + 8 * n + c0) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * u] * scale,
+                                acc[4 * n + 2 * u + 1] * scale);
+  }
+}
+
+// ---------------------------------------------------------------------
 // delta[b, h, t] = sum_d dO[b, t, h, d] * O[b, t, h, d] in fp32: D / 8
 // threads per row, 16 bytes each.
 // ---------------------------------------------------------------------
@@ -779,26 +936,52 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* o,
 }
 
 template <int D>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* o, const void* dout, const float* lse,
-                       float* delta, void* dk, void* dv, const long long* s,
-                       int B, int T_q, int T_k, int H, int causal,
-                       float scale, cudaStream_t stream) {
-  const long long rows = static_cast<long long>(B) * T_q * H;
-  delta_kernel<D><<<(rows * (D / 8) + 255) / 256, 256, 0, stream>>>(
+cudaError_t launch_delta(const void* o, const void* dout, float* delta,
+                         const long long* s, int B, int T, int H,
+                         cudaStream_t stream) {
+  const long long rows = static_cast<long long>(B) * T * H;
+  const long long blocks = (rows * (D / 8) + 255) / 256;
+  if (blocks >= (1ll << 31)) return cudaErrorInvalidValue;
+  delta_kernel<D><<<static_cast<int>(blocks), 256, 0, stream>>>(
       static_cast<const bf16*>(o), static_cast<const bf16*>(dout), delta,
-      strides_at(s, 3), strides_at(s, 4), T_q, H, rows);
-  cudaError_t err = cudaGetLastError();
+      strides_at(s, 0), strides_at(s, 1), T, H, rows);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* dout, const float* lse, const float* delta,
+                      void* dq, const long long* s, int B, int T_q, int T_k,
+                      int H, int causal, float scale, cudaStream_t stream) {
   CUtensorMap mq, mk, mv, mdo;
-  if (err == cudaSuccess) err = tensor_map(&mq, q, s, B, T_q, H, D);
+  cudaError_t err = tensor_map(&mq, q, s, B, T_q, H, D);
   if (err == cudaSuccess) err = tensor_map(&mk, k, s + 3, B, T_k, H, D);
   if (err == cudaSuccess) err = tensor_map(&mv, v, s + 6, B, T_k, H, D);
-  if (err == cudaSuccess) err = tensor_map(&mdo, dout, s + 12, B, T_q, H, D);
+  if (err == cudaSuccess) err = tensor_map(&mdo, dout, s + 9, B, T_q, H, D);
+  if (err == cudaSuccess) err = allow_smem(dq_sm90<D>, dq_smem<D>());
+  if (err != cudaSuccess) return err;
+  dq_sm90<D><<<(T_q / kTile) * B * H, kThreads, dq_smem<D>(), stream>>>(
+      mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dq), strides_at(s, 4),
+      T_q, T_k, H, causal, scale);
+  return cudaGetLastError();
+}
+
+template <int D>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* dout, const float* lse,
+                       const float* delta, void* dk, void* dv,
+                       const long long* s, int B, int T_q, int T_k, int H,
+                       int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err = tensor_map(&mq, q, s, B, T_q, H, D);
+  if (err == cudaSuccess) err = tensor_map(&mk, k, s + 3, B, T_k, H, D);
+  if (err == cudaSuccess) err = tensor_map(&mv, v, s + 6, B, T_k, H, D);
+  if (err == cudaSuccess) err = tensor_map(&mdo, dout, s + 9, B, T_q, H, D);
   if (err == cudaSuccess) err = allow_smem(dkv_sm90<D>, dkv_smem<D>());
   if (err != cudaSuccess) return err;
   dkv_sm90<D><<<(T_k / kTile) * B * H, kThreads, dkv_smem<D>(), stream>>>(
       mq, mk, mv, mdo, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), strides_at(s, 5), strides_at(s, 6), T_q, H,
+      static_cast<bf16*>(dv), strides_at(s, 4), strides_at(s, 5), T_q, H,
       B * H, causal, scale);
   return cudaGetLastError();
 }
@@ -814,11 +997,13 @@ bool shape_ok(int B, int T_q, int T_k, int H, int D, int causal) {
 
 // bf16 only; D 64 or 128. Pointers are device pointers; `strides` is a
 // host array of (batch, row, head) element strides, three per tensor in
-// argument order (q, k, v, o; for dK/dV also dout, dk, dv); the last
-// dimension of every tensor is contiguous, and q, k, v (and o, dout)
-// have 16-byte aligned bases and strides (the Python wrapper checks).
-// lse (and delta, scratch the dK/dV launch fills) are contiguous
-// [B, H, T_q] fp32. Causal needs T_q == T_k. Returns a cudaError_t.
+// argument order (forward: q, k, v, o; delta: o, dout; dQ: q, k, v,
+// dout, dq; dK/dV: q, k, v, dout, dk, dv); the last dimension of every
+// tensor is contiguous, and q, k, v, o and dout have 16-byte aligned
+// bases and strides (the Python wrapper checks). lse and delta are
+// contiguous [B, H, T_q] fp32: the forward writes lse, the delta pass
+// writes delta, and the dQ and dK/dV launches of one backward read the
+// same two. Causal needs T_q == T_k. Returns a cudaError_t.
 extern "C" int flash_fwd_sm90_launch(const void* q, const void* k,
                                      const void* v, void* o, void* lse,
                                      const long long* strides, int B,
@@ -835,20 +1020,51 @@ extern "C" int flash_fwd_sm90_launch(const void* q, const void* k,
                                 causal, scale, st));
 }
 
+extern "C" int flash_bwd_delta_sm90_launch(const void* o, const void* dout,
+                                           void* delta,
+                                           const long long* strides, int B,
+                                           int T, int H, int D,
+                                           void* stream) {
+  if (!shape_ok(B, T, T, H, D, 0))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* dl = static_cast<float*>(delta);
+  return static_cast<int>(
+      D == 64 ? launch_delta<64>(o, dout, dl, strides, B, T, H, st)
+              : launch_delta<128>(o, dout, dl, strides, B, T, H, st));
+}
+
+extern "C" int flash_bwd_dq_sm90_launch(
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dq, const long long* strides,
+    int B, int T_q, int T_k, int H, int D, int causal, float scale,
+    void* stream) {
+  if (!shape_ok(B, T_q, T_k, H, D, causal))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  return static_cast<int>(
+      D == 64 ? launch_dq<64>(q, k, v, dout, l, dl, dq, strides, B, T_q, T_k,
+                              H, causal, scale, st)
+              : launch_dq<128>(q, k, v, dout, l, dl, dq, strides, B, T_q,
+                               T_k, H, causal, scale, st));
+}
+
 extern "C" int flash_bwd_dkv_sm90_launch(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, const void* lse, void* delta, void* dk, void* dv,
+    const void* q, const void* k, const void* v, const void* dout,
+    const void* lse, const void* delta, void* dk, void* dv,
     const long long* strides, int B, int T_q, int T_k, int H, int D,
     int causal, float scale, void* stream) {
   if (!shape_ok(B, T_q, T_k, H, D, causal))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
-  float* dl = static_cast<float*>(delta);
+  const float* dl = static_cast<const float*>(delta);
   return static_cast<int>(
-      D == 64 ? launch_dkv<64>(q, k, v, o, dout, l, dl, dk, dv, strides, B,
-                               T_q, T_k, H, causal, scale, st)
-              : launch_dkv<128>(q, k, v, o, dout, l, dl, dk, dv, strides, B,
+      D == 64 ? launch_dkv<64>(q, k, v, dout, l, dl, dk, dv, strides, B, T_q,
+                               T_k, H, causal, scale, st)
+              : launch_dkv<128>(q, k, v, dout, l, dl, dk, dv, strides, B,
                                 T_q, T_k, H, causal, scale, st));
 }
 

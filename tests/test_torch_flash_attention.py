@@ -9,6 +9,7 @@ then K5) is what is held here. Same numpy inputs on both sides; fp32;
 tolerance 1e-4 abs and rel (the two sum in different orders).
 """
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -134,22 +135,91 @@ def test_flash_rejects_what_it_does_not_take(bad):
 
 def test_cpu_wrappers_count_no_launches():
     q, k, v, do = (torch.from_numpy(x) for x in _inputs(5, 1, 128, 1, 64))
-    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-              fa.flash_bwd_dkv.launches)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_delta.launches,
+              fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches)
     o, lse = fa.flash_fwd(q, k, v, True, 0.125)
-    fa.flash_bwd_dq(q, k, v, o, do, lse, True, 0.125)
+    delta = fa.flash_bwd_delta(o, do)
+    fa.flash_bwd_dq(q, k, v, o, do, lse, True, 0.125, delta)
     fa.flash_bwd_dkv(q, k, v, o, do, lse, True, 0.125)
-    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-            fa.flash_bwd_dkv.launches) == before
+    assert (fa.flash_fwd.launches, fa.flash_bwd_delta.launches,
+            fa.flash_bwd_dq.launches, fa.flash_bwd_dkv.launches) == before
 
 
+@pytest.mark.parametrize("B,T,H,D,causal", [
+    (1, 256, 2, 64, True), (2, 128, 3, 128, False)])
+def test_delta_reference_is_rowsum_of_jax_output(B, T, H, D, causal):
+    """The delta pass's plain version is rowsum(dO * O) over the head
+    dimension, [B, H, T] fp32, on JAX's forward output; the CPU wrapper
+    returns the same."""
+    q, k, v, do = _inputs(B + T + D, B, T, H, D)
+    jfn = _jax_fwd_bwd if causal else _jax_fwd_bwd_full
+    jo = np.array(jfn(*(jnp.asarray(x) for x in (q, k, v, do)))[0])
+    want = (do.astype(np.float64) * jo).sum(-1).transpose(0, 2, 1)
+    to, tdo = torch.from_numpy(jo), torch.from_numpy(do)
+    delta = fa.flash_bwd_delta_reference(to, tdo)
+    assert delta.shape == (B, H, T) and delta.dtype == torch.float32
+    assert delta.is_contiguous()
+    np.testing.assert_allclose(delta.numpy(), want, **TOL)
+    torch.testing.assert_close(fa.flash_bwd_delta(to, tdo), delta, rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_on_a_passed_delta_matches_alone_and_jax(causal):
+    """K4 and K5's wrappers given one delta (as the backward shares it)
+    give exactly what they give forming it themselves, and JAX's
+    gradients."""
+    q, k, v, do = _inputs(21, 1, 256, 2, 64)
+    jfn = _jax_fwd_bwd if causal else _jax_fwd_bwd_full
+    _, jgrads = jfn(*(jnp.asarray(x) for x in (q, k, v, do)))
+    tq, tk, tv, tdo = (torch.from_numpy(x) for x in (q, k, v, do))
+    o, lse = fa.flash_fwd(tq, tk, tv, causal, 0.125)
+    delta = fa.flash_bwd_delta(o, tdo)
+    shared = (fa.flash_bwd_dq(tq, tk, tv, o, tdo, lse, causal, 0.125,
+                              delta=delta),
+              *fa.flash_bwd_dkv(tq, tk, tv, o, tdo, lse, causal, 0.125,
+                                delta=delta))
+    alone = (fa.flash_bwd_dq(tq, tk, tv, o, tdo, lse, causal, 0.125),
+             *fa.flash_bwd_dkv(tq, tk, tv, o, tdo, lse, causal, 0.125))
+    for name, a, b, jg in zip("qkv", shared, alone, jgrads):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+        np.testing.assert_allclose(a.numpy(), np.asarray(jg), **TOL,
+                                   err_msg=f"d{name}")
+
+
+def test_backward_forms_delta_once_for_k4_and_k5(monkeypatch):
+    """One backward through ``flash_attention`` runs one delta pass and
+    hands that same tensor to K4 and to K5."""
+    seen = {"delta": [], "dq": [], "dkv": []}
+
+    def spy(key, fn):
+        def wrapped(*args, **kw):
+            out = fn(*args, **kw)
+            seen[key].append(out if key == "delta" else
+                             args[8] if len(args) > 8 else kw["delta"])
+            return out
+        return wrapped
+
+    monkeypatch.setattr(fa, "flash_bwd_delta",
+                        spy("delta", fa.flash_bwd_delta))
+    monkeypatch.setattr(fa, "flash_bwd_dq", spy("dq", fa.flash_bwd_dq))
+    monkeypatch.setattr(fa, "flash_bwd_dkv", spy("dkv", fa.flash_bwd_dkv))
+    q, k, v, do = _inputs(22, 1, 128, 2, 64)
+    _torch_fwd_bwd(q, k, v, do, causal=True)
+    assert [len(seen[key]) for key in ("delta", "dq", "dkv")] == [1, 1, 1]
+    assert seen["dq"][0] is seen["delta"][0]
+    assert seen["dkv"][0] is seen["delta"][0]
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "o", "do"])
 @pytest.mark.parametrize("case", ["contiguous", "c_attn_view",
                                   "odd_row_stride"])
-def test_bf16_tma_contract(case):
-    """bf16 K3/K5 copy tiles with TMA: an input must start on 16 bytes
-    and step in whole 16 bytes, as contiguous tensors and GPT-2's
-    c_attn column views do; ``_check_tma`` (run before every bf16
-    launch) refuses the rest."""
+def test_bf16_tma_contract(case, name):
+    """bf16 K3/K4/K5 and the delta pass copy tiles with TMA or 16-byte
+    loads: each of K4's inputs (q, k, v, and o and dO, which the delta
+    pass reads) must start on 16 bytes and step in whole 16 bytes, as
+    contiguous tensors and GPT-2's c_attn column views do;
+    ``_check_tma`` (run before every bf16 launch) refuses the rest."""
     bf16 = torch.bfloat16
     if case == "contiguous":
         t = torch.zeros(2, 128, 2, 64, dtype=bf16)
@@ -160,17 +230,55 @@ def test_bf16_tma_contract(case):
     else:
         t = torch.zeros(2, 128, 2, 68, dtype=bf16)[..., :64]
     if case == "odd_row_stride":
-        with pytest.raises(ValueError, match="16-byte"):
-            fa._check_tma(q=t)
+        with pytest.raises(ValueError, match=f"{name}: .*16-byte"):
+            fa._check_tma(**{name: t})
     else:
-        fa._check_tma(q=t)
+        fa._check_tma(**{name: t})
+
+
+# ptxas -v's lines for dkv_sm90<64> (with the performance warning it
+# gets) and dq_sm90<64>, as nvcc printed them building the tensor-core
+# library for sm_90a
+_PTXAS_REPORT = """\
+ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are serialized due to program dependence on compiler-inserted WG.AR in divergent path in the function '_ZN56_GLOBAL__N__56ccc7f5_23_flash_attention_sm90_cu_52498dfd8dkv_sm90ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_NS_7StridesES6_iiiif'
+ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__56ccc7f5_23_flash_attention_sm90_cu_52498dfd8dkv_sm90ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_NS_7StridesES6_iiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN56_GLOBAL__N__56ccc7f5_23_flash_attention_sm90_cu_52498dfd8dkv_sm90ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16S5_NS_7StridesES6_iiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 161 registers, used 1 barriers
+ptxas info    : Compile time = 91.057 ms
+ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__56ccc7f5_23_flash_attention_sm90_cu_52498dfd7dq_sm90ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16NS_7StridesEiiiif' for 'sm_90a'
+ptxas info    : Function properties for _ZN56_GLOBAL__N__56ccc7f5_23_flash_attention_sm90_cu_52498dfd7dq_sm90ILi64EEEv14CUtensorMap_stS1_S1_S1_PKfS3_P13__nv_bfloat16NS_7StridesEiiiif
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 155 registers, used 1 barriers
+ptxas info    : Compile time = 71.572 ms
+"""
+
+
+def test_ptxas_summary_names_the_dq_kernel():
+    """Phase 1 of chip_smoke.py reads the tensor-core library's ptxas
+    report through ``_build.ptxas_summary``: each kernel instance, dq_sm90
+    among them, with its registers, spills and performance warnings."""
+    from ray_tpu_torch.ops import _build
+    assert "dq_sm90" in fa._SM90_KERNELS
+    summary = _build.ptxas_summary(_PTXAS_REPORT, fa._SM90_KERNELS)
+    assert summary == {
+        "dkv_sm90<64>": {"registers": 161, "spill_stores": 0,
+                         "spill_loads": 0, "warnings": [
+                             "wgmma.mma_async instructions are serialized "
+                             "due to program dependence on compiler-"
+                             "inserted WG.AR in divergent path"]},
+        "dq_sm90<64>": {"registers": 155, "spill_stores": 0,
+                        "spill_loads": 0, "warnings": []}}
+    assert _build.ptxas_summary(_PTXAS_REPORT, ("fwd_sm90",)) == {}
 
 
 def test_flash_sources_build_apart_with_ptxas_reports(tmp_path,
                                                       monkeypatch):
     """The scalar and the tensor-core sources are two libraries named by
     their own digests; each build leaves ptxas's report beside its
-    library, and an unbuilt source has none."""
+    library, and an unbuilt source has none. The tensor-core source
+    defines every kernel phase 1 expects in its report, dq_sm90 among
+    them."""
     from ray_tpu_torch.ops import _build
     paths = [_build.library_path(s) for s in (fa._SOURCE, fa._SOURCE_SM90)]
     assert paths[0].name.startswith("flash_attention-")
@@ -183,6 +291,10 @@ def test_flash_sources_build_apart_with_ptxas_reports(tmp_path,
                                              "registers")
     assert "125 registers" in _build.ptxas_report(fa._SOURCE_SM90)
     assert _build.ptxas_report(fa._SOURCE) == ""
+    text = (_build.CSRC / fa._SOURCE_SM90).read_text()
+    for kernel in fa._SM90_KERNELS:
+        assert re.search(rf"__global__[^;{{]*\b{kernel}\(", text), kernel
+    assert 'extern "C" int flash_bwd_dq_sm90_launch(' in text
 
 
 def test_attention_dispatch_on_cpu():

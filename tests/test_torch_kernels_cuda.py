@@ -15,12 +15,12 @@ dequantized in the same order by both); bf16 inputs 4e-3 abs plus 2^-7 rel
 differ by one bf16 ulp, at most 2^-7 of the value).
 
 Flash attention (K3 forward, K4 dQ, K5 dK/dV): fp32 (the scalar
-kernels) within 1e-4 abs and rel of the plain versions; bf16 (K3 and
-K5 on the tensor cores, K4 scalar): the output within 4e-3 +
-2^-7·|ref| (one rounding of an fp32 result, as K1), lse within 1e-4,
-the gradients within 1e-2 + 2^-6·|ref| (they also round P and dS to
-bf16 before the products, and the forward rounds P under its running
-maximum while the plain version uses the row's final one).
+kernels) within 1e-4 abs and rel of the plain versions; bf16 (K3, K4
+and K5 on the tensor cores): the output within 4e-3 + 2^-7·|ref| (one
+rounding of an fp32 result, as K1), lse and the delta pass within
+1e-4, the gradients within 1e-2 + 2^-6·|ref| (they also round P and dS
+to bf16 before the products, and the forward rounds P under its
+running maximum while the plain version uses the row's final one).
 """
 import dataclasses
 
@@ -372,13 +372,14 @@ def _assert_bf16_close(out, ref):
 
 @pytest.mark.parametrize("T,D,causal", [
     (128, 64, True), (128, 64, False), (192, 64, True), (192, 64, False),
-    (512, 64, False), (1024, 64, True), (128, 128, True), (192, 128, True),
-    (192, 128, False), (256, 128, True), (256, 128, False),
-    (1024, 128, False)])
+    (512, 64, True), (512, 64, False), (1024, 64, True), (128, 128, True),
+    (128, 128, False), (192, 128, True), (192, 128, False),
+    (256, 128, True), (256, 128, False), (512, 128, True),
+    (512, 128, False), (1024, 128, False)])
 def test_flash_kernels_match_plain_bf16(dev, T, D, causal):
-    """The tensor-core K3/K5 (and scalar K4) in bf16 at D 64 and 128, one
-    tile, a trailing 64-row tile past a 128 multiple (T 192), several
-    tiles, at the bf16 limits."""
+    """The tensor-core K3/K4/K5 in bf16 at D 64 and 128, one tile, a
+    trailing 64-row tile past a 128 multiple (T 192), several tiles, at
+    the bf16 limits."""
     q, k, v, do = _flash_case(T * D, 2, T, 3, D, torch.bfloat16, dev)
     out = _flash_all(q, k, v, do, causal, 1 / D ** 0.5, kernel=True)
     ref = _flash_all(q, k, v, do, causal, 1 / D ** 0.5, kernel=False)
@@ -421,12 +422,71 @@ def test_flash_kernels_on_strided_qkv_views_bf16(dev, D):
     out = _flash_all(q, k, v, do, True, 1 / D ** 0.5, kernel=True)
     ref = _flash_all(q, k, v, do, True, 1 / D ** 0.5, kernel=False)
     _assert_bf16_close(out, ref)
-    # the backward kernels on a strided o as well
+    # the backward kernels (and their delta pass) on a strided o as well
     o = odo[..., :H * D].view(B, T, H, D).copy_(out[0])
+    dq = fa.flash_bwd_dq(q, k, v, o, do, out[1], True, 1 / D ** 0.5)
     dk, dv = fa.flash_bwd_dkv(q, k, v, o, do, out[1], True, 1 / D ** 0.5)
-    torch.testing.assert_close((dk.float(), dv.float()),
-                               (out[3].float(), out[4].float()), rtol=0,
-                               atol=0)
+    torch.testing.assert_close((dq.float(), dk.float(), dv.float()),
+                               (out[2].float(), out[3].float(),
+                                out[4].float()), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B,T,H,D,causal", [
+    (2, 256, 3, 64, True), (2, 192, 3, 128, False),
+    (24, 1024, 12, 64, True)])
+def test_flash_backward_on_shared_delta_matches_alone(dev, B, T, H, D,
+                                                      causal):
+    """bf16 K4 and K5 on one delta from ``flash_bwd_delta`` (as a
+    backward runs them) give exactly what each gives alone, running its
+    own pass; the pass is within 1e-4 of its plain version."""
+    q, k, v, do = _flash_case(B * T + D, B, T, H, D, torch.bfloat16, dev)
+    scale = 1 / D ** 0.5
+    o, lse = fa.flash_fwd(q, k, v, causal, scale)
+    delta = fa.flash_bwd_delta(o, do)
+    torch.testing.assert_close(delta, fa.flash_bwd_delta_reference(o, do),
+                               rtol=1e-4, atol=1e-4)
+    shared = (fa.flash_bwd_dq(q, k, v, o, do, lse, causal, scale, delta),
+              *fa.flash_bwd_dkv(q, k, v, o, do, lse, causal, scale, delta))
+    alone = (fa.flash_bwd_dq(q, k, v, o, do, lse, causal, scale),
+             *fa.flash_bwd_dkv(q, k, v, o, do, lse, causal, scale))
+    for a, b in zip(shared, alone):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_bf16_backward_runs_the_tensor_core_kernels(dev):
+    """One bf16 forward and backward through ``flash_attention`` runs
+    fwd_sm90, one delta pass, dq_sm90 and dkv_sm90 on the card (the
+    profiler's kernel names), and no scalar flash kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    q, k, v, do = _flash_case(9, 2, 256, 3, 64, torch.bfloat16, dev)
+    q.requires_grad_(True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fa.flash_attention(q, k, v).backward(do)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    count = {kern: sum(f"::{kern}<64>" in n for n in names)
+             for kern in ("fwd_sm90", "delta_kernel", "dq_sm90",
+                          "dkv_sm90", "fwd_kernel", "bwd_dq_kernel",
+                          "bwd_dkv_kernel")}
+    assert count == {"fwd_sm90": 1, "delta_kernel": 1, "dq_sm90": 1,
+                     "dkv_sm90": 1, "fwd_kernel": 0, "bwd_dq_kernel": 0,
+                     "bwd_dkv_kernel": 0}
+
+
+def test_fp32_kernels_take_no_delta(dev):
+    """The fp32 kernels form delta themselves: there is no fp32 delta
+    pass, and a delta handed to fp32 K4 or K5 is refused."""
+    q, k, v, do = _flash_case(10, 1, 128, 2, 64, torch.float32, dev)
+    o, lse = fa.flash_fwd(q, k, v, True, 0.125)
+    delta = fa.flash_bwd_delta_reference(o, do)
+    with pytest.raises(ValueError, match="delta"):
+        fa.flash_bwd_delta(o, do)
+    with pytest.raises(ValueError, match="delta"):
+        fa.flash_bwd_dq(q, k, v, o, do, lse, True, 0.125, delta)
+    with pytest.raises(ValueError, match="delta"):
+        fa.flash_bwd_dkv(q, k, v, o, do, lse, True, 0.125, delta)
 
 
 def test_flash_attention_on_strided_views_and_padded_head(dev):
@@ -456,18 +516,23 @@ def test_flash_attention_on_strided_views_and_padded_head(dev):
 def test_flash_launch_counters_count_kernel_launches_only(dev, dtype):
     """One forward and backward through ``flash_attention`` adds one to
     each kernel's count, in either dtype (bf16 through the tensor-core
-    K3/K5, fp32 through the scalar ones); the plain versions add none."""
+    K3/K4/K5, fp32 through the scalar ones); the delta pass counts apart
+    from K4 and K5, once per bf16 backward, and fp32 has none; the plain
+    versions add nothing."""
     q, k, v, do = _flash_case(6, 1, 128, 2, 64, dtype, dev)
     q.requires_grad_(True)
     before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-              fa.flash_bwd_dkv.launches)
+              fa.flash_bwd_dkv.launches, fa.flash_bwd_delta.launches)
     o = fa.flash_attention(q, k, v)
     o.backward(do)
     torch.cuda.synchronize()
     assert torch.isfinite(q.grad.float()).all()
     _flash_all(q.detach(), k, v, do, True, 0.125, kernel=False)
+    fa.flash_bwd_delta_reference(o.detach(), do)
+    passes = 1 if dtype == torch.bfloat16 else 0
     assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
-            fa.flash_bwd_dkv.launches) == tuple(n + 1 for n in before)
+            fa.flash_bwd_dkv.launches, fa.flash_bwd_delta.launches) == (
+        before[0] + 1, before[1] + 1, before[2] + 1, before[3] + passes)
 
 
 @pytest.mark.parametrize("bad", ["head_dim", "dtype", "stride", "length",
@@ -537,12 +602,12 @@ def test_gpt2_bf16_train_step_on_card(dev):
     sd = init_params(cfg, 1, dev)
     batch = {"ids": np.random.RandomState(1).randint(
         0, cfg.vocab_size, (4, 257)).astype(np.int32)}
-    counts = [f.launches for f in (fa.flash_fwd, fa.flash_bwd_dq,
-                                   fa.flash_bwd_dkv)]
+    wrappers = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+                fa.flash_bwd_dkv)
+    counts = [f.launches for f in wrappers]
     flash = _train(cfg, sd, batch, dev, 3)
-    assert [f.launches - c for f, c in zip(
-        (fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv), counts)] == \
-        [3 * cfg.n_layer] * 3
+    assert [f.launches - c for f, c in zip(wrappers, counts)] == \
+        [3 * cfg.n_layer] * 4
     losses = [m[0] for m in flash]
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     dense = _train(dataclasses.replace(cfg, attention_impl="dense_fp32"),

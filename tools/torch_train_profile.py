@@ -12,8 +12,8 @@ AdamW, flash attention through the port's CUDA kernels. Under
 wall time per step (without the profiler), device-busy time per step
 (sum of kernel times), the idle share, kernel launches per step, the
 kernels that take the most device time, and the device time per step
-of the flash kernels (K3, K4 and K5 each, and together), matrix
-products, and everything else.
+of the flash kernels (K3, K4, K5 and the delta pass each, and
+together), matrix products, and everything else.
 """
 from __future__ import annotations
 
@@ -35,11 +35,12 @@ from ray_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from ray_tpu_torch.train import spmd  # noqa: E402
 
 # the flash kernels as the profiler names them: csrc/flash_attention.cu
-# (scalar; fp32 K3/K5 and K4) and csrc/flash_attention_sm90.cu (bf16 K3,
-# and K5 with its delta pass)
+# (scalar, fp32) and csrc/flash_attention_sm90.cu (bf16, with the delta
+# pass that K4 and K5 share)
 _FLASH = {"k3_ms": ("::fwd_kernel<", "::fwd_sm90<"),
-          "k4_ms": ("::bwd_dq_kernel<",),
-          "k5_ms": ("::bwd_dkv_kernel<", "::dkv_sm90<", "::delta_kernel<")}
+          "k4_ms": ("::bwd_dq_kernel<", "::dq_sm90<"),
+          "k5_ms": ("::bwd_dkv_kernel<", "::dkv_sm90<"),
+          "delta_ms": ("::delta_kernel<",)}
 _GEMM = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
 
