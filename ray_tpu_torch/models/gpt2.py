@@ -50,7 +50,7 @@ class GPT2Config:
     dtype: Any = torch.bfloat16
     param_dtype: Any = torch.float32
     remat: bool = False              # torch.utils.checkpoint per block
-    attention_impl: str = "auto"     # auto | dense | dense_fp32 | flash
+    attention_impl: str = "auto"     # auto | dense | xla | dense_fp32 | flash
 
     @property
     def head_dim(self) -> int:

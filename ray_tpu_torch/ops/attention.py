@@ -4,7 +4,9 @@ implementations, [B, T, H, D] layout.
 impl:
 - ``"dense"``: einsum attention, the counterpart of ``xla_attention``
   with its ``precision="default"`` rule (scores in the input dtype,
-  only the softmax in fp32);
+  only the softmax in fp32); ``"xla"``, the reference's name for it,
+  is taken as a synonym, so configs carried over from the reference
+  keep working;
 - ``"dense_fp32"``: the same with fp32 scores (``precision="highest"``);
 - ``"flash"``: ``ops.flash_attention`` (CUDA kernels on the card, their
   plain versions on the CPU);
@@ -69,7 +71,7 @@ def multi_head_attention(q, k, v, causal: bool = True, impl: str = "auto",
         if bias is not None:
             raise ValueError("impl='flash' takes no attention bias")
         return flash_attention(q, k, v, causal=causal)
-    if impl == "dense":
+    if impl in ("dense", "xla"):
         return dense_attention(q, k, v, causal=causal, bias=bias)
     if impl == "dense_fp32":
         return dense_attention(q, k, v, causal=causal, bias=bias,

@@ -120,6 +120,18 @@ class RequestHandle:
             return False
         return self._engine._cancel(self._req)
 
+    @property
+    def done(self) -> bool:
+        """True once the request has finished, failed or been
+        cancelled (its stream is closed)."""
+        return self._req.closed
+
+    @property
+    def error(self) -> Optional[BaseException]:
+        """The terminal error (``RequestCancelled``, ``EngineShutdown``,
+        ...), or None."""
+        return self._req.error
+
     def stream(self):
         """Yield generated token ids as they are produced."""
         while True:

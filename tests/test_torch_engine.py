@@ -33,12 +33,18 @@ _REF_TOKENS = 28      # greedy is prefix-consistent: one JAX generate per
 
 
 @pytest.fixture(scope="module")
-def tiny():
-    """(torch model, torch state dict, reference(prompt, n))."""
-    cfg = jl.llama_tiny(dtype=jnp.float32)
-    jmodel = jl.Llama(cfg)
+def flax_tiny():
+    """(flax model, its params from PRNGKey(0))."""
+    jmodel = jl.Llama(jl.llama_tiny(dtype=jnp.float32))
     params = jmodel.init(jax.random.PRNGKey(0),
                          jnp.zeros((1, 8), jnp.int32))
+    return jmodel, params
+
+
+@pytest.fixture(scope="module")
+def tiny(flax_tiny):
+    """(torch model, torch state dict, reference(prompt, n))."""
+    jmodel, params = flax_tiny
     sd = tl.flax_state_dict(jax.tree_util.tree_map(np.asarray, params))
     model = tl.build_model(tl.llama_tiny(dtype=torch.float32), sd, "cpu")
     cache = {}
@@ -308,6 +314,52 @@ def test_cancel_queued_and_decoding(tiny):
             h.result()
     assert h2.result() == ref([1, 2], 4)
     assert eng.stats["cancelled"] == 2
+
+
+def _handle_states(eng, run, scenario):
+    """(done, error class name) of handles of ``eng`` at each point of
+    ``scenario``: "success" reads a request before it runs and after
+    ``result()``; "cancel" reads a queued request after ``cancel()``
+    (one slot, taken by a running request), then the running one after
+    ``result()``."""
+    h1 = eng.submit([5, 9, 2], max_new_tokens=6)
+    seen = [(h1.done, h1.error)]
+    if scenario == "cancel":
+        eng.step()                       # h1 takes the only slot
+        h2 = eng.submit([7, 7, 7], max_new_tokens=6)
+        assert h2.cancel() is True
+        seen.append((h2.done, h2.error))
+        run(eng)
+        with pytest.raises(Exception) as raised:
+            h2.result()
+        assert raised.value is h2.error
+    else:
+        run(eng)
+    tokens = h1.result()
+    seen.append((h1.done, h1.error))
+    return tokens, [(d, None if e is None else type(e).__name__)
+                    for d, e in seen]
+
+
+@pytest.mark.parametrize("scenario", ["success", "cancel"])
+def test_request_handle_done_and_error_match_jax(flax_tiny, tiny,
+                                                 scenario):
+    """RequestHandle.done / .error read as the JAX engine's do, on
+    success and after cancel() of a queued request (the two errors.py
+    are separate copies, so the error classes compare by name)."""
+    from ray_tpu.serve.engine import LLMEngine as JaxEngine
+    jmodel, params = flax_tiny
+    model, _, ref = tiny
+    jax_eng = JaxEngine(jmodel, params, max_slots=1, page_size=8,
+                        n_pages=32, chunk=2)
+    port = _engine(model, max_slots=1, page_size=8, n_pages=32, chunk=2)
+    want_tokens, want = _handle_states(jax_eng, _run, scenario)
+    got_tokens, got = _handle_states(port, _run, scenario)
+    assert got == want
+    expected = [(False, None), (True, "RequestCancelled"), (True, None)]
+    assert want == (expected if scenario == "cancel"
+                    else [expected[0], expected[2]])
+    assert got_tokens == want_tokens == ref([5, 9, 2], 6)
 
 
 def test_max_queued_sheds(tiny):
