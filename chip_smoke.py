@@ -9,21 +9,26 @@ and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure:
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
-   limit. Builds the port's CUDA sources (K1, K2, the scalar fp32
-   K3-K5 and the tensor-core bf16 K3-K5 with their delta pass) with
-   nvcc, one process per source, all started together, checks that
-   ptxas reported every tensor-core kernel at D 64 and 128, and prints
-   their registers, spills and ptxas's performance warnings.
+   limit. Builds the port's CUDA sources (K1 with its bf16 tensor-core
+   split pass, K2, the scalar fp32 K3-K5 and the tensor-core bf16
+   K3-K5 with their delta pass) with nvcc, one process per source, all
+   started together, checks that ptxas reported every tensor-core
+   kernel at D 64 and 128 (K1's at each split size it takes), and
+   prints their registers, spills and ptxas's performance warnings.
 2. Every kernel against its plain PyTorch version on the card: K1
    (``paged_decode_attention``) in fp32 over head_dim 64/128 and GQA
    groups 1/4/8 (tolerance 1e-4), with pos 0, a full window and
-   null-page slots; in fp32 at the TinyLlama-1.1B decode shape with
-   positions on each side of the split-K boundaries (1e-4); then at
-   that shape in bf16 (4e-3 + one bf16 ulp, 2^-7, of the value: both
-   round an fp32 result to bf16 once). Then K2 (int8 pages with
-   per-page scales: pages from integers(-127, 128), scales from
-   uniform(0.1, 2.0)) in the same cases, fp32 q at 1e-4 and bf16 q at
-   the TinyLlama shape at 4e-3 + 2^-7·|ref|. Times each kernel, its
+   null-page slots; the same cases in bf16 (4e-3 + one bf16 ulp,
+   2^-7, of the value: both round an fp32 result to bf16 once, and
+   the tensor-core pass also rounds P to bf16); in fp32 and bf16 at
+   the TinyLlama-1.1B decode shape with positions on each side of the
+   split-K boundaries; then at that shape in bf16 on random positions.
+   torch.profiler's kernel names show every bf16 K1 call on the
+   tensor-core pass (``split_sm90``) and every fp32 one on the scalar
+   template. Then K2 (int8 pages with per-page scales: pages from
+   integers(-127, 128), scales from uniform(0.1, 2.0)) in the same
+   cases, fp32 q at 1e-4 and bf16 q at 4e-3 + 2^-7·|ref|, every call
+   on the scalar template. Times each kernel, its
    plain version and one library call (SDPA over the window gathered
    beforehand — for K2 gathered and dequantized to bf16 — a yardstick
    the port never calls) with CUDA events, L2 flushed before each
@@ -43,9 +48,11 @@ which raises on failure:
    requests (prompts of 16-1536 tokens, 64 new tokens each; 4 through
    ``stream``, 12 through ``generate_batch``) and checks every request
    got 64 tokens, that K1 was launched once per layer on every decode
-   step and K2 never, and, teacher-forced through the T > 1 gather path, that each
-   generated token of 2 requests is the top logit or within 0.05 of
-   it, both in bf16 and with the same bf16 weights evaluated in fp32.
+   step and K2 never, that 2 decode steps of the same body ran the
+   tensor-core pass in every layer (profiler names), and,
+   teacher-forced through the T > 1 gather path, that each generated
+   token of 2 requests is the top logit or within 0.05 of it, both in
+   bf16 and with the same bf16 weights evaluated in fp32.
    Prints output tok/s, TTFT p50, time
    per output token p50 (the streamed requests) and ms per decode step
    beside the card's name and power limit.
@@ -60,7 +67,8 @@ which raises on failure:
    then 4 more behind the system prompt, exact repeats of the two
    page-aligned prompts (the COW path) and 2 random ones; 4 of wave 1
    through ``stream``. Checks every request got 64 tokens, K2 launched
-   once per layer on every decode step and K1 never, wave 2's hit
+   once per layer on every decode step (the scalar pass, by the
+   profiler's names over 2 steps) and K1 never, wave 2's hit
    tokens equal to the count computed from the prompts (4 x 1024 +
    511 + 1023 = 5630) over 6 hit admissions, the pool leak-free at
    quiescence, and, teacher-forced, that each generated token of 2
@@ -214,57 +222,118 @@ def _max_err(out, ref, atol, rtol=None) -> float:
     return err.max().item()
 
 
+def _split_passes(names) -> dict:
+    """How many of the device-kernel ``names`` are each decode split
+    pass: bf16 K1's tensor-core ``split_sm90``, and the scalar
+    ``split_kernel`` over bf16 pages (no longer built), fp32 pages
+    (fp32 K1) and int8 pages (K2)."""
+    return {
+        "sm90": sum("::split_sm90<" in n for n in names),
+        "scalar_bf16": sum("::split_kernel<__nv_bfloat16, __nv_bfloat16"
+                           in n for n in names),
+        "scalar_fp32": sum("::split_kernel<float, float" in n
+                           for n in names),
+        "scalar_int8": sum("::split_kernel<" in n and "signed char" in n
+                           for n in names)}
+
+
+def _check_split_route(names, want: dict, where: str) -> dict:
+    """The split passes among ``names`` are exactly ``want`` (absent
+    keys: 0)."""
+    count = _split_passes(names)
+    want = {k: want.get(k, 0) for k in count}
+    if count != want:
+        raise AssertionError(f"{where}: decode split passes {count}, want "
+                             f"{want}; device kernels "
+                             f"{sorted(set(names))}")
+    return count
+
+
 def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
     """K1 (fp pages), or K2 with ``int8`` (int8 pages with per-page
-    scales), against its plain version: fp32 cases, the TinyLlama decode
-    shape across the split-K boundaries in fp32, then that shape with
-    bf16 q, with times, the SDPA yardstick and the bound."""
+    scales), against its plain version: fp32 and bf16 cases, the
+    TinyLlama decode shape across the split-K boundaries in fp32, then
+    that shape with bf16 q, with times, the SDPA yardstick and the
+    bound. The profiler's kernel names show which split pass each call
+    ran: bf16 K1 the tensor-core pass, fp32 K1 and K2 the scalar one."""
     name = "K2" if int8 else "K1"
     # K1 keeps the inputs of earlier runs; K2 draws its own
     seeds = (seed + 7, seed + 8, seed + 9) if int8 else (seed, seed + 1,
                                                          seed)
-    for rep in (1, 4, 8):
-        for D in (64, 128):
-            args = _decode_case(seeds[0] + rep * 10 + D, 3, 2 * rep, 2, D,
-                                16, 4, 40, torch.float32, int8=int8)
-            _max_err(pa.paged_decode_attention(*args),
-                     pa.paged_decode_attention_reference(*args),
-                     K1_FP32_TOL)
-    args = _decode_case(seeds[0], 4, 8, 2, 64, 8, 3, 32, torch.float32,
-                        positions=[0, 3 * 8 - 1, 5, 12], null_rows=(2,),
-                        int8=int8)
-    _max_err(pa.paged_decode_attention(*args),
-             pa.paged_decode_attention_reference(*args), K1_FP32_TOL)
-    print(f"phase 2: {name} fp32 cases (rep 1/4/8, D 64/128, pos 0, full "
-          f"window, null page) agree within {K1_FP32_TOL}")
-
     B, H, KH, D, Pg, max_pages = 16, 32, 4, 64, 64, 32
-    # the main-path shape in fp32: windows that end on each side of the
-    # split-K boundaries (pa._SPLIT_KEYS keys per split) and of a page
-    split = pa._SPLIT_KEYS
-    edges = [0, split - 2, split - 1, split, split + 1, 2 * split - 1,
-             2 * split, Pg - 1, Pg, 7 * split - 1, 7 * split,
-             max_pages * Pg - 1]
-    rng = np.random.default_rng(seeds[1])
-    positions = edges + rng.integers(0, max_pages * Pg,
-                                     B - len(edges)).tolist()
-    args = _decode_case(seeds[1], B, H, KH, D, Pg, max_pages,
-                        B * max_pages + 1, torch.float32,
-                        positions=positions, int8=int8)
-    err32 = _max_err(pa.paged_decode_attention(*args),
-                     pa.paged_decode_attention_reference(*args),
-                     K1_FP32_TOL)
-    print(f"phase 2: {name} fp32 at B={B} H={H} KH={KH} D={D} Pg={Pg} "
-          f"max_pages={max_pages}, positions {sorted(positions)}: max abs "
-          f"err {err32} (tol {K1_FP32_TOL})")
+    calls = {torch.float32: 0, torch.bfloat16: 0}
+    res = {}
 
-    args = _decode_case(seeds[2], B, H, KH, D, Pg, max_pages,
-                        B * max_pages + 1, torch.bfloat16, int8=int8)
+    def check(args, atol, rtol=None):
+        calls[args[0].dtype] += 1
+        out = pa.paged_decode_attention(*args)
+        return out, _max_err(out, pa.paged_decode_attention_reference(
+            *args), atol, rtol)
+
+    def cases():
+        bf16_err = 0.0
+        for rep in (1, 4, 8):
+            for d in (64, 128):
+                args = _decode_case(seeds[0] + rep * 10 + d, 3, 2 * rep,
+                                    2, d, 16, 4, 40, torch.float32,
+                                    int8=int8)
+                check(args, K1_FP32_TOL)
+                # the same inputs with bf16 q (and, for K1, pages)
+                args = [a.to(torch.bfloat16) if i < 3
+                        and a.dtype == torch.float32 else a
+                        for i, a in enumerate(args)]
+                bf16_err = max(bf16_err, check(args, K1_BF16_ATOL,
+                                               K1_BF16_RTOL)[1])
+        for dtype, tol in ((torch.float32, (K1_FP32_TOL,)),
+                           (torch.bfloat16, (K1_BF16_ATOL, K1_BF16_RTOL))):
+            args = _decode_case(seeds[0], 4, 8, 2, 64, 8, 3, 32, dtype,
+                                positions=[0, 3 * 8 - 1, 5, 12],
+                                null_rows=(2,), int8=int8)
+            check(args, *tol)
+        print(f"phase 2: {name} fp32 cases (rep 1/4/8, D 64/128, pos 0, "
+              f"full window, null page) agree within {K1_FP32_TOL}; the "
+              f"same in bf16 within {K1_BF16_ATOL} + {K1_BF16_RTOL} * "
+              f"|ref| (max abs err {bf16_err})")
+
+        # the main-path shape in fp32: windows that end on each side of
+        # the split-K boundaries (pa._SPLIT_KEYS keys per split) and of a
+        # page
+        split = pa._SPLIT_KEYS
+        edges = [0, split - 2, split - 1, split, split + 1, 2 * split - 1,
+                 2 * split, Pg - 1, Pg, 7 * split - 1, 7 * split,
+                 max_pages * Pg - 1]
+        rng = np.random.default_rng(seeds[1])
+        positions = edges + rng.integers(0, max_pages * Pg,
+                                         B - len(edges)).tolist()
+        args = _decode_case(seeds[1], B, H, KH, D, Pg, max_pages,
+                            B * max_pages + 1, torch.float32,
+                            positions=positions, int8=int8)
+        res["err32"] = check(args, K1_FP32_TOL)[1]
+        print(f"phase 2: {name} fp32 at B={B} H={H} KH={KH} D={D} Pg={Pg} "
+              f"max_pages={max_pages}, positions {sorted(positions)}: max "
+              f"abs err {res['err32']} (tol {K1_FP32_TOL})")
+        # the same windows at that shape in bf16
+        args = _decode_case(seeds[1], B, H, KH, D, Pg, max_pages,
+                            B * max_pages + 1, torch.bfloat16,
+                            positions=positions, int8=int8)
+        check(args, K1_BF16_ATOL, K1_BF16_RTOL)
+
+        args = _decode_case(seeds[2], B, H, KH, D, Pg, max_pages,
+                            B * max_pages + 1, torch.bfloat16, int8=int8)
+        res["args"] = args
+        res["out"], res["err"] = check(args, K1_BF16_ATOL, K1_BF16_RTOL)
+
+    names = _device_kernels(cases)
+    n32, n16 = calls[torch.float32], calls[torch.bfloat16]
+    route = _check_split_route(
+        names, {"scalar_int8": n32 + n16} if int8 else
+        {"scalar_fp32": n32, "sm90": n16}, f"phase 2 {name}")
+    print(f"phase 2: {name} ran the split passes {route} for {n32} fp32 "
+          f"and {n16} bf16 calls")
+    args, err, err32 = res["args"], res["err"], res["err32"]
     q, pk, pv, pt, pos = args[:5]
     scales = args[5:] or (None, None)
-    out = pa.paged_decode_attention(*args)
     ref = pa.paged_decode_attention_reference(*args)
-    err = _max_err(out, ref, K1_BF16_ATOL, K1_BF16_RTOL)
 
     # library yardstick: SDPA over the window gathered beforehand — for
     # int8 pages gathered and dequantized to bf16 (neither step timed);
@@ -315,11 +384,18 @@ def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
           f"plain {plain_ms:.4f} ms, SDPA on the gathered"
           f"{' bf16' if int8 else ''} window {library_ms:.4f} ms; bound "
           f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes at 3.35 TB/s)")
-    source = pa._SOURCE_INT8 if int8 else pa._SOURCE
+    # the bf16 row's kernel: K2's scalar template, K1's tensor-core pass
+    source = pa._SOURCE_INT8 if int8 else pa._SOURCE_SM90
+    design = ("scalar split-K template over int8 pages, dequantized in "
+              "registers; merge pass" if int8 else
+              "mma.sync m16n8k16 (Q as register A operand, K and V through "
+              "ldmatrix), the whole split staged by cp.async (K then V "
+              "group), softmax in the warp; merge pass")
     return {"name": "paged_decode_attention" + ("_int8" if int8 else ""),
             "route": "cuda", "source": f"ray_tpu_torch/ops/csrc/{source}",
             "replaces": "ray_tpu/ops/paged_attention.py:"
                         + ("301" if int8 else "291"),
+            "design": design, "split_passes": route,
             "launches": None, "max_abs_err": err,
             "max_abs_err_fp32": err32, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
@@ -516,6 +592,18 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - ts) / n_steps * 1e3
 
+    # which split pass those decode steps run: bf16 K1's tensor-core one
+    # in every layer, never the scalar template
+    def two_steps():
+        step_cur = cur
+        for _ in range(2):
+            step_cur = tl._pick_token(
+                dep.model(step_cur[:, None], kv, pos)[:, -1], 0.0)
+
+    route = _check_split_route(_device_kernels(two_steps),
+                               {"sm90": 2 * cfg.n_layers},
+                               "phase 4 decode steps")
+
     ttfts = sorted(eng.ttfts_s)
     # time per output token of each streamed request (first to last
     # token): tokens reach a stream in bursts, one per readback
@@ -528,6 +616,7 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
         "ttft_p50_s": ttfts[len(ttfts) // 2],
         "tpot_p50_s": tpots[len(tpots) // 2],
         "decode_step_ms_16_slots": step_ms,
+        "decode_split_passes_2_steps": route,
         "decode_steps": steps, "k1_launches": launches,
         "teacher_forced_max_gap_fp32": max(gaps),
         "teacher_forced_not_top_fp32": sum(g > 0 for g in gaps),
@@ -542,7 +631,8 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
           f"output token p50 {res['tpot_p50_s'] * 1e3:.2f} ms (streams), "
           f"decode step (16 slots) "
           f"{step_ms:.2f} ms; K1 launched {launches} times = "
-          f"{cfg.n_layers} layers x {steps} decode steps; teacher-forced "
+          f"{cfg.n_layers} layers x {steps} decode steps; 2 decode steps "
+          f"ran the split passes {route}; teacher-forced "
           f"over {len(gaps)} tokens: max gap to the top logit "
           f"{max(gaps):.4f} in fp32 ({res['teacher_forced_not_top_fp32']}"
           f" not top), {max(gaps_bf16):.4f} in bf16 "
@@ -706,6 +796,17 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - ts) / n_steps * 1e3
 
+    # the int8 pool's decode steps run K2's scalar pass in every layer
+    def two_steps():
+        step_cur = cur
+        for _ in range(2):
+            step_cur = tl._pick_token(
+                dep.model(step_cur[:, None], kv, pos)[:, -1], 0.0)
+
+    route = _check_split_route(_device_kernels(two_steps),
+                               {"scalar_int8": 2 * cfg.n_layers},
+                               "phase 4b decode steps")
+
     ttfts = list(eng.ttfts_s)
     p50 = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
     res = {
@@ -717,6 +818,7 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
         "ttft_p50_s_wave1": p50(ttfts[:n_ttft1]),
         "ttft_p50_s_wave2": p50(ttfts[n_ttft1:]),
         "decode_step_ms_16_slots_int8": step_ms,
+        "decode_split_passes_2_steps": route,
         "decode_steps": steps, "k1_launches": launches[0],
         "k2_launches": launches[1], "wave2_hit_tokens": hits[0],
         "wave2_hit_admissions": hits[1], "wave2_hit_tokens_per_request":
@@ -734,7 +836,8 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
           f"output {res['output_tok_s']:.1f} tok/s, TTFT p50 wave 1 "
           f"{res['ttft_p50_s_wave1'] * 1e3:.1f} ms, wave 2 "
           f"{res['ttft_p50_s_wave2'] * 1e3:.1f} ms; decode step (16 "
-          f"slots, int8 pool) {step_ms:.2f} ms; wave 2 hit "
+          f"slots, int8 pool) {step_ms:.2f} ms (split passes of 2 steps "
+          f"{route}); wave 2 hit "
           f"{hits[0]} tokens over {hits[1]} admissions; kv_page_bytes "
           f"{report['kv_page_bytes']} (fp {fp_page_bytes}), "
           f"kv_bytes_total {report['kv_bytes_total']} (fp "
@@ -1174,6 +1277,20 @@ def main(argv=None) -> int:
     for line in report.splitlines():
         if "warning" in line.lower() or "Performance Loss" in line:
             print(f"phase 1: ptxas: {line.strip()}")
+    # bf16 K1's tensor-core pass: one instance per head_dim and split
+    k1_report = _build.ptxas_report(pa._SOURCE)
+    ptxas_k1 = _build.ptxas_summary(k1_report, ("split_sm90",))
+    want = [f"split_sm90<{d}, {split // 4}>" for d in (64, 128)
+            for split in pa._BF16_SPLITS]
+    if sorted(ptxas_k1) != sorted(want):
+        raise AssertionError(f"ptxas reported {sorted(ptxas_k1)} for "
+                             f"{pa._SOURCE}, want {want}")
+    for kernel, info in ptxas_k1.items():
+        print(f"phase 1: ptxas, {pa._SOURCE} {kernel}: "
+              f"{info.get('registers')} registers, spill stores/loads "
+              f"{info.get('spill_stores')}/{info.get('spill_loads')} bytes"
+              + (f", warnings {info['warnings']}" if info["warnings"]
+                 else ""))
 
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
@@ -1200,7 +1317,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kernels": kernels["kernels"],
-                       "ptxas_sm90": ptxas,
+                       "ptxas_sm90": ptxas, "ptxas_k1_sm90": ptxas_k1,
                        "flash_backward": backward_ms,
                        "main_path": main_path,
                        "int8_prefix_path": int8_path,

@@ -96,16 +96,20 @@ def ptxas_report(source: str) -> str:
 
 def ptxas_summary(report: str, kernels: Sequence[str]) -> Dict[str, dict]:
     """{"name<D>": {"registers", "spill_stores", "spill_loads",
-    "warnings"}} for each instance of the ``kernels`` (templated on one
-    int, D) in a ptxas report; "warnings" holds ptxas's performance
-    warnings for it (e.g. C7520, wgmma serialized) as it wrote them."""
-    pattern = re.compile(r"\d(%s)ILi(\d+)E" % "|".join(map(re.escape,
-                                                        kernels)))
+    "warnings"}} for each instance of the ``kernels`` (templated on int
+    parameters only: "name<64>", "name<64, 32>") in a ptxas report;
+    "warnings" holds ptxas's performance warnings for it (e.g. C7520,
+    wgmma serialized) as it wrote them."""
+    pattern = re.compile(r"\d(%s)I((?:Li\d+E)+)E" % "|".join(
+        map(re.escape, kernels)))
     out: Dict[str, dict] = {}
     name = None
     for line in report.splitlines():
         m = pattern.search(line)
-        key = f"{m.group(1)}<{m.group(2)}>" if m else None
+        key = None
+        if m:
+            args = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
+            key = f"{m.group(1)}<{args}>"
         if "Performance Loss" in line and key:
             reason = line.split("Performance Loss", 1)[1].lstrip(": ")
             out.setdefault(key, {"warnings": []})["warnings"].append(

@@ -1,24 +1,26 @@
 // K1: paged-KV decode attention over pages in q's type (fp32 or
 // bf16), for Hopper (sm_90a). Replaces the TPU kernel
 // ray_tpu/ops/paged_attention.py::_kernel (body _attend_page), launched
-// by paged_decode_attention there. The kernels, their bound and their
-// design are in paged_decode_attention.cuh.
+// by paged_decode_attention there. bf16 takes the tensor-core split
+// pass split_sm90 (paged_decode_attention_sm90.cuh); fp32 the scalar
+// split_kernel (paged_decode_attention.cuh), whose bound and design are
+// described there. Both are followed by the same merge_kernel.
 //
 // Plain C interface, bound with ctypes by ray_tpu_torch/ops/_build.py
 // and ray_tpu_torch/ops/paged_attention.py. The launch returns
 // cudaGetLastError().
 
 #include "paged_decode_attention.cuh"
-
+#include "paged_decode_attention_sm90.cuh"
 
 // K1. dtype: 0 = float32, 1 = bfloat16, for q, the pages and out.
 // Pointers are device pointers of contiguous tensors: q and out
 // [B, H, D], pages [KH, n_pages, Pg, D], page_table [B, max_pages]
 // int32, positions [B] int32, and fp32 scratch part_acc
 // [B, KH, n_splits, H/KH, D], part_m and part_l [B, KH, n_splits, H/KH]
-// with n_splits = ceil(max_pages * Pg / split). Returns a cudaError_t;
-// cudaErrorInvalidValue for shapes the kernel does not take (the Python
-// wrapper checks them first).
+// with n_splits = ceil(max_pages * Pg / split); bf16 takes split 64,
+// 128 or 256. Returns a cudaError_t; cudaErrorInvalidValue for shapes
+// the kernel does not take (the Python wrapper checks them first).
 extern "C" int paged_decode_attention_launch(
     const void* q, const void* pages_k, const void* pages_v,
     const void* page_table, const void* positions, void* out,
@@ -35,9 +37,14 @@ extern "C" int paged_decode_attention_launch(
                           s)
   if (dtype == 0 && D == 64) RTT_LAUNCH(float, 64);
   if (dtype == 0 && D == 128) RTT_LAUNCH(float, 128);
-  if (dtype == 1 && D == 64) RTT_LAUNCH(__nv_bfloat16, 64);
-  if (dtype == 1 && D == 128) RTT_LAUNCH(__nv_bfloat16, 128);
 #undef RTT_LAUNCH
+#define RTT_LAUNCH_SM90(DD)                                                  \
+  return launch_bf16_sm90<DD>(q, pages_k, pages_v, page_table, positions,   \
+                              out, part_acc, part_m, part_l, B, H, KH,      \
+                              n_pages, Pg, max_pages, split, s)
+  if (dtype == 1 && D == 64) RTT_LAUNCH_SM90(64);
+  if (dtype == 1 && D == 128) RTT_LAUNCH_SM90(128);
+#undef RTT_LAUNCH_SM90
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -15,7 +15,9 @@ Layout contract (matches models/kv_cache.py):
 ``paged_decode_attention`` launches a hand-written CUDA kernel for
 tensors on a CUDA device — K1 (csrc/paged_decode_attention.cu), the
 Hopper counterpart of the TPU kernel
-``ray_tpu/ops/paged_attention.py::_kernel``, for fp pages, and K2
+``ray_tpu/ops/paged_attention.py::_kernel``, for fp pages (bf16 on the
+tensor cores, csrc/paged_decode_attention_sm90.cuh; fp32 on the scalar
+template, csrc/paged_decode_attention.cuh), and K2
 (csrc/paged_decode_attention_int8.cu), the counterpart of
 ``_kernel_q``, for int8 pages with their scales — and runs the plain
 PyTorch version, ``paged_decode_attention_reference``, for tensors on
@@ -40,12 +42,17 @@ _QMAX = 127.0
 
 _SOURCE = "paged_decode_attention.cu"             # K1
 _SOURCE_INT8 = "paged_decode_attention_int8.cu"   # K2
+# bf16 K1's tensor-core split pass, included by _SOURCE
+_SOURCE_SM90 = "paged_decode_attention_sm90.cuh"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8
 # keys per block of the kernel's split-K pass: 16 slots x 4 kv heads at
 # ~1k keys fill the 132 SMs with ~500 blocks
 _SPLIT_KEYS = 128
+# the split sizes bf16 K1's tensor-core pass is built for (4 warps of
+# 16, 32 or 64 keys)
+_BF16_SPLITS = (64, 128, 256)
 
 
 class PagedShapeError(ValueError):
@@ -349,6 +356,10 @@ def _launch_kernel(q, pages_k, pages_v, page_table, positions,
     _check_decode_args(q, pages_k, pages_v, page_table, positions,
                        scales_k, scales_v)
     quantized = scales_k is not None
+    if q.dtype == torch.bfloat16 and not quantized \
+            and split_keys not in _BF16_SPLITS:
+        raise ValueError(f"bf16 K1 takes split_keys in {_BF16_SPLITS}, "
+                         f"not {split_keys}")
     lib = load_kernel(int8=quantized)
     B, H, D = q.shape
     KH, n_pages, Pg, _ = pages_k.shape

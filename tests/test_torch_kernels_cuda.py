@@ -120,6 +120,109 @@ def test_tinyllama_decode_shape_bf16(dev):
                                atol=4e-3)
 
 
+def _split_passes(names) -> dict:
+    """How many of the profiler's device-kernel ``names`` are each
+    decode split pass: bf16 K1's tensor-core split_sm90, the scalar
+    split_kernel over bf16, fp32 and int8 pages."""
+    return {
+        "sm90": sum("::split_sm90<" in n for n in names),
+        "scalar_bf16": sum("::split_kernel<__nv_bfloat16, __nv_bfloat16"
+                           in n for n in names),
+        "scalar_fp32": sum("::split_kernel<float, float" in n
+                           for n in names),
+        "scalar_int8": sum("::split_kernel<" in n and "signed char" in n
+                           for n in names)}
+
+
+def _device_kernel_names(fn):
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+@pytest.mark.parametrize("Pg", [8, 16, 64])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_bf16_k1_tensor_core_pass_matches_plain(dev, rep, D, Pg):
+    """bf16 K1 (the tensor-core split pass) against the plain version
+    in bf16: windows of one key, ending on each side of a split
+    boundary and filling the page table, beyond it (clipped), a slot
+    with no visible key, a row of null pages, and random ones."""
+    split, L = pa._SPLIT_KEYS, 4 * pa._SPLIT_KEYS
+    positions = [0, split - 1, split, split + 1, L - 1, L + 40, -1, 0,
+                 2 * split + 5, 77]
+    args = _layout(100 + rep * 10 + D + Pg, len(positions), 2 * rep, 2, D,
+                   Pg, L // Pg, len(positions) * (L // Pg) + 1,
+                   torch.bfloat16, dev, positions=positions,
+                   null_rows=(7, 9))
+    out = pa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_attention_reference(*args)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=4e-3)
+    assert bool((out[6] == 0).all())     # no visible key: zeros
+    # one key: that key's value, exactly
+    pv, pt = args[2], args[3]
+    first = pv[:, pt[0, 0].long(), 0].repeat_interleave(rep, 0)
+    torch.testing.assert_close(out[0], first, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("split", [64, 128, 256])
+def test_bf16_k1_every_split_size_matches_plain(dev, split):
+    """The split sizes the tensor-core pass is built for (the profiling
+    tool's sweep), at the TinyLlama decode shape, split boundaries
+    included."""
+    positions = [0, split - 1, split, split + 1, 3 * split - 1,
+                 3 * split, 2047, 1000, 17, 64, 63, 65, 500, 1500, 1999,
+                 128]
+    args = _layout(21, 16, 32, 4, 64, 64, 32, 513, torch.bfloat16, dev,
+                   positions=positions)
+    out = pa._launch_kernel(*args, split_keys=split)
+    ref = pa.paged_decode_attention_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=4e-3)
+
+
+def test_bf16_k1_refuses_other_split_sizes(dev):
+    args = _layout(22, 2, 8, 2, 64, 8, 4, 16, torch.bfloat16, dev)
+    with pytest.raises(ValueError, match="split_keys"):
+        pa._launch_kernel(*args, split_keys=96)
+
+
+def test_k1_passes_by_dtype(dev):
+    """bf16 K1 runs the tensor-core pass and never the scalar bf16
+    template; fp32 K1 and K2 (fp32 and bf16 q) run the scalar one (the
+    profiler's device-kernel names), each with one merge pass."""
+    cases = {
+        "sm90": _layout(23, 4, 16, 2, 64, 16, 8, 40, torch.bfloat16, dev),
+        "scalar_fp32": _layout(24, 4, 16, 2, 64, 16, 8, 40, torch.float32,
+                               dev),
+        "scalar_int8": _layout(25, 4, 16, 2, 64, 16, 8, 40, torch.bfloat16,
+                               dev, int8=True)}
+    for want, args in cases.items():
+        names = _device_kernel_names(
+            lambda: pa.paged_decode_attention(*args))
+        count = _split_passes(names)
+        assert count == {k: int(k == want) for k in count}, (want, names)
+        assert sum("::merge_kernel<" in n for n in names) == 1
+
+
+def test_bf16_k1_counts_one_launch_per_call(dev):
+    args = _layout(26, 3, 8, 1, 128, 16, 4, 16, torch.bfloat16, dev)
+    k1, k2 = (pa.paged_decode_attention.launches,
+              pa.paged_decode_attention.launches_int8)
+    pa.paged_decode_attention(*args)
+    pa.paged_decode_attention(*args)
+    pa.paged_decode_attention_reference(*args)
+    assert (pa.paged_decode_attention.launches,
+            pa.paged_decode_attention.launches_int8) == (k1 + 2, k2)
+
+
 def test_launch_counter_counts_kernel_launches_only(dev):
     args = _layout(5, 2, 8, 2, 64, 8, 2, 16, torch.float32, dev)
     before = pa.paged_decode_attention.launches

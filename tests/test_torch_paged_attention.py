@@ -12,6 +12,8 @@ both round an fp32 result to bf16 once and may land one bf16 ulp apart
 except in null-page cells that more than one padding token targets —
 which of those writes wins is unspecified in both packages.
 """
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -255,3 +257,66 @@ def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
     after = [_build.library_path(s)
              for s in (tpa._SOURCE, tpa._SOURCE_INT8)]
     assert before[0] != after[0] and before[1] != after[1]
+
+
+def test_bf16_k1_takes_only_its_split_sizes():
+    """The bf16 tensor-core pass is built for 64-, 128- and 256-key
+    splits: any other size raises before anything is built or
+    launched (the checks run on CPU tensors)."""
+    a = _kernel_args(q=torch.zeros(2, 8, 64, dtype=torch.bfloat16),
+                     pages_k=torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),
+                     pages_v=torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16))
+    assert tpa._SPLIT_KEYS in tpa._BF16_SPLITS
+    with pytest.raises(ValueError, match="split_keys"):
+        tpa._launch_kernel(**a, split_keys=96)
+
+
+def test_bf16_k1_source_is_the_tensor_core_pass():
+    """K1's library sends bf16 (dtype 1) to split_sm90, whose source
+    issues cp.async copies and mma.sync products and calls no library
+    kernel; fp32 stays on the scalar template."""
+    cu = (_build.CSRC / tpa._SOURCE).read_text()
+    sm90 = (_build.CSRC / tpa._SOURCE_SM90).read_text()
+    assert '#include "paged_decode_attention_sm90.cuh"' in cu
+    assert re.search(r"dtype == 1 && D == 64\) RTT_LAUNCH_SM90", cu)
+    assert re.search(r"dtype == 0 && D == 64\) RTT_LAUNCH\(float", cu)
+    assert "__nv_bfloat16, 64)" not in cu  # no scalar bf16 instance
+    assert re.search(r"__global__[^;{]*\bsplit_sm90\(", sm90)
+    for ptx in ("cp.async.cg.shared.global", "cp.async.wait_group",
+                "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32",
+                "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16"):
+        assert ptx in sm90, ptx
+    assert "#include <cublas" not in sm90 and "cutlass" not in sm90
+
+
+def test_build_digest_covers_the_sm90_header(tmp_path, monkeypatch):
+    """An edit to the tensor-core header alone names a new K1
+    library."""
+    for name in (tpa._SOURCE, "paged_decode_attention.cuh",
+                 "paged_decode_attention_sm90.cuh"):
+        (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    before = _build.library_path(tpa._SOURCE)
+    header = tmp_path / "paged_decode_attention_sm90.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    assert _build.library_path(tpa._SOURCE) != before
+
+
+def test_ptxas_summary_names_both_template_ints():
+    """Phase 1 of chip_smoke.py reads K1's ptxas report for each
+    split_sm90<D, KW> instance (head_dim, keys per warp)."""
+    fn = ("_ZN12_GLOBAL__N_110split_sm90ILi{}ELi{}EEEvPK13__nv_bfloat16"
+          "S3_S3_PKiS5_PfS6_S6_iiiiif")
+    report = "".join(
+        f"ptxas info    : Compiling entry function '{fn.format(d, kw)}' "
+        f"for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {fn.format(d, kw)}\n"
+        f"    0 bytes stack frame, {spill} bytes spill stores, {spill} "
+        f"bytes spill loads\n"
+        f"ptxas info    : Used {regs} registers, used 1 barriers\n"
+        for d, kw, regs, spill in ((64, 32, 90, 0), (128, 64, 168, 8)))
+    assert _build.ptxas_summary(report, ("split_sm90",)) == {
+        "split_sm90<64, 32>": {"registers": 90, "spill_stores": 0,
+                               "spill_loads": 0, "warnings": []},
+        "split_sm90<128, 64>": {"registers": 168, "spill_stores": 8,
+                                "spill_loads": 8, "warnings": []}}
