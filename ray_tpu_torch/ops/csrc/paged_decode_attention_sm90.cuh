@@ -30,8 +30,9 @@
 //
 // Design:
 //   - Prologue, nothing waiting that need not wait. The page ids of
-//     this lane's rows are read together with positions[b] (clamped to
-//     the window, so none is out of bounds); then the block issues
+//     this lane's rows are read together with positions[b] (volatile
+//     loads, so they stay ahead of the exit test; clamped to the window,
+//     so none is out of bounds); then the block issues
 //     cp.async (16 bytes a lane, neighbouring lanes on neighbouring
 //     addresses) for its whole split at once: every K row as commit
 //     group 0, every V row as group 1, each row through its own key's
@@ -55,11 +56,11 @@
 //   - PV on the tensor cores: after V's group, O += P V with V through
 //     ldmatrix.trans from the same padded rows.
 //   - Epilogue: one __syncthreads merges the 4 warps' (m, l, O[rep x D])
-//     through shared memory into the split's partial, written as the
-//     scalar pass writes it.
-//   Shared memory: 2 * kWarps * KW rows of 2 * D + 16 bytes, plus the
-//   epilogue's 4 x 8 x (D + 8) floats: 45.3 KB at D 64 and 128-key
-//   splits, 84.2 KB at D 128 (dynamic, after cudaFuncSetAttribute).
+//     through shared memory (each warp's O over its own K rows) into
+//     the split's partial, written as the scalar pass writes it.
+//   Shared memory: 2 * kWarps * KW rows of 2 * D + 16 bytes (dynamic,
+//   after cudaFuncSetAttribute): 36 KB at D 64 and 128-key splits, so
+//   6 blocks fit an SM.
 //
 // ptxas (-Xptxas -v, H100 build, PR 7): split_sm90<64, 32> and
 // <128, 32> registers and spills as PERF.md records them; chip_smoke.py
@@ -151,8 +152,9 @@ struct Sm90Split {
   static constexpr int kRowsPerPass = 32 / kChunks;   // rows a warp copies
   static constexpr int kPasses = KW / kRowsPerPass;   // ... per pass
   static constexpr int kOStride = D + 8;              // epilogue row
-  static constexpr int kSmem = 2 * kKeys * kRowBytes +
-                               (kWarps * 8 * kOStride + 2 * kWarps * 8) * 4;
+  static constexpr int kSmem = 2 * kKeys * kRowBytes;  // K and V rows
+  // the epilogue's 8 rows of O per warp fit in the warp's own K rows
+  static_assert(8 * kOStride * 4 <= KW * kRowBytes, "O over K rows");
 };
 
 template <int D, int KW>
@@ -164,11 +166,10 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
     int n_pages, int Pg, int max_pages, float scale) {
   using G = Sm90Split<D, KW>;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float m_s[kWarps * 8];   // each warp's row max and sum
+  __shared__ float l_s[kWarps * 8];
   unsigned char* k_s = smem;
   unsigned char* v_s = smem + G::kKeys * G::kRowBytes;
-  float* o_s = reinterpret_cast<float*>(smem + 2 * G::kKeys * G::kRowBytes);
-  float* m_s = o_s + kWarps * 8 * G::kOStride;   // [kWarps][8]
-  float* l_s = m_s + kWarps * 8;                 // [kWarps][8]
 
   const int b = blockIdx.x;
   const int kh = blockIdx.y;
@@ -182,16 +183,19 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
   const int k0 = s * G::kKeys;
   const int w0 = warp * G::kKeys / kWarps;   // this warp's first row
 
-  // 1. Page ids of this lane's rows, read beside positions[b] (the
+  // 1. Page ids of this lane's rows, then positions[b], all in flight
+  //    at once: volatile, so the compiler cannot sink the page-id loads
+  //    below the exit test and chain them behind positions[b] (the
   //    window clamp keeps every index in bounds, visible or not).
-  const int* pt = page_table + static_cast<size_t>(b) * max_pages;
+  const volatile int* pt = page_table + static_cast<size_t>(b) * max_pages;
   const int chunk = lane % G::kChunks;
   const int r0 = w0 + lane / G::kChunks;
   int page[G::kPasses];
 #pragma unroll
   for (int i = 0; i < G::kPasses; ++i)
     page[i] = pt[min(k0 + r0 + i * G::kRowsPerPass, window - 1) / Pg];
-  const int n_keys = min(positions[b] + 1, window);
+  const int n_keys =
+      min(static_cast<const volatile int*>(positions)[b] + 1, window);
   if (k0 >= n_keys) return;  // uniform over the block
   const int k1 = min(k0 + G::kKeys, n_keys);
 
@@ -313,8 +317,11 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
     }
   }
 
-  // 7. Merge the 4 warps' (m, l, O) into the split's partial.
-  float* orow = o_s + (warp * 8 + g) * G::kOStride;
+  // 7. Merge the 4 warps' (m, l, O) into the split's partial; a warp's
+  //    O goes over its own K rows, which no other warp reads.
+  __syncwarp();
+  float* orow =
+      reinterpret_cast<float*>(k_s + w0 * G::kRowBytes) + g * G::kOStride;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
     *reinterpret_cast<float2*>(orow + 8 * n + 2 * t) =
@@ -334,7 +341,9 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
-      acc += o_s[(w * 8 + r) * G::kOStride + d] * expf(m_s[w * 8 + r] - m);
+      acc += reinterpret_cast<const float*>(
+                 k_s + w * KW * G::kRowBytes)[r * G::kOStride + d] *
+             expf(m_s[w * 8 + r] - m);
     part_acc[(slot * rep + r) * D + d] = acc;
     if (d == 0) {
       float sum = 0.f;

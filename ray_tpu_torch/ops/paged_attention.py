@@ -47,12 +47,15 @@ _SOURCE_SM90 = "paged_decode_attention_sm90.cuh"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8
-# keys per block of the kernel's split-K pass: 16 slots x 4 kv heads at
-# ~1k keys fill the 132 SMs with ~500 blocks
+# keys per block of the scalar split-K pass (fp32 K1, K2): 16 slots x 4
+# kv heads at ~1k keys fill the 132 SMs with ~500 blocks
 _SPLIT_KEYS = 128
 # the split sizes bf16 K1's tensor-core pass is built for (4 warps of
-# 16, 32 or 64 keys)
+# 16, 32 or 64 keys), and the one it runs: the merge pass walks each
+# slot's splits serially, so fewer, larger splits take less time in all
+# at the TinyLlama decode shape (tools/torch_decode_profile.py's sweep)
 _BF16_SPLITS = (64, 128, 256)
+_SPLIT_KEYS_BF16 = 256
 
 
 class PagedShapeError(ValueError):
@@ -347,15 +350,24 @@ def load_kernel(int8: bool = False) -> ctypes.CDLL:
     return _build.load(_SOURCE, _bind)
 
 
+def split_keys_for(dtype, quantized: bool) -> int:
+    """Keys per block of the split-K pass that ``paged_decode_attention``
+    runs for q (and page) dtype ``dtype``."""
+    if dtype == torch.bfloat16 and not quantized:
+        return _SPLIT_KEYS_BF16
+    return _SPLIT_KEYS
+
+
 def _launch_kernel(q, pages_k, pages_v, page_table, positions,
-                   split_keys: int = _SPLIT_KEYS, scales_k=None,
-                   scales_v=None):
+                   split_keys=None, scales_k=None, scales_v=None):
     """Launch K1, or K2 when scales are given; ``split_keys`` (keys per
-    block of the split-K pass) is left at its default everywhere but
-    the profiling tool's sweep."""
+    block of the split-K pass) is left at ``split_keys_for`` everywhere
+    but the profiling tool's sweep."""
     _check_decode_args(q, pages_k, pages_v, page_table, positions,
                        scales_k, scales_v)
     quantized = scales_k is not None
+    if split_keys is None:
+        split_keys = split_keys_for(q.dtype, quantized)
     if q.dtype == torch.bfloat16 and not quantized \
             and split_keys not in _BF16_SPLITS:
         raise ValueError(f"bf16 K1 takes split_keys in {_BF16_SPLITS}, "

@@ -266,7 +266,11 @@ def test_bf16_k1_takes_only_its_split_sizes():
     a = _kernel_args(q=torch.zeros(2, 8, 64, dtype=torch.bfloat16),
                      pages_k=torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),
                      pages_v=torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16))
-    assert tpa._SPLIT_KEYS in tpa._BF16_SPLITS
+    assert tpa.split_keys_for(torch.bfloat16, False) == \
+        tpa._SPLIT_KEYS_BF16 in tpa._BF16_SPLITS
+    # fp32 K1 and K2 (bf16 q over int8 pages) keep the scalar split
+    assert tpa.split_keys_for(torch.float32, False) == tpa._SPLIT_KEYS
+    assert tpa.split_keys_for(torch.bfloat16, True) == tpa._SPLIT_KEYS
     with pytest.raises(ValueError, match="split_keys"):
         tpa._launch_kernel(**a, split_keys=96)
 
