@@ -323,7 +323,12 @@ def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
         res["args"] = args
         res["out"], res["err"] = check(args, K1_BF16_ATOL, K1_BF16_RTOL)
 
-    names = _device_kernels(cases)
+    def warm():   # one fp32 and one bf16 call, not counted
+        for dtype in (torch.float32, torch.bfloat16):
+            pa.paged_decode_attention(*_decode_case(
+                seeds[0], 2, 8, 2, 64, 8, 3, 32, dtype, int8=int8))
+
+    names = _device_kernels(cases, warm)
     n32, n16 = calls[torch.float32], calls[torch.bfloat16]
     route = _check_split_route(
         names, {"scalar_int8": n32 + n16} if int8 else
@@ -902,25 +907,33 @@ def _flash_errors(fa, q, k, v, do, causal, scale, limits):
             "max_abs_ref": max(r.abs().max().item() for r in refs.values())}
 
 
-def _device_kernels(fn) -> list:
+def _device_kernels(fn, warm=None) -> list:
     """Names of the kernels ``fn`` ran on the card, from torch.profiler
     (demangled, e.g. ``void (anonymous namespace)::dq_sm90<64>(...)``).
-    A session that is not the process's first can miss the first
-    kernels after it starts (one bf16 forward of phase 5 on the H100,
-    after the sessions of phases 2 and 4), so each session opens with
-    three spin kernels, a synchronize and a 50 ms pause before ``fn``."""
+    A session can miss a kernel of its first calls (the first bf16
+    flash forward of phase 5, on the H100, once the sessions of phases 2
+    and 4 had run in the process, though the kernel had run before the
+    session and the session opened with a pause), so each session first
+    runs ``warm`` (by default ``fn`` itself), then three spin kernels as
+    a marker, then ``fn``; only the kernels that start after the last
+    marker ends are returned."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        (warm or fn)()
+        torch.cuda.synchronize()
         for _ in range(3):
             torch.cuda._sleep(100_000)
         torch.cuda.synchronize()
-        time.sleep(0.05)
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and not e.is_user_annotation]
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not e.is_user_annotation]
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    if not marks:
+        raise AssertionError("the profiler recorded no marker kernel")
+    return [e.name for e in events if e.time_range.start >= max(marks)]
 
 
 def _check_tensor_core_route(names, calls: int, where: str) -> dict:
@@ -967,13 +980,6 @@ def phase_flash_kernels(fa, seed: int) -> tuple:
                                 Tk=384), False, 64))
     cases.append((_qkv_views(seed + 6, 2, 256, 3, 64), True, 64))
     worst16 = {}
-
-    # every tensor-core flash kernel launched once (D 64 and 128) before
-    # the profiled session: without it, one forward of the session was
-    # missing from the profiler's records once earlier sessions (phases 2
-    # and 4) had run in the process
-    for args, causal, D in (cases[0], cases[2]):
-        _flash_errors(fa, *args, causal, D ** -0.5, bf16)
 
     def bf16_cases():
         for args, causal, D in cases:

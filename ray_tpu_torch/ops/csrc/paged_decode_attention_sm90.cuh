@@ -30,9 +30,9 @@
 //
 // Design:
 //   - Prologue, nothing waiting that need not wait. The page ids of
-//     this lane's rows are read together with positions[b] (volatile
-//     loads, so they stay ahead of the exit test; clamped to the window,
-//     so none is out of bounds); then the block issues
+//     this lane's rows are read together with positions[b] (issued by
+//     asm volatile, so they stay ahead of the exit test; clamped to the
+//     window, so none is out of bounds); then the block issues
 //     cp.async (16 bytes a lane, neighbouring lanes on neighbouring
 //     addresses) for its whole split at once: every K row as commit
 //     group 0, every V row as group 1, each row through its own key's
@@ -137,6 +137,14 @@ __device__ __forceinline__ void mma_top(float& c0, float& c1, uint32_t a0,
       : "r"(a0), "r"(0u), "r"(a2), "r"(b0), "r"(b1), "f"(0.f));
 }
 
+// A read-only global load the compiler issues where it stands: the
+// value is waited for only where it is used.
+__device__ __forceinline__ int ld_issue(const int* p) {
+  int v;
+  asm volatile("ld.global.nc.b32 %0, [%1];\n" : "=r"(v) : "l"(p));
+  return v;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -184,18 +192,19 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
   const int w0 = warp * G::kKeys / kWarps;   // this warp's first row
 
   // 1. Page ids of this lane's rows, then positions[b], all in flight
-  //    at once: volatile, so the compiler cannot sink the page-id loads
-  //    below the exit test and chain them behind positions[b] (the
-  //    window clamp keeps every index in bounds, visible or not).
-  const volatile int* pt = page_table + static_cast<size_t>(b) * max_pages;
+  //    at once: the page-id loads are issued by asm volatile, so the
+  //    compiler cannot sink them below the exit test and chain them
+  //    behind positions[b] (the window clamp keeps every index in
+  //    bounds, visible or not).
+  const int* pt = page_table + static_cast<size_t>(b) * max_pages;
   const int chunk = lane % G::kChunks;
   const int r0 = w0 + lane / G::kChunks;
   int page[G::kPasses];
 #pragma unroll
   for (int i = 0; i < G::kPasses; ++i)
-    page[i] = pt[min(k0 + r0 + i * G::kRowsPerPass, window - 1) / Pg];
-  const int n_keys =
-      min(static_cast<const volatile int*>(positions)[b] + 1, window);
+    page[i] = ld_issue(pt + min(k0 + r0 + i * G::kRowsPerPass, window - 1) /
+                                Pg);
+  const int n_keys = min(positions[b] + 1, window);
   if (k0 >= n_keys) return;  // uniform over the block
   const int k1 = min(k0 + G::kKeys, n_keys);
 

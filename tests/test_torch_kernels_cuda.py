@@ -23,7 +23,6 @@ to bf16 before the products, and the forward rounds P under its
 running maximum while the plain version uses the row's final one).
 """
 import dataclasses
-import time
 
 import numpy as np
 import pytest
@@ -137,21 +136,26 @@ def _split_passes(names) -> dict:
 
 def _device_kernel_names(fn):
     """Names of the kernels ``fn`` ran on the card, from torch.profiler.
-    A session that is not the process's first can miss the first
-    kernels after it starts (two of four in a bf16 flash forward and
-    backward, on the H100), so each session opens with three spin
-    kernels, a synchronize and a 50 ms pause before ``fn``."""
+    A session that is not the process's first can miss a kernel of its
+    first calls (two of four in a bf16 flash forward and backward, on
+    the H100), so each session runs ``fn`` once, then three spin kernels
+    as a marker, then ``fn`` again, and only the kernels that start
+    after the last marker ends are returned."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
         for _ in range(3):
             torch.cuda._sleep(100_000)
         torch.cuda.synchronize()
-        time.sleep(0.05)
         fn()
         torch.cuda.synchronize()
-    return [e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    events = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
+    assert marks, "the profiler recorded no marker kernel"
+    return [e.name for e in events if e.time_range.start >= max(marks)]
 
 
 @pytest.mark.parametrize("Pg", [8, 16, 64])

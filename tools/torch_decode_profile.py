@@ -14,7 +14,9 @@ and power limit:
    at the TinyLlama-1.1B decode shape (16 slots, 32 q / 4 kv heads,
    head_dim 64, 64-token pages, bf16 q, positions drawn over the
    2048-token window) for each split size in ``--split-keys``: median
-   time over 50 launches, CUDA events, L2 flushed before each.
+   time over 50 launches, CUDA events, L2 flushed before each; and the
+   median device time of its split pass and of its merge pass apart,
+   under torch.profiler.
 2. One decode step of TinyLlama-1.1B at 16 slots (the engine's decode
    body: a single-token forward over the paged pool — its append and
    its decode kernel — plus the greedy pick), ``--steps`` times under
@@ -104,8 +106,33 @@ def kernel_split_sweep(splits, seed: int, kv_dtype: str) -> dict:
         torch.cuda.synchronize()
         times = [s.elapsed_time(e) for s, e in events]
         out[split] = {"ms": sorted(times)[len(times) // 2],
-                      "max_abs_err": err}
+                      "max_abs_err": err,
+                      **_pass_us(lambda: pa._launch_kernel(
+                          q, pk, pv, pt, pos, split, **scales), flush)}
     return out
+
+
+def _pass_us(launch, flush, n: int = 10) -> dict:
+    """Median device time of the decode kernel's split pass and of its
+    merge pass, per launch (us), under torch.profiler over ``n``
+    launches, each behind an L2 flush."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            flush.zero_()
+            launch()
+        torch.cuda.synchronize()
+    times = {"split_pass_us": [], "merge_pass_us": []}
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ("merge_pass_us" if "::merge_kernel<" in e.name else
+               "split_pass_us" if "::split_" in e.name else None)
+        if key:
+            times[key].append(e.device_time_total)
+    return {k: sorted(v)[len(v) // 2] if v else None
+            for k, v in times.items()}
 
 
 def _wall_s(fn, n: int) -> float:
