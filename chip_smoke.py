@@ -6,7 +6,10 @@ sm_90a).
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
-which raises on failure:
+which raises on failure, run in the order 1, 3, 4, 4b, 2, 5, 6, 7: the
+host-timed serving phases come before any torch.profiler session,
+since a process that has run one launches kernels at a higher host
+cost for the rest of its life.
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
    limit. Builds the port's CUDA sources (K1 with its bf16 tensor-core
@@ -28,7 +31,9 @@ which raises on failure:
    template. Then K2 (int8 pages with per-page scales: pages from
    integers(-127, 128), scales from uniform(0.1, 2.0)) in the same
    cases, fp32 q at 1e-4 and bf16 q at 4e-3 + 2^-7·|ref|, every call
-   on the scalar template. Times each kernel, its
+   on the scalar template. Then 2 decode steps on phase 4's pool run
+   the tensor-core pass in every layer, and 2 on phase 4b's the scalar
+   int8 one. Times each kernel, its
    plain version and one library call (SDPA over the window gathered
    beforehand — for K2 gathered and dequantized to bf16 — a yardstick
    the port never calls) with CUDA events, L2 flushed before each
@@ -48,11 +53,10 @@ which raises on failure:
    requests (prompts of 16-1536 tokens, 64 new tokens each; 4 through
    ``stream``, 12 through ``generate_batch``) and checks every request
    got 64 tokens, that K1 was launched once per layer on every decode
-   step and K2 never, that 2 decode steps of the same body ran the
-   tensor-core pass in every layer (profiler names), and,
-   teacher-forced through the T > 1 gather path, that each generated
-   token of 2 requests is the top logit or within 0.05 of it, both in
-   bf16 and with the same bf16 weights evaluated in fp32.
+   step and K2 never, and, teacher-forced through the T > 1 gather
+   path, that each generated token of 2 requests is the top logit or
+   within 0.05 of it, both in bf16 and with the same bf16 weights
+   evaluated in fp32.
    Prints output tok/s, TTFT p50, time
    per output token p50 (the streamed requests) and ms per decode step
    beside the card's name and power limit.
@@ -67,8 +71,7 @@ which raises on failure:
    then 4 more behind the system prompt, exact repeats of the two
    page-aligned prompts (the COW path) and 2 random ones; 4 of wave 1
    through ``stream``. Checks every request got 64 tokens, K2 launched
-   once per layer on every decode step (the scalar pass, by the
-   profiler's names over 2 steps) and K1 never, wave 2's hit
+   once per layer on every decode step and K1 never, wave 2's hit
    tokens equal to the count computed from the prompts (4 x 1024 +
    511 + 1023 = 5630) over 6 hit admissions, the pool leak-free at
    quiescence, and, teacher-forced, that each generated token of 2
@@ -597,17 +600,13 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - ts) / n_steps * 1e3
 
-    # which split pass those decode steps run: bf16 K1's tensor-core one
-    # in every layer, never the scalar template
+    # 2 more of those decode steps, for main() to profile once the timed
+    # phases are over (the check of which split pass they run)
     def two_steps():
         step_cur = cur
         for _ in range(2):
             step_cur = tl._pick_token(
                 dep.model(step_cur[:, None], kv, pos)[:, -1], 0.0)
-
-    route = _check_split_route(_device_kernels(two_steps),
-                               {"sm90": 2 * cfg.n_layers},
-                               "phase 4 decode steps")
 
     ttfts = sorted(eng.ttfts_s)
     # time per output token of each streamed request (first to last
@@ -621,7 +620,6 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
         "ttft_p50_s": ttfts[len(ttfts) // 2],
         "tpot_p50_s": tpots[len(tpots) // 2],
         "decode_step_ms_16_slots": step_ms,
-        "decode_split_passes_2_steps": route,
         "decode_steps": steps, "k1_launches": launches,
         "teacher_forced_max_gap_fp32": max(gaps),
         "teacher_forced_not_top_fp32": sum(g > 0 for g in gaps),
@@ -636,14 +634,13 @@ def phase_main_path(tl, pa, seed: int, smi: str) -> dict:
           f"output token p50 {res['tpot_p50_s'] * 1e3:.2f} ms (streams), "
           f"decode step (16 slots) "
           f"{step_ms:.2f} ms; K1 launched {launches} times = "
-          f"{cfg.n_layers} layers x {steps} decode steps; 2 decode steps "
-          f"ran the split passes {route}; teacher-forced "
+          f"{cfg.n_layers} layers x {steps} decode steps; teacher-forced "
           f"over {len(gaps)} tokens: max gap to the top logit "
           f"{max(gaps):.4f} in fp32 ({res['teacher_forced_not_top_fp32']}"
           f" not top), {max(gaps_bf16):.4f} in bf16 "
           f"({res['teacher_forced_not_top_bf16']} not top)")
     dep.shutdown()
-    return res
+    return res, two_steps
 
 
 def _expected_hits(cached_prompts, prompt, Pg: int) -> int:
@@ -801,16 +798,12 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
     torch.cuda.synchronize()
     step_ms = (time.monotonic() - ts) / n_steps * 1e3
 
-    # the int8 pool's decode steps run K2's scalar pass in every layer
+    # 2 more of those decode steps, for main() to profile later
     def two_steps():
         step_cur = cur
         for _ in range(2):
             step_cur = tl._pick_token(
                 dep.model(step_cur[:, None], kv, pos)[:, -1], 0.0)
-
-    route = _check_split_route(_device_kernels(two_steps),
-                               {"scalar_int8": 2 * cfg.n_layers},
-                               "phase 4b decode steps")
 
     ttfts = list(eng.ttfts_s)
     p50 = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
@@ -823,7 +816,6 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
         "ttft_p50_s_wave1": p50(ttfts[:n_ttft1]),
         "ttft_p50_s_wave2": p50(ttfts[n_ttft1:]),
         "decode_step_ms_16_slots_int8": step_ms,
-        "decode_split_passes_2_steps": route,
         "decode_steps": steps, "k1_launches": launches[0],
         "k2_launches": launches[1], "wave2_hit_tokens": hits[0],
         "wave2_hit_admissions": hits[1], "wave2_hit_tokens_per_request":
@@ -841,8 +833,7 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
           f"output {res['output_tok_s']:.1f} tok/s, TTFT p50 wave 1 "
           f"{res['ttft_p50_s_wave1'] * 1e3:.1f} ms, wave 2 "
           f"{res['ttft_p50_s_wave2'] * 1e3:.1f} ms; decode step (16 "
-          f"slots, int8 pool) {step_ms:.2f} ms (split passes of 2 steps "
-          f"{route}); wave 2 hit "
+          f"slots, int8 pool) {step_ms:.2f} ms; wave 2 hit "
           f"{hits[0]} tokens over {hits[1]} admissions; kv_page_bytes "
           f"{report['kv_page_bytes']} (fp {fp_page_bytes}), "
           f"kv_bytes_total {report['kv_bytes_total']} (fp "
@@ -852,7 +843,7 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
           f"gap {max(gaps):.4f} in fp32 (fp pool), {max(gaps_int8):.4f} "
           f"in bf16 (int8 pool)")
     dep.shutdown()
-    return res
+    return res, two_steps
 
 
 # --------------------------------------------------------------------
@@ -1314,19 +1305,36 @@ def main(argv=None) -> int:
               + (f", warnings {info['warnings']}" if info["warnings"]
                  else ""))
 
-    k1 = phase_kernels(pa, args.seed)
-    k2 = phase_kernels(pa, args.seed, int8=True)
-    print(f"phase 2 done at {time.monotonic() - t0:.1f} s")
+    # The host-timed phases (4, 4b) run before any torch.profiler
+    # session: after one, the process launches kernels at a higher host
+    # cost for the rest of its life.
     phase_engine_parity(tl, args.seed)
     print(f"phase 3 done at {time.monotonic() - t0:.1f} s")
-    main_path = phase_main_path(tl, pa, args.seed, smi)
-    k1["launches"] = main_path["k1_launches"]
+    main_path, steps_fp = phase_main_path(tl, pa, args.seed, smi)
     print(f"phase 4 done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    int8_path = phase_int8_prefix_path(tl, pa, args.seed, smi)
-    k2["launches"] = int8_path["k2_launches"]
+    int8_path, steps_int8 = phase_int8_prefix_path(tl, pa, args.seed, smi)
     print(f"phase 4b done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
+    k1 = phase_kernels(pa, args.seed)
+    k2 = phase_kernels(pa, args.seed, int8=True)
+    k1["launches"] = main_path["k1_launches"]
+    k2["launches"] = int8_path["k2_launches"]
+    # which split pass the served pools' decode steps run: bf16 K1's
+    # tensor-core pass on the fp pool, K2's scalar one on the int8 pool,
+    # in every layer
+    n_layers = tl.tinyllama_1_1b().n_layers
+    for res, steps, want, where in (
+            (main_path, steps_fp, {"sm90": 2 * n_layers}, "phase 4"),
+            (int8_path, steps_int8, {"scalar_int8": 2 * n_layers},
+             "phase 4b")):
+        res["decode_split_passes_2_steps"] = _check_split_route(
+            _device_kernels(steps), want, f"{where} decode steps")
+        print(f"phase 2: 2 decode steps of {where}'s pool ran the split "
+              f"passes {res['decode_split_passes_2_steps']}")
+    del steps_fp, steps_int8
+    torch.cuda.empty_cache()
+    print(f"phase 2 done at {time.monotonic() - t0:.1f} s")
     flash, backward_ms = phase_flash_kernels(fa, args.seed)
     print(f"phase 5 done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()

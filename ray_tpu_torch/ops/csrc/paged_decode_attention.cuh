@@ -1,10 +1,11 @@
-// Paged-KV decode attention for Hopper (sm_90a), shared by K1
-// (paged_decode_attention.cu: pages in q's type) and K2
+// Paged-KV decode attention for Hopper (sm_90a): the scalar split pass
+// of fp32 K1 (paged_decode_attention.cu: pages in q's type) and of K2
 // (paged_decode_attention_int8.cu: int8 pages with per-page fp32
-// scales): one decode query per slot against that slot's pages of the
-// head-major pool. Each .cu file instantiates the template for its
-// page type and exports its plain C entry; the two are built by one
-// nvcc each, in parallel.
+// scales), and the merge pass of every K1 and K2 launch (bf16 K1's
+// split pass is split_sm90, paged_decode_attention_sm90.cuh): one decode
+// query per slot against that slot's pages of the head-major pool.
+// Each .cu file instantiates the template for its page type and exports
+// its plain C entry; the two are built by one nvcc each, in parallel.
 //
 // Function: head h uses kv head h / (H / KH); slot b sees keys at
 // logical positions 0..positions[b]; fp32 softmax and fp32
@@ -39,9 +40,9 @@
 //     of head_dim, reduced with one or two shuffles; softmax: one warp
 //     per query row; PV: one thread per (query row, d).
 // The block's serial score, softmax and PV phases, not bytes, set its
-// pace (K1 sits at ~10 % of its bound).
-// Not yet done (a later change): cp.async/TMA double buffering of the
-// tiles, tensor-core products, and CUDA graphs around the decode step.
+// pace (K2 sits at ~6 % of its bound); bf16 K1's tensor-core pass
+// removes them. The merge pass walks each slot's splits serially per
+// (row, d), so its time grows with the number of splits.
 
 #pragma once
 
@@ -90,7 +91,7 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
-// 16 bytes of T as floats (4 fp32, 8 bf16 or 16 int8 values).
+// 16 bytes of T as floats (4 fp32 or 16 int8 values).
 template <typename T>
 struct Chunk {
   static constexpr int kElems = 16 / static_cast<int>(sizeof(T));
@@ -101,16 +102,6 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
   f[1] = __uint_as_float(u.y);
   f[2] = __uint_as_float(u.z);
   f[3] = __uint_as_float(u.w);
-}
-
-__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 v = __bfloat1622float2(h[i]);
-    f[2 * i] = v.x;
-    f[2 * i + 1] = v.y;
-  }
 }
 
 __device__ __forceinline__ void unpack(const uint4& u, float (&f)[16]) {

@@ -58,7 +58,9 @@ def _card() -> str:
         timeout=60, check=True).stdout.strip().splitlines()[0]
 
 
-def kernel_split_sweep(splits, seed: int, kv_dtype: str) -> dict:
+def kernel_split_sweep(splits, seed: int, kv_dtype: str) -> tuple:
+    """{split: {"ms", "max_abs_err"}} at the decode shape, and a function
+    that adds each split's "split_pass_us" and "merge_pass_us"."""
     g = np.random.default_rng(seed)
     B, H, KH, D, Pg, mp = 16, 32, 4, 64, 64, 32
     n_pages = B * mp + 1
@@ -106,10 +108,16 @@ def kernel_split_sweep(splits, seed: int, kv_dtype: str) -> dict:
         torch.cuda.synchronize()
         times = [s.elapsed_time(e) for s, e in events]
         out[split] = {"ms": sorted(times)[len(times) // 2],
-                      "max_abs_err": err,
-                      **_pass_us(lambda: pa._launch_kernel(
-                          q, pk, pv, pt, pos, split, **scales), flush)}
-    return out
+                      "max_abs_err": err}
+
+    def passes():
+        """The split and merge passes apart, under torch.profiler: run
+        after every wall time is taken, since a process that has run a
+        profiler session launches kernels at a higher host cost."""
+        for split in splits:
+            out[split].update(_pass_us(lambda: pa._launch_kernel(
+                q, pk, pv, pt, pos, split, **scales), flush))
+    return out, passes
 
 
 def _pass_us(launch, flush, n: int = 10) -> dict:
@@ -192,10 +200,9 @@ def main(argv=None) -> int:
     res = {"card": card, "torch": torch.__version__,
            "kv_dtype": args.kv_dtype}
     kernel = "K2" if args.kv_dtype == "int8" else "K1"
-    res["kernel_split_ms"] = kernel_split_sweep(
+    res["kernel_split_ms"], passes = kernel_split_sweep(
         [int(s) for s in args.split_keys.split(",")], args.seed,
         args.kv_dtype)
-    print(f"{kernel} by split size on {card}: {res['kernel_split_ms']}")
 
     cfg = tl.tinyllama_1_1b()
     model = tl.build_model(cfg, tl.init_params(cfg, args.seed, "cuda"),
@@ -228,6 +235,8 @@ def main(argv=None) -> int:
     res["prefill_4x256"] = _profile(prefill, max(3, args.steps // 4))
     print(f"prefill 4 x 256 tokens, {args.kv_dtype} pool, on {card}: "
           f"{json.dumps(res['prefill_4x256'], indent=1)}")
+    passes()
+    print(f"{kernel} by split size on {card}: {res['kernel_split_ms']}")
     if args.out:
         with open(args.out, "w") as f:
             json.dump(res, f, indent=1)
