@@ -1332,7 +1332,9 @@ def main(argv=None) -> int:
             _device_kernels(steps), want, f"{where} decode steps")
         print(f"phase 2: 2 decode steps of {where}'s pool ran the split "
               f"passes {res['decode_split_passes_2_steps']}")
-    del steps_fp, steps_int8
+    # the probes hold phase 4's and 4b's models and pools: free them
+    # before training, whose peak memory phase 7 reports
+    del steps_fp, steps_int8, steps
     torch.cuda.empty_cache()
     print(f"phase 2 done at {time.monotonic() - t0:.1f} s")
     flash, backward_ms = phase_flash_kernels(fa, args.seed)
