@@ -59,12 +59,13 @@
 //     through shared memory (each warp's O over its own K rows) into
 //     the split's partial, written as the scalar pass writes it.
 //   Shared memory: 2 * kWarps * KW rows of 2 * D + 16 bytes (dynamic,
-//   after cudaFuncSetAttribute): 36 KB at D 64 and 128-key splits, so
-//   6 blocks fit an SM.
+//   after cudaFuncSetAttribute): at D 64, 72 KB for the 256-key splits
+//   the wrapper runs (3 blocks an SM), 36 KB for 128-key ones (6).
 //
-// ptxas (-Xptxas -v, H100 build, PR 7): split_sm90<64, 32> and
-// <128, 32> registers and spills as PERF.md records them; chip_smoke.py
-// phase 1 prints them on every build.
+// ptxas (-Xptxas -v, nvcc 12.9, sm_90a): split_sm90<64, 64> (the
+// served instance) 96 registers, <64, 32> 63, <64, 16> 48, <128, 64>
+// 161, <128, 32> 112, <128, 16> 72; no spills, no performance warnings.
+// chip_smoke.py phase 1 prints them on every build.
 
 #pragma once
 
