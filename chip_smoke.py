@@ -12,12 +12,13 @@ since a process that has run one launches kernels at a higher host
 cost for the rest of its life.
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
-   limit. Builds the port's CUDA sources (K1 with its bf16 tensor-core
-   split pass, K2, the scalar fp32 K3-K5 and the tensor-core bf16
-   K3-K5 with their delta pass) with nvcc, one process per source, all
-   started together, checks that ptxas reported every tensor-core
-   kernel at D 64 and 128 (K1's at each split size it takes), and
-   prints their registers, spills and ptxas's performance warnings.
+   limit. Builds the port's CUDA sources (K1 and K2, each with its
+   tensor-core split pass for bf16 q, the scalar fp32 K3-K5 and the
+   tensor-core bf16 K3-K5 with their delta pass) with nvcc, one process
+   per source, all started together, checks that ptxas reported every
+   tensor-core kernel at D 64 and 128 (K1's and K2's at each split size
+   they take), and prints their registers, spills and ptxas's
+   performance warnings.
 2. Every kernel against its plain PyTorch version on the card: K1
    (``paged_decode_attention``) in fp32 over head_dim 64/128 and GQA
    groups 1/4/8 (tolerance 1e-4), with pos 0, a full window and
@@ -27,13 +28,15 @@ cost for the rest of its life.
    the TinyLlama-1.1B decode shape with positions on each side of the
    split-K boundaries; then at that shape in bf16 on random positions.
    torch.profiler's kernel names show every bf16 K1 call on the
-   tensor-core pass (``split_sm90``) and every fp32 one on the scalar
-   template. Then K2 (int8 pages with per-page scales: pages from
-   integers(-127, 128), scales from uniform(0.1, 2.0)) in the same
-   cases, fp32 q at 1e-4 and bf16 q at 4e-3 + 2^-7·|ref|, every call
-   on the scalar template. Then 2 decode steps on phase 4's pool run
-   the tensor-core pass in every layer, and 2 on phase 4b's the scalar
-   int8 one. Times each kernel, its
+   tensor-core pass (``split_sm90`` over bf16 pages) and every fp32 one
+   on the scalar template. Then K2 (int8 pages with per-page scales:
+   pages from integers(-127, 128), scales from uniform(0.1, 2.0)) in
+   the same cases, fp32 q at 1e-4 on the scalar template and bf16 q at
+   4e-3 + 2^-7·|ref| on the tensor-core pass over int8 pages. No call
+   launches a merge kernel: the splits merge inside the one launch.
+   Then 2 decode steps on phase 4's pool run the tensor-core pass over
+   bf16 pages in every layer, and 2 on phase 4b's the one over int8
+   pages. Times each kernel, its
    plain version and one library call (SDPA over the window gathered
    beforehand — for K2 gathered and dequantized to bf16 — a yardstick
    the port never calls) with CUDA events, L2 flushed before each
@@ -227,11 +230,14 @@ def _max_err(out, ref, atol, rtol=None) -> float:
 
 def _split_passes(names) -> dict:
     """How many of the device-kernel ``names`` are each decode split
-    pass: bf16 K1's tensor-core ``split_sm90``, and the scalar
-    ``split_kernel`` over bf16 pages (no longer built), fp32 pages
-    (fp32 K1) and int8 pages (K2)."""
+    pass: the tensor-core ``split_sm90`` over bf16 pages (bf16 K1) and
+    over int8 pages (bf16-q K2), and the scalar ``split_kernel`` over
+    bf16 pages (no longer built), fp32 pages (fp32 K1) and int8 pages
+    (fp32-q K2); and the merge kernels, of which there are none."""
     return {
-        "sm90": sum("::split_sm90<" in n for n in names),
+        "sm90": sum("::split_sm90<__nv_bfloat16" in n for n in names),
+        "sm90_int8": sum("::split_sm90<signed char" in n for n in names),
+        "merge": sum("merge_kernel" in n for n in names),
         "scalar_bf16": sum("::split_kernel<__nv_bfloat16, __nv_bfloat16"
                            in n for n in names),
         "scalar_fp32": sum("::split_kernel<float, float" in n
@@ -258,7 +264,8 @@ def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
     TinyLlama decode shape across the split-K boundaries in fp32, then
     that shape with bf16 q, with times, the SDPA yardstick and the
     bound. The profiler's kernel names show which split pass each call
-    ran: bf16 K1 the tensor-core pass, fp32 K1 and K2 the scalar one."""
+    ran: bf16 q the tensor-core pass (over bf16 or int8 pages), fp32 q
+    the scalar one."""
     name = "K2" if int8 else "K1"
     # K1 keeps the inputs of earlier runs; K2 draws its own
     seeds = (seed + 7, seed + 8, seed + 9) if int8 else (seed, seed + 1,
@@ -334,7 +341,7 @@ def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
     names = _device_kernels(cases, warm)
     n32, n16 = calls[torch.float32], calls[torch.bfloat16]
     route = _check_split_route(
-        names, {"scalar_int8": n32 + n16} if int8 else
+        names, {"scalar_int8": n32, "sm90_int8": n16} if int8 else
         {"scalar_fp32": n32, "sm90": n16}, f"phase 2 {name}")
     print(f"phase 2: {name} ran the split passes {route} for {n32} fp32 "
           f"and {n16} bf16 calls")
@@ -392,13 +399,16 @@ def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
           f"plain {plain_ms:.4f} ms, SDPA on the gathered"
           f"{' bf16' if int8 else ''} window {library_ms:.4f} ms; bound "
           f"{max(t_bytes, t_ops):.4f} ms ({nbytes} bytes at 3.35 TB/s)")
-    # the bf16 row's kernel: K2's scalar template, K1's tensor-core pass
-    source = pa._SOURCE_INT8 if int8 else pa._SOURCE_SM90
-    design = ("scalar split-K template over int8 pages, dequantized in "
-              "registers; merge pass" if int8 else
-              "mma.sync m16n8k16 (Q as register A operand, K and V through "
+    # the bf16 row's kernel: the tensor-core pass over K2's int8 or K1's
+    # bf16 pages
+    source = pa._SOURCE_SM90
+    design = ("mma.sync m16n8k16 (Q as register A operand, K and V through "
               "ldmatrix), the whole split staged by cp.async (K then V "
-              "group), softmax in the warp; merge pass")
+              "group)" + (", each lane widening the int8 rows it copied "
+                          "to bf16 exactly, the page scales folded into S "
+                          "and P in fp32" if int8 else "")
+              + ", softmax in the warp; the splits merged by the block "
+              "that ends last, one launch per call")
     return {"name": "paged_decode_attention" + ("_int8" if int8 else ""),
             "route": "cuda", "source": f"ray_tpu_torch/ops/csrc/{source}",
             "replaces": "ray_tpu/ops/paged_attention.py:"
@@ -1290,20 +1300,25 @@ def main(argv=None) -> int:
     for line in report.splitlines():
         if "warning" in line.lower() or "Performance Loss" in line:
             print(f"phase 1: ptxas: {line.strip()}")
-    # bf16 K1's tensor-core pass: one instance per head_dim and split
-    k1_report = _build.ptxas_report(pa._SOURCE)
-    ptxas_k1 = _build.ptxas_summary(k1_report, ("split_sm90",))
-    want = [f"split_sm90<{d}, {split // 4}>" for d in (64, 128)
-            for split in pa._BF16_SPLITS]
-    if sorted(ptxas_k1) != sorted(want):
-        raise AssertionError(f"ptxas reported {sorted(ptxas_k1)} for "
-                             f"{pa._SOURCE}, want {want}")
-    for kernel, info in ptxas_k1.items():
-        print(f"phase 1: ptxas, {pa._SOURCE} {kernel}: "
-              f"{info.get('registers')} registers, spill stores/loads "
-              f"{info.get('spill_stores')}/{info.get('spill_loads')} bytes"
-              + (f", warnings {info['warnings']}" if info["warnings"]
-                 else ""))
+    # the tensor-core split pass of bf16 K1 (bf16 pages) and bf16-q K2
+    # (int8 pages): one instance per head_dim and split in each library
+    ptxas_decode = {}
+    for source, page in ((pa._SOURCE, "__nv_bfloat16"),
+                         (pa._SOURCE_INT8, "int8_t")):
+        found = _build.ptxas_summary(_build.ptxas_report(source),
+                                     ("split_sm90",))
+        want = [f"split_sm90<{page}, {d}, {split // 4}>" for d in (64, 128)
+                for split in pa._BF16_SPLITS]
+        if sorted(found) != sorted(want):
+            raise AssertionError(f"ptxas reported {sorted(found)} for "
+                                 f"{source}, want {want}")
+        for kernel, info in found.items():
+            print(f"phase 1: ptxas, {source} {kernel}: "
+                  f"{info.get('registers')} registers, spill stores/loads "
+                  f"{info.get('spill_stores')}/{info.get('spill_loads')} "
+                  f"bytes" + (f", warnings {info['warnings']}"
+                              if info["warnings"] else ""))
+        ptxas_decode[source] = found
 
     # The host-timed phases (4, 4b) run before any torch.profiler
     # session: after one, the process launches kernels at a higher host
@@ -1320,13 +1335,13 @@ def main(argv=None) -> int:
     k2 = phase_kernels(pa, args.seed, int8=True)
     k1["launches"] = main_path["k1_launches"]
     k2["launches"] = int8_path["k2_launches"]
-    # which split pass the served pools' decode steps run: bf16 K1's
-    # tensor-core pass on the fp pool, K2's scalar one on the int8 pool,
-    # in every layer
+    # which split pass the served pools' decode steps run: the
+    # tensor-core pass over bf16 pages on the fp pool (K1) and over int8
+    # pages on the int8 pool (K2), in every layer
     n_layers = tl.tinyllama_1_1b().n_layers
     for res, steps, want, where in (
             (main_path, steps_fp, {"sm90": 2 * n_layers}, "phase 4"),
-            (int8_path, steps_int8, {"scalar_int8": 2 * n_layers},
+            (int8_path, steps_int8, {"sm90_int8": 2 * n_layers},
              "phase 4b")):
         res["decode_split_passes_2_steps"] = _check_split_route(
             _device_kernels(steps), want, f"{where} decode steps")
@@ -1349,7 +1364,7 @@ def main(argv=None) -> int:
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "kernels": kernels["kernels"],
-                       "ptxas_sm90": ptxas, "ptxas_k1_sm90": ptxas_k1,
+                       "ptxas_sm90": ptxas, "ptxas_decode_sm90": ptxas_decode,
                        "flash_backward": backward_ms,
                        "main_path": main_path,
                        "int8_prefix_path": int8_path,

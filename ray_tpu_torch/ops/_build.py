@@ -94,22 +94,54 @@ def ptxas_report(source: str) -> str:
     return report.read_text() if report.is_file() else ""
 
 
+# Itanium-mangled builtin types a kernel template may take
+_MANGLED_TYPES = {"a": "int8_t", "h": "uint8_t", "f": "float", "i": "int"}
+_INT_ARG = re.compile(r"Li(\d+)E")      # an int literal
+_NAMED_ARG = re.compile(r"(\d+)")       # the length of a type's name
+
+
+def _template_args(mangled: str, at: int):
+    """The template arguments of a mangled name from ``at`` (just past
+    its ``I``) to their closing ``E``: int literals (``Li64E``), builtin
+    types (``a``: int8_t) and named types (``13__nv_bfloat16``); None
+    for anything else."""
+    args = []
+    while at < len(mangled) and mangled[at] != "E":
+        m = _INT_ARG.match(mangled, at)
+        if m:
+            args.append(m.group(1))
+            at = m.end()
+            continue
+        m = _NAMED_ARG.match(mangled, at)
+        if m:
+            n = int(m.group(1))
+            args.append(mangled[m.end():m.end() + n])
+            at = m.end() + n
+            continue
+        if mangled[at] not in _MANGLED_TYPES:
+            return None
+        args.append(_MANGLED_TYPES[mangled[at]])
+        at += 1
+    return args if at < len(mangled) else None
+
+
 def ptxas_summary(report: str, kernels: Sequence[str]) -> Dict[str, dict]:
-    """{"name<D>": {"registers", "spill_stores", "spill_loads",
-    "warnings"}} for each instance of the ``kernels`` (templated on int
-    parameters only: "name<64>", "name<64, 32>") in a ptxas report;
-    "warnings" holds ptxas's performance warnings for it (e.g. C7520,
-    wgmma serialized) as it wrote them."""
-    pattern = re.compile(r"\d(%s)I((?:Li\d+E)+)E" % "|".join(
-        map(re.escape, kernels)))
+    """{"name<args>": {"registers", "spill_stores", "spill_loads",
+    "warnings"}} for each instance of the ``kernels`` in a ptxas report,
+    named by its template arguments as C++ writes them ("name<64>",
+    "name<64, 32>", "name<__nv_bfloat16, 64, 64>", "name<int8_t, 64,
+    64>"); "warnings" holds ptxas's performance warnings for it (e.g.
+    C7520, wgmma serialized) as it wrote them."""
+    pattern = re.compile(r"\d(%s)I" % "|".join(map(re.escape, kernels)))
     out: Dict[str, dict] = {}
     name = None
     for line in report.splitlines():
-        m = pattern.search(line)
         key = None
-        if m:
-            args = ", ".join(re.findall(r"Li(\d+)E", m.group(2)))
-            key = f"{m.group(1)}<{args}>"
+        for m in pattern.finditer(line):
+            args = _template_args(line, m.end())
+            if args:
+                key = f"{m.group(1)}<{', '.join(args)}>"
+                break
         if "Performance Loss" in line and key:
             reason = line.split("Performance Loss", 1)[1].lstrip(": ")
             out.setdefault(key, {"warnings": []})["warnings"].append(

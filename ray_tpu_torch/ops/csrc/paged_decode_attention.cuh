@@ -1,22 +1,22 @@
 // Paged-KV decode attention for Hopper (sm_90a): the scalar split pass
-// of fp32 K1 (paged_decode_attention.cu: pages in q's type) and of K2
+// of fp32 K1 (paged_decode_attention.cu: fp32 pages) and of fp32-q K2
 // (paged_decode_attention_int8.cu: int8 pages with per-page fp32
-// scales), and the merge pass of every K1 and K2 launch (bf16 K1's
-// split pass is split_sm90, paged_decode_attention_sm90.cuh): one decode
-// query per slot against that slot's pages of the head-major pool.
-// Each .cu file instantiates the template for its page type and exports
-// its plain C entry; the two are built by one nvcc each, in parallel.
+// scales), and the merge that ends every split pass, this one's and the
+// tensor-core split_sm90's (paged_decode_attention_sm90.cuh, which bf16
+// K1 and bf16-q K2 run): one decode query per slot against that slot's
+// pages of the head-major pool. Each .cu file instantiates the
+// templates for its page type and exports its plain C entry; the two
+// are built by one nvcc each, in parallel.
 //
 // Function: head h uses kv head h / (H / KH); slot b sees keys at
 // logical positions 0..positions[b]; fp32 softmax and fp32
 // accumulation; output in q's type. A slot with no visible key gives
 // zeros, as the TPU kernels' m_safe / l floor do. For int8 pages the
-// page type is a template parameter separate from q's (bf16 or fp32)
-// type; a block reads the page's scale through the same page_table
-// entry it reads the page with (a tile never crosses a page, so one
-// scale per tile), stages the int8 bytes themselves in shared memory,
-// and dequantizes in registers in the TPU kernel's order,
-// float(q8) * (s * (1/127)).
+// page type is a template parameter separate from q's type; a block
+// reads the page's scale through the same page_table entry it reads
+// the page with (a tile never crosses a page, so one scale per tile),
+// stages the int8 bytes themselves in shared memory, and dequantizes
+// in registers in the TPU kernel's order, float(q8) * (s * (1/127)).
 //
 // Bound: device memory. Per layer the kernel must read each visible
 // key and value once, 2 * sum_b(pos_b + 1) * KH * D * sizeof(page)
@@ -30,8 +30,7 @@
 //     so every key and value is read once for all of them. The TPU
 //     grid instead walks every one of max_pages pages in order for each
 //     slot; here the splits of all slots run in parallel over the 132
-//     SMs, and splits past positions[b] exit at once. A second, small
-//     kernel merges the splits' (max, sum, unnormalised output);
+//     SMs, and splits past positions[b] exit at once;
 //   - a block reads each page id from the page table itself and stages
 //     tiles of at most one page in shared memory with 16-byte loads,
 //     neighbouring threads on neighbouring addresses; rows are padded
@@ -40,9 +39,20 @@
 //     of head_dim, reduced with one or two shuffles; softmax: one warp
 //     per query row; PV: one thread per (query row, d).
 // The block's serial score, softmax and PV phases, not bytes, set its
-// pace (K2 sits at ~6 % of its bound); bf16 K1's tensor-core pass
-// removes them. The merge pass walks each slot's splits serially per
-// (row, d), so its time grows with the number of splits.
+// pace; the tensor-core pass removes them for bf16 q.
+//
+// The merge (merge_tail), one launch per call: a slot with one live
+// split writes its output straight from the split block. Otherwise
+// every split block writes its partial (unnormalised O, max m, sum l)
+// and takes a ticket (an acq_rel atomic) on its (slot, kv head)'s
+// int32 counter; the block that draws the last ticket resets the
+// counter to 0 and merges every live split's partial, read from L2
+// (__ldcg): all splits' (m, l) and the first round of partials are
+// loaded at once, each row's (M, L) and the splits' weights come from
+// the (m, l) by 16 threads a row, then every (row, d) takes its
+// partials in split order, kMergeLoads values a thread a round. The
+// order of every sum is fixed, so a call's result does not depend on
+// which block merges: repeated calls are bitwise equal.
 
 #pragma once
 
@@ -57,6 +67,15 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxRep = 8;
+// partial values a merging thread loads in one round (8 splits of its
+// 4 (row, d) at D 64, 4 of 8 at D 128; a 2048-key window has 8, 16 or
+// 32 splits of 256, 128 or 64 keys), and splits whose weights the merge
+// keeps in shared memory
+constexpr int kMergeLoads = 32;
+constexpr int kMergeMax = 64;
+// floats of shared scratch merge_tail needs: weights, row max and sum,
+// the last-ticket flag
+constexpr int kMergeScratch = kMergeMax * kMaxRep + 2 * kMaxRep + 1;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) {
@@ -115,6 +134,176 @@ __device__ __forceinline__ void unpack(const uint4& u, float (&f)[16]) {
   }
 }
 
+// Keys 0..positions[b], clipped to the page-table window, and the
+// number of `split`-key splits that hold any of them.
+struct Visible {
+  int keys;
+  int splits;
+};
+
+__device__ __forceinline__ Visible visible(int pos, int window,
+                                           int split) {
+  const int n = min(pos + 1, window);
+  return {n, n > 0 ? (n + split - 1) / split : 0};
+}
+
+// Zeros for the rep rows of a (slot, kv head) with no visible key:
+// written by its split-0 block, since every split block exits.
+template <typename T>
+__device__ __forceinline__ void write_zeros(T* __restrict__ out, int n) {
+  for (int i = threadIdx.x; i < n; i += kThreads)
+    out[i] = from_float<T>(0.f);
+}
+
+// A ticket on a counter: the release orders the block's stores before
+// it (after a barrier), the acquire the other blocks' stores after it.
+__device__ __forceinline__ int take_ticket(int* counter) {
+  int ticket;
+  asm volatile("atom.acq_rel.gpu.global.add.s32 %0, [%1], 1;\n"
+               : "=r"(ticket)
+               : "l"(counter)
+               : "memory");
+  return ticket;
+}
+
+// The tail of every split pass when its (slot, kv head) has live > 1
+// splits, called by all kThreads threads after the block has written
+// its partial for split slot `first + s` (part_acc [.., rep, D],
+// part_m / part_l [.., rep], splits of one (slot, kv head) adjacent
+// from `first`). The block that draws the last ticket of `counter`
+// resets it and writes out[r * D + d] = sum_s acc_s e^(m_s - M) /
+// sum_s l_s e^(m_s - M) for the rep rows; every other block returns.
+// `scratch` is kMergeScratch floats of shared memory that no thread
+// reads any more.
+template <typename T, int D>
+__device__ __forceinline__ void merge_tail(
+    const float* __restrict__ part_acc, const float* __restrict__ part_m,
+    const float* __restrict__ part_l, int* __restrict__ counter,
+    size_t first, int live, int rep, T* __restrict__ out, float* scratch) {
+  constexpr int RJ = kMaxRep * D / kThreads;   // (row, d) per thread
+  constexpr int NS = kMergeLoads / RJ;          // splits per round
+  float* wgt = scratch;                        // [split][rep]
+  float* row_m = scratch + kMergeMax * kMaxRep;
+  float* row_l = row_m + kMaxRep;
+  int* last = reinterpret_cast<int*>(row_l + kMaxRep);
+  const int tid = threadIdx.x;
+
+  // The block's partial stores come before the ticket: the barrier
+  // orders them before thread 0's release, which covers them all.
+  __syncthreads();
+  if (tid == 0) {
+    const int ticket = take_ticket(counter);
+    *last = ticket == live - 1;
+    if (ticket == live - 1) *counter = 0;   // ready for the next call
+  }
+  __syncthreads();
+  if (!*last) return;
+
+  // Round c0 of the partials: NS splits' (row, d) values of this
+  // thread, every load issued before any is used.
+  const auto load_round = [&](int c0, float (&a)[RJ][NS]) {
+    const int n = min(NS, live - c0);
+    const float* pa = part_acc + (first + c0) * rep * D;
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      const int i = tid + j * kThreads;
+#pragma unroll
+      for (int s = 0; s < NS; ++s)
+        a[j][s] = s < n && i < rep * D
+                      ? __ldcg(pa + static_cast<size_t>(s) * rep * D + i)
+                      : 0.f;
+    }
+  };
+  float o[RJ];
+  const auto add_round = [&](const float (&a)[RJ][NS], const float* w) {
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      const int r = min((tid + j * kThreads) / D, rep - 1);
+#pragma unroll
+      for (int s = 0; s < NS; ++s) o[j] += a[j][s] * w[s * rep + r];
+    }
+  };
+
+  // 1. Each row's (M, L) over all live splits and the weights
+  //    e^(m_s - M) of the first kMergeMax: 16 threads a row, each over
+  //    its splits, reduced in a fixed shuffle tree. The (m, l) loads go
+  //    first, then round 0 of the partials, so that both are in flight
+  //    at once.
+  const int r = tid >> 4;
+  const int i16 = tid & 15;
+  float mv[kMergeMax / 16], lv[kMergeMax / 16];
+#pragma unroll
+  for (int u = 0; u < kMergeMax / 16; ++u) {
+    const int s = i16 + 16 * u;
+    const bool in = r < rep && s < live;
+    mv[u] = in ? __ldcg(part_m + (first + s) * rep + r) : -1e30f;
+    lv[u] = in ? __ldcg(part_l + (first + s) * rep + r) : 0.f;
+  }
+  float a[RJ][NS];
+  load_round(0, a);
+  {
+    // M first, then every weight at once: no chain of exponentials
+    float m = -1e30f;
+#pragma unroll
+    for (int u = 0; u < kMergeMax / 16; ++u) m = fmaxf(m, mv[u]);
+    if (r < rep)
+      for (int s = i16 + kMergeMax; s < live; s += 16)
+        m = fmaxf(m, __ldcg(part_m + (first + s) * rep + r));
+#pragma unroll
+    for (int lane = 8; lane > 0; lane >>= 1)
+      m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, lane));
+    float l = 0.f;
+#pragma unroll
+    for (int u = 0; u < kMergeMax / 16; ++u) {
+      mv[u] = i16 + 16 * u < live ? expf(mv[u] - m) : 0.f;
+      l += lv[u] * mv[u];
+    }
+    if (r < rep)
+      for (int s = i16 + kMergeMax; s < live; s += 16)
+        l += __ldcg(part_l + (first + s) * rep + r) *
+             expf(__ldcg(part_m + (first + s) * rep + r) - m);
+#pragma unroll
+    for (int lane = 8; lane > 0; lane >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, lane);
+    if (r < rep) {
+#pragma unroll
+      for (int u = 0; u < kMergeMax / 16; ++u)   // zero past the live splits
+        wgt[(i16 + 16 * u) * rep + r] = mv[u];
+      if (i16 == 0) {
+        row_m[r] = m;
+        row_l[r] = fmaxf(l, 1e-30f);
+      }
+    }
+  }
+  __syncthreads();
+
+  // 2. out = sum_s acc_s w_s / L, in split order.
+#pragma unroll
+  for (int j = 0; j < RJ; ++j) o[j] = 0.f;
+  add_round(a, wgt);
+  for (int c0 = NS; c0 < live; c0 += NS) {
+    load_round(c0, a);
+    const float* w = wgt + c0 * rep;
+    if (c0 + NS > kMergeMax) {  // past the kept weights
+      const int n = min(NS, live - c0);
+      __syncthreads();
+      for (int i = tid; i < NS * rep; i += kThreads)
+        wgt[i] = i < n * rep
+                     ? expf(__ldcg(part_m + (first + c0) * rep + i) -
+                            row_m[i % rep])
+                     : 0.f;
+      __syncthreads();
+      w = wgt;
+    }
+    add_round(a, w);
+  }
+#pragma unroll
+  for (int j = 0; j < RJ; ++j) {
+    const int i = tid + j * kThreads;
+    if (i < rep * D) out[i] = from_float<T>(o[j] / row_l[i / D]);
+  }
+}
+
 // Tile geometry for one (type, head_dim): TT keys per tile, K and V
 // tiles together at most 32 KB before padding; TPK threads per key in
 // the score pass; rows padded by 16 * TPK bytes, which puts the TPK
@@ -128,19 +317,23 @@ struct Tile {
   static constexpr int kChunks = kRowBytes / 16;          // per row
   static constexpr int kPadRowBytes = kRowBytes + 16 * kTPK;
   static constexpr int kPadRowChunks = kPadRowBytes / 16;
+  // merge_tail's scratch goes over the K tile
+  static_assert(kKeys * kPadRowBytes >= kMergeScratch * 4, "scratch");
 };
 
-// One (slot, kv head, split): unnormalised softmax-weighted sum of the
-// split's values for each query row of the group, with the split's max
-// score m and sum of exp(score - m) l. T is q's type, P the pages'
-// (P = T for K1; int8_t for K2, which then reads scales_k/scales_v).
+// One (slot, kv head, split): the softmax-weighted sum of the split's
+// values for each query row of the group, with the split's max score m
+// and sum of exp(score - m) l, then merge_tail. T is q's type, P the
+// pages' (P = T for K1; int8_t for K2, which then reads
+// scales_k/scales_v).
 template <typename T, typename P, int D>
 __global__ void __launch_bounds__(kThreads) split_kernel(
     const T* __restrict__ q, const P* __restrict__ pages_k,
     const P* __restrict__ pages_v, const float* __restrict__ scales_k,
     const float* __restrict__ scales_v, const int* __restrict__ page_table,
-    const int* __restrict__ positions, float* __restrict__ part_acc,
-    float* __restrict__ part_m, float* __restrict__ part_l, int H, int KH,
+    const int* __restrict__ positions, T* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_m,
+    float* __restrict__ part_l, int* __restrict__ counters, int H, int KH,
     int n_pages, int Pg, int max_pages, int split, float scale) {
   constexpr bool kQuant = std::is_same<P, int8_t>::value;
   using G = Tile<P, D>;
@@ -165,13 +358,18 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
+  T* ob = out + (static_cast<size_t>(b) * H +
+                 static_cast<size_t>(kh) * rep) * D;
 
   // Keys 0..pos, but none past the page-table window; this split
   // covers [k0, k1).
-  const int n_keys = min(positions[b] + 1, max_pages * Pg);
+  const Visible vis = visible(positions[b], max_pages * Pg, split);
   const int k0 = s * split;
-  if (k0 >= n_keys) return;  // uniform over the block
-  const int k1 = min(k0 + split, n_keys);
+  if (k0 >= vis.keys) {  // uniform over the block
+    if (s == 0) write_zeros(ob, rep * D);
+    return;
+  }
+  const int k1 = min(k0 + split, vis.keys);
 
   const T* qb = q + (static_cast<size_t>(b) * H +
                      static_cast<size_t>(kh) * rep) * D;
@@ -300,8 +498,17 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     key += nt;
   }
 
-  const size_t slot =
-      (static_cast<size_t>(b) * KH + kh) * gridDim.z + s;
+  if (vis.splits == 1) {  // the whole window: normalise in place
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) {
+      const int r = rg + RG * j;
+      if (r < rep) ob[r * D + d] = from_float<T>(acc[j] /
+                                                 fmaxf(l_s[r], 1e-30f));
+    }
+    return;
+  }
+  const size_t first = (static_cast<size_t>(b) * KH + kh) * gridDim.z;
+  const size_t slot = first + s;
 #pragma unroll
   for (int j = 0; j < RJ; ++j) {
     const int r = rg + RG * j;
@@ -311,51 +518,18 @@ __global__ void __launch_bounds__(kThreads) split_kernel(
     part_m[slot * rep + tid] = m_s[tid];
     part_l[slot * rep + tid] = l_s[tid];
   }
-}
-
-// Merge the splits of one (slot, kv head): out = sum_s acc_s e^(m_s-M)
-// / sum_s l_s e^(m_s-M). No visible key gives zeros.
-template <typename T>
-__global__ void __launch_bounds__(kThreads) merge_kernel(
-    const float* __restrict__ part_acc, const float* __restrict__ part_m,
-    const float* __restrict__ part_l, const int* __restrict__ positions,
-    T* __restrict__ out, int H, int KH, int D, int max_keys, int split,
-    int n_splits) {
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
-  const int rep = H / KH;
-  const int n_keys = min(positions[b] + 1, max_keys);
-  const int ns = n_keys > 0 ? (n_keys + split - 1) / split : 0;
-  const size_t first = (static_cast<size_t>(b) * KH + kh) * n_splits;
-  for (int i = threadIdx.x; i < rep * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i - r * D;
-    // unrolled so that several splits' loads are in flight at once
-    float m = -1e30f;
-#pragma unroll 8
-    for (int s = 0; s < ns; ++s)
-      m = fmaxf(m, part_m[(first + s) * rep + r]);
-    float l = 0.f;
-    float o = 0.f;
-#pragma unroll 8
-    for (int s = 0; s < ns; ++s) {
-      const float w = expf(part_m[(first + s) * rep + r] - m);
-      l += part_l[(first + s) * rep + r] * w;
-      o += part_acc[((first + s) * rep + r) * D + d] * w;
-    }
-    out[(static_cast<size_t>(b) * H + static_cast<size_t>(kh) * rep + r) *
-            D +
-        d] = from_float<T>(o / fmaxf(l, 1e-30f));
-  }
+  merge_tail<T, D>(part_acc, part_m, part_l,
+                   counters + static_cast<size_t>(b) * KH + kh, first,
+                   vis.splits, rep, ob, reinterpret_cast<float*>(k_s));
 }
 
 template <typename T, typename P, int D>
 cudaError_t launch(const void* q, const void* pages_k, const void* pages_v,
                    const void* scales_k, const void* scales_v,
                    const void* page_table, const void* positions, void* out,
-                   void* part_acc, void* part_m, void* part_l, int B, int H,
-                   int KH, int n_pages, int Pg, int max_pages, int split,
-                   cudaStream_t stream) {
+                   void* part_acc, void* part_m, void* part_l,
+                   void* counters, int B, int H, int KH, int n_pages,
+                   int Pg, int max_pages, int split, cudaStream_t stream) {
   const int n_splits = (max_pages * Pg + split - 1) / split;
   const dim3 grid(B, KH, n_splits);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
@@ -364,15 +538,10 @@ cudaError_t launch(const void* q, const void* pages_k, const void* pages_v,
       static_cast<const P*>(pages_v), static_cast<const float*>(scales_k),
       static_cast<const float*>(scales_v),
       static_cast<const int*>(page_table),
-      static_cast<const int*>(positions), static_cast<float*>(part_acc),
-      static_cast<float*>(part_m), static_cast<float*>(part_l), H, KH,
+      static_cast<const int*>(positions), static_cast<T*>(out),
+      static_cast<float*>(part_acc), static_cast<float*>(part_m),
+      static_cast<float*>(part_l), static_cast<int*>(counters), H, KH,
       n_pages, Pg, max_pages, split, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  merge_kernel<T><<<dim3(B, KH), kThreads, 0, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<const int*>(positions),
-      static_cast<T*>(out), H, KH, D, max_pages * Pg, split, n_splits);
   return cudaGetLastError();
 }
 

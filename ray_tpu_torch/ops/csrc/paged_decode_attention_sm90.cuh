@@ -1,32 +1,41 @@
-// K1's split pass for bf16 q and pages on Hopper's tensor cores
-// (sm_90a): paged_decode_attention.cu dispatches dtype 1 (bf16) here;
-// fp32 K1 and all of K2 keep the scalar split_kernel of
-// paged_decode_attention.cuh. Replaces, for bf16, the TPU kernel
-// ray_tpu/ops/paged_attention.py::_kernel (body _attend_page), launched
-// by paged_decode_attention there.
+// The split pass of bf16 K1 and of bf16-q K2 on Hopper's tensor cores
+// (sm_90a): split_sm90<P, D, KW> over bf16 pages (P = __nv_bfloat16;
+// paged_decode_attention.cu sends dtype 1 here) and over int8 pages
+// with per-page fp32 scales (P = int8_t; paged_decode_attention_int8.cu
+// sends bf16 q, dtype 1, here). fp32 K1 and fp32-q K2 keep the scalar
+// split_kernel of paged_decode_attention.cuh: the tensor cores cannot
+// hold fp32 to 1e-4. Replaces, for bf16 q, the TPU kernels
+// ray_tpu/ops/paged_attention.py::_kernel (body _attend_page) and
+// ::_kernel_q, both launched by paged_decode_attention there.
 //
-// Function: that of split_kernel<bf16, bf16, D>. One block per (slot,
-// kv head, split of kWarps * KW keys) serves the rep <= 8 query heads
-// of its group (head h reads kv head h / rep); slot b sees keys
-// 0..positions[b], clipped to the page-table window; fp32 scores from
-// bf16 operands, scaled after the product, masked ones -1e30; the fp32
-// softmax's max floored at -1e29, so a warp with no visible key adds
-// nothing; fp32 accumulation. It writes the split's unnormalised output
-// and its (max, sum) to part_acc / part_m / part_l, which merge_kernel
-// (paged_decode_attention.cuh) merges as it does the scalar pass's.
+// Function: that of split_kernel<bf16, P, D>, merge included. One block
+// per (slot, kv head, split of kWarps * KW keys) serves the rep <= 8
+// query heads of its group (head h reads kv head h / rep); slot b sees
+// keys 0..positions[b], clipped to the page-table window; fp32 scores
+// from bf16 operands, scaled after the product, masked ones -1e30; the
+// fp32 softmax's max floored at -1e29, so a warp with no visible key
+// adds nothing; fp32 accumulation. The split's partial goes to
+// merge_tail (paged_decode_attention.cuh), which merges the slot's
+// splits in the block that finishes last: one launch per call.
 // Rounding differs from the reference in one place: P is rounded to
 // bf16 before the PV product (the reference keeps it in fp32); the row
-// sum l is taken over the unrounded P. The result stays within the bf16
-// tolerance of the card tests (4e-3 + 2^-7 * |ref|).
+// sum l is taken over the unrounded P. For int8 pages nothing else is
+// rounded: q8 becomes bf16 exactly (|q8| <= 127), and the scales are
+// folded in fp32 after the products consume q8, S = (Q q8^T) *
+// (s_k / 127) / sqrt(D) per key, and P * (s_v / 127) per key before
+// P's rounding. The result stays within the bf16 tolerance of the card
+// tests (4e-3 + 2^-7 * |ref|).
 //
-// Bound: device memory. The split pass must read each visible key and
-// value once, 2 * sum_b(pos_b + 1) * KH * D * 2 bytes: 16.8 MB at the
-// TinyLlama-1.1B decode shape (16 slots, 4 kv heads, D 64, 16,417
-// visible keys), 5.0 us at 3.35 TB/s. It does 4 * rep flops per element
-// pair it reads, far below the ~295 flop/byte where the tensor cores
-// would become the limit. What bounds the scalar pass instead is its
-// serial chain per 64-key tile: synchronous loads, then scores, softmax
-// and a PV loop over the tile's keys, with five block barriers.
+// Bound: device memory. The pass must read each visible key and value
+// once, 2 * sum_b(pos_b + 1) * KH * D * sizeof(P) bytes (int8: plus
+// two fp32 scales per visible page and kv head): at the TinyLlama-1.1B
+// decode shape (16 slots, 4 kv heads, D 64, ~16-18k visible keys)
+// 16.8 MB for bf16, 5.0 us at 3.35 TB/s, and 9.5 MB for int8, 2.8 us.
+// It does 4 * rep flops per element pair it reads, far below the ~295
+// flop/byte where the tensor cores would become the limit. What bounds
+// the scalar pass instead is its serial chain per 64-key tile:
+// synchronous loads, then scores, softmax and a PV loop over the
+// tile's keys, with five block barriers.
 //
 // Design:
 //   - Prologue, nothing waiting that need not wait. The page ids of
@@ -43,6 +52,17 @@
 //     copies exactly those rows itself, so a warp waits for its own
 //     groups (cp.async.wait_group + __syncwarp): no block barrier until
 //     the epilogue.
+//   - int8 pages: a row's D bytes land in the upper half of its bf16
+//     row; after its group lands, each lane widens the 16 bytes it
+//     copied itself to 16 bf16 values in the lower half (one
+//     __syncwarp between the warp's reads and writes of a row), so the
+//     ldmatrix code below is bf16's unchanged. The widening runs on
+//     byte permutes and fp32 adds (widen_int8): through the conversion
+//     unit it took ~0.4 us more a group (tools/torch_decode_stamps.py). The lane that copies a
+//     row's first chunk also loads its page's two scales (through the
+//     page id it holds) and keeps (s_k / 127 / sqrt(D), s_v / 127) in
+//     the row's 16 bytes of padding: any page size, no second walk over
+//     the page table.
 //   - Scores on the tensor cores: S = Q K^T with mma.sync.m16n8k16 (bf16
 //     in, fp32 accumulators). Q's rep rows, zero-padded to 16, are the
 //     register A operand (rows 8-15 are always zero, so those A registers
@@ -56,16 +76,25 @@
 //   - PV on the tensor cores: after V's group, O += P V with V through
 //     ldmatrix.trans from the same padded rows.
 //   - Epilogue: one __syncthreads merges the 4 warps' (m, l, O[rep x D])
-//     through shared memory (each warp's O over its own K rows) into
-//     the split's partial, written as the scalar pass writes it.
+//     through shared memory (each warp's O over its own K rows). A slot
+//     with one live split writes its output here; otherwise the
+//     split's partial goes to merge_tail.
 //   Shared memory: 2 * kWarps * KW rows of 2 * D + 16 bytes (dynamic,
-//   after cudaFuncSetAttribute): at D 64, 72 KB for the 256-key splits
-//   the wrapper runs (3 blocks an SM), 36 KB for 128-key ones (6).
+//   after cudaFuncSetAttribute), the same for both page types, plus
+//   ~0.3 KB static: at D 64, 72 KB for 256-key splits (3 blocks an
+//   SM), 36 KB for 128-key ones (6).
 //
-// ptxas (-Xptxas -v, nvcc 12.9, sm_90a): split_sm90<64, 64> (the
-// served instance) 96 registers, <64, 32> 63, <64, 16> 48, <128, 64>
-// 161, <128, 32> 112, <128, 16> 72; no spills, no performance warnings.
-// chip_smoke.py phase 1 prints them on every build.
+// ptxas (-Xptxas -v, nvcc 12.9, sm_90a): bf16 pages split_sm90<bf16,
+// 64, 64> (the served instance) 128 registers, <bf16, 64, 32> and
+// <bf16, 64, 16> 128, <bf16, 128, 64> 189, <bf16, 128, 32> 128,
+// <bf16, 128, 16> 128 with 16 bytes of spills; int8 pages <int8, 64,
+// 64> (served) 146, <int8, 64, 32> and <int8, 64, 16> 128, <int8, 128,
+// 64> 155, <int8, 128, 32> and <int8, 128, 16> 128 with 16 bytes of
+// spills; no performance warnings. Registers allow 3 blocks an SM at
+// 146 (shared memory allows 3 at 256-key splits) and 4 at 128.
+// merge_tail's round of kMergeLoads partial values per thread set the
+// 128: without it the same pass took 48-96 at D 64. chip_smoke.py
+// phase 1 prints every instance's report on every build.
 
 #pragma once
 
@@ -73,6 +102,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
+
 
 #include "paged_decode_attention.cuh"
 
@@ -151,32 +182,89 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-// Geometry of one (head_dim D, keys per warp KW) instance.
-template <int D, int KW>
+
+// 16 int8 values (one 16-byte word) as 16 bf16 values, exactly, on the
+// integer and fp32 pipes rather than the conversion unit: byte x ^ 0x80
+// = x + 128 goes into the mantissa of 2^23 (0x4B0000xx), 2^23 + 128 is
+// subtracted in fp32, and the result, an integer of at most 8 bits, is
+// the upper half of its fp32 bits in bf16.
+__device__ __forceinline__ void widen_int8(const uint4& u, uint4& lo,
+                                           uint4& hi) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t biased = w[i] ^ 0x80808080u;
+    float f[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+      f[j] = __uint_as_float(__byte_perm(biased, 0x4B000000u, 0x7440 + j)) -
+             8388736.0f;
+    o[2 * i] = __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]),
+                           0x7632);
+    o[2 * i + 1] = __byte_perm(__float_as_uint(f[2]),
+                               __float_as_uint(f[3]), 0x7632);
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// Geometry of one (page type P, head_dim D, keys per warp KW) instance.
+template <typename P, int D, int KW>
 struct Sm90Split {
   static_assert(D % 32 == 0 && KW % 16 == 0, "D % 32, KW % 16");
+  static constexpr bool kQuant = std::is_same<P, int8_t>::value;
   static constexpr int kKeys = kWarps * KW;           // keys per split
-  static constexpr int kRowBytes = 2 * D + 16;        // padded K/V row
-  static constexpr int kChunks = 2 * D / 16;          // 16 B per row
+  static constexpr int kRowBytes = 2 * D + 16;        // padded bf16 row
+  // where a copied row lands in its bf16 row: int8 in the upper half
+  static constexpr int kStage = kQuant ? D : 0;
+  static constexpr int kScale = 2 * D;                // int8: row scales
+  static constexpr int kChunks = D * static_cast<int>(sizeof(P)) / 16;
+  static constexpr int kElems = 16 / static_cast<int>(sizeof(P));
   static constexpr int kRowsPerPass = 32 / kChunks;   // rows a warp copies
   static constexpr int kPasses = KW / kRowsPerPass;   // ... per pass
   static constexpr int kOStride = D + 8;              // epilogue row
   static constexpr int kSmem = 2 * kKeys * kRowBytes;  // K and V rows
-  // the epilogue's 8 rows of O per warp fit in the warp's own K rows
+  // the epilogue's 8 rows of O per warp fit in the warp's own K rows,
+  // and merge_tail's scratch in the K rows
   static_assert(8 * kOStride * 4 <= KW * kRowBytes, "O over K rows");
+  static_assert(kKeys * kRowBytes >= kMergeScratch * 4, "scratch");
 };
 
-template <int D, int KW>
+// int8 pages: the lane's rows of one group, each row's 16 bytes this
+// lane copied widened to bf16 in the row's lower half.
+template <typename G>
+__device__ __forceinline__ void widen_rows(unsigned char* rows, int r0,
+                                           int chunk) {
+#pragma unroll
+  for (int i = 0; i < G::kPasses; ++i) {
+    unsigned char* row = rows + (r0 + i * G::kRowsPerPass) * G::kRowBytes;
+    const uint4 raw =
+        *reinterpret_cast<const uint4*>(row + G::kStage + chunk * 16);
+    __syncwarp();  // the warp has read the row before any lane writes it
+    uint4 lo, hi;
+    widen_int8(raw, lo, hi);
+    *reinterpret_cast<uint4*>(row + chunk * 32) = lo;
+    *reinterpret_cast<uint4*>(row + chunk * 32 + 16) = hi;
+  }
+}
+
+template <typename P, int D, int KW>
 __global__ void __launch_bounds__(kThreads) split_sm90(
-    const bf16* __restrict__ q, const bf16* __restrict__ pages_k,
-    const bf16* __restrict__ pages_v, const int* __restrict__ page_table,
-    const int* __restrict__ positions, float* __restrict__ part_acc,
-    float* __restrict__ part_m, float* __restrict__ part_l, int H, int KH,
+    const bf16* __restrict__ q, const P* __restrict__ pages_k,
+    const P* __restrict__ pages_v, const float* __restrict__ scales_k,
+    const float* __restrict__ scales_v, const int* __restrict__ page_table,
+    const int* __restrict__ positions, bf16* __restrict__ out,
+    float* __restrict__ part_acc, float* __restrict__ part_m,
+    float* __restrict__ part_l, int* __restrict__ counters, int H, int KH,
     int n_pages, int Pg, int max_pages, float scale) {
-  using G = Sm90Split<D, KW>;
+  using G = Sm90Split<P, D, KW>;
   extern __shared__ __align__(16) unsigned char smem[];
   __shared__ float m_s[kWarps * 8];   // each warp's row max and sum
   __shared__ float l_s[kWarps * 8];
+  __shared__ float w_s[kWarps * 8];   // each warp's weight in its row
+  __shared__ float rm_s[8];           // the split's row max and sum
+  __shared__ float rl_s[8];
   unsigned char* k_s = smem;
   unsigned char* v_s = smem + G::kKeys * G::kRowBytes;
 
@@ -184,13 +272,16 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
   const int kh = blockIdx.y;
   const int s = blockIdx.z;
   const int rep = H / KH;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
   const int g = lane >> 2;   // fragment row (query head of the group)
   const int t = lane & 3;    // fragment column pair
   const int window = max_pages * Pg;
   const int k0 = s * G::kKeys;
   const int w0 = warp * G::kKeys / kWarps;   // this warp's first row
+  bf16* ob = out + (static_cast<size_t>(b) * H +
+                    static_cast<size_t>(kh) * rep) * D;
 
   // 1. Page ids of this lane's rows, then positions[b], all in flight
   //    at once: the page-id loads are issued by asm volatile, so the
@@ -205,9 +296,12 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
   for (int i = 0; i < G::kPasses; ++i)
     page[i] = ld_issue(pt + min(k0 + r0 + i * G::kRowsPerPass, window - 1) /
                                 Pg);
-  const int n_keys = min(positions[b] + 1, window);
-  if (k0 >= n_keys) return;  // uniform over the block
-  const int k1 = min(k0 + G::kKeys, n_keys);
+  const Visible vis = visible(positions[b], window, G::kKeys);
+  if (k0 >= vis.keys) {  // uniform over the block
+    if (s == 0) write_zeros(ob, rep * D);
+    return;
+  }
+  const int k1 = min(k0 + G::kKeys, vis.keys);
 
   // 2. The warp's K rows as commit group 0, its V rows as group 1.
   long long off[G::kPasses];
@@ -219,10 +313,23 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
                              Pg +
                          (key - p * Pg)) *
                                 D +
-                            chunk * 8
+                            chunk * G::kElems
                       : -1;
   }
-  const uint32_t dst = r0 * G::kRowBytes + chunk * 16;
+  // int8: the scales of the pages of this lane's rows (first chunk's
+  // lane only; 0 past the visible keys), asked for before the rows, so
+  // that they do not queue behind them
+  float sk_row[G::kQuant ? G::kPasses : 1], sv_row[G::kQuant ? G::kPasses : 1];
+  if constexpr (G::kQuant) {
+#pragma unroll
+    for (int i = 0; i < G::kPasses; ++i) {
+      const bool mine = chunk == 0 && off[i] >= 0;
+      const size_t si = static_cast<size_t>(kh) * n_pages + page[i];
+      sk_row[i] = mine ? __ldg(scales_k + si) : 0.f;
+      sv_row[i] = mine ? __ldg(scales_v + si) : 0.f;
+    }
+  }
+  const uint32_t dst = r0 * G::kRowBytes + G::kStage + chunk * 16;
 #pragma unroll
   for (int i = 0; i < G::kPasses; ++i)
     cp_async16(smem_u32(k_s) + dst + i * G::kRowsPerPass * G::kRowBytes,
@@ -251,10 +358,21 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
                               qrow + 16 * kk + 8 + 2 * t))
                         : 0u;
   }
+  if constexpr (G::kQuant) {
+    if (chunk == 0) {
+#pragma unroll
+      for (int i = 0; i < G::kPasses; ++i)
+        *reinterpret_cast<float2*>(
+            k_s + (r0 + i * G::kRowsPerPass) * G::kRowBytes + G::kScale) =
+            make_float2(sk_row[i] * (1.0f / 127.0f) * scale,
+                        sv_row[i] * (1.0f / 127.0f));
+    }
+  }
 
   // 4. S = Q K^T over the warp's KW keys: n-tile j holds keys
   //    w0 + 8j.., lane (g, t) its row g at keys 2t and 2t + 1.
   cp_async_wait<1>();
+  if constexpr (G::kQuant) widen_rows<G>(k_s, r0, chunk);
   __syncwarp();
   float sc[KW / 8][2];
   const uint32_t k_lane = smem_u32(k_s) + (w0 + (lane & 7)) * G::kRowBytes +
@@ -274,14 +392,23 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
   }
 
   // 5. Softmax of row g over the warp's keys, in the quad; P to bf16 A
-  //    fragments.
+  //    fragments (int8: times the key's s_v / 127 first).
+  float vs[KW / 8][2];
   float mx = -1e30f;
 #pragma unroll
   for (int j = 0; j < KW / 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int key = k0 + w0 + 8 * j + 2 * t + e;
-      sc[j][e] = key < k1 ? sc[j][e] * scale : -1e30f;
+      const int row = w0 + 8 * j + 2 * t + e;
+      float ks = scale;
+      vs[j][e] = 1.f;
+      if constexpr (G::kQuant) {
+        const float2 rs = *reinterpret_cast<const float2*>(
+            k_s + row * G::kRowBytes + G::kScale);
+        ks = rs.x;
+        vs[j][e] = rs.y;
+      }
+      sc[j][e] = k0 + row < k1 ? sc[j][e] * ks : -1e30f;
       mx = fmaxf(mx, sc[j][e]);
     }
   }
@@ -295,7 +422,8 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
     const float p0 = expf(sc[j][0] - mx);
     const float p1 = expf(sc[j][1] - mx);
     l += p0 + p1;
-    pa[j] = pack_bf16(p0, p1);
+    pa[j] = G::kQuant ? pack_bf16(p0 * vs[j][0], p1 * vs[j][1])
+                      : pack_bf16(p0, p1);
   }
   l += __shfl_xor_sync(0xffffffffu, l, 1);
   l += __shfl_xor_sync(0xffffffffu, l, 2);
@@ -303,6 +431,7 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
   // 6. O = P V: k-step kc takes keys 16kc.. of the warp (S tiles 2kc and
   //    2kc + 1); V through ldmatrix.trans, two 8-column n-tiles a load.
   cp_async_wait<0>();
+  if constexpr (G::kQuant) widen_rows<G>(v_s, r0, chunk);
   __syncwarp();
   float o[D / 8][2];
 #pragma unroll
@@ -327,8 +456,8 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
     }
   }
 
-  // 7. Merge the 4 warps' (m, l, O) into the split's partial; a warp's
-  //    O goes over its own K rows, which no other warp reads.
+  // 7. Merge the 4 warps' (m, l, O); a warp's O goes over its own K
+  //    rows, which no other warp reads.
   __syncwarp();
   float* orow =
       reinterpret_cast<float*>(k_s + w0 * G::kRowBytes) + g * G::kOStride;
@@ -341,72 +470,95 @@ __global__ void __launch_bounds__(kThreads) split_sm90(
     l_s[warp * 8 + g] = l;
   }
   __syncthreads();
-  const size_t slot = (static_cast<size_t>(b) * KH + kh) * gridDim.z + s;
-  for (int i = threadIdx.x; i < rep * D; i += kThreads) {
-    const int r = i / D;
-    const int d = i - r * D;
+  if (tid < rep) {
+    const int r = tid;
     float m = m_s[r];
 #pragma unroll
     for (int w = 1; w < kWarps; ++w) m = fmaxf(m, m_s[w * 8 + r]);
+    float sum = 0.f;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const float e = expf(m_s[w * 8 + r] - m);
+      w_s[w * 8 + r] = e;
+      sum += l_s[w * 8 + r] * e;
+    }
+    rm_s[r] = m;
+    rl_s[r] = sum;
+  }
+  __syncthreads();
+  const bool alone = vis.splits == 1;   // normalise in place
+  const size_t first = (static_cast<size_t>(b) * KH + kh) * gridDim.z;
+  float* acc_out = part_acc + (first + s) * rep * D;
+  for (int i = tid; i < rep * D; i += kThreads) {
+    const int r = i / D;
+    const int d = i - r * D;
     float acc = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w)
       acc += reinterpret_cast<const float*>(
                  k_s + w * KW * G::kRowBytes)[r * G::kOStride + d] *
-             expf(m_s[w * 8 + r] - m);
-    part_acc[(slot * rep + r) * D + d] = acc;
-    if (d == 0) {
-      float sum = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w)
-        sum += l_s[w * 8 + r] * expf(m_s[w * 8 + r] - m);
-      part_m[slot * rep + r] = m;
-      part_l[slot * rep + r] = sum;
-    }
+             w_s[w * 8 + r];
+    if (alone)
+      ob[i] = __float2bfloat16(acc / fmaxf(rl_s[r], 1e-30f));
+    else
+      acc_out[i] = acc;
   }
+  if (alone) return;
+  if (tid < rep) {
+    part_m[(first + s) * rep + tid] = rm_s[tid];
+    part_l[(first + s) * rep + tid] = rl_s[tid];
+  }
+  merge_tail<bf16, D>(part_acc, part_m, part_l,
+                      counters + static_cast<size_t>(b) * KH + kh, first,
+                      vis.splits, rep, ob, reinterpret_cast<float*>(k_s));
 }
 
-template <int D, int KW>
+template <typename P, int D, int KW>
 cudaError_t launch_sm90(const void* q, const void* pages_k,
-                        const void* pages_v, const void* page_table,
+                        const void* pages_v, const void* scales_k,
+                        const void* scales_v, const void* page_table,
                         const void* positions, void* out, void* part_acc,
-                        void* part_m, void* part_l, int B, int H, int KH,
-                        int n_pages, int Pg, int max_pages,
+                        void* part_m, void* part_l, void* counters, int B,
+                        int H, int KH, int n_pages, int Pg, int max_pages,
                         cudaStream_t stream) {
-  using G = Sm90Split<D, KW>;
+  using G = Sm90Split<P, D, KW>;
   cudaError_t err = cudaFuncSetAttribute(
-      split_sm90<D, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      split_sm90<P, D, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       G::kSmem);
   if (err != cudaSuccess) return err;
   const int n_splits = (max_pages * Pg + G::kKeys - 1) / G::kKeys;
-  split_sm90<D, KW><<<dim3(B, KH, n_splits), kThreads, G::kSmem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(pages_k),
-      static_cast<const bf16*>(pages_v), static_cast<const int*>(page_table),
-      static_cast<const int*>(positions), static_cast<float*>(part_acc),
-      static_cast<float*>(part_m), static_cast<float*>(part_l), H, KH,
-      n_pages, Pg, max_pages, 1.0f / sqrtf(static_cast<float>(D)));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  merge_kernel<bf16><<<dim3(B, KH), kThreads, 0, stream>>>(
-      static_cast<const float*>(part_acc), static_cast<const float*>(part_m),
-      static_cast<const float*>(part_l), static_cast<const int*>(positions),
-      static_cast<bf16*>(out), H, KH, D, max_pages * Pg, G::kKeys, n_splits);
+  split_sm90<P, D, KW>
+      <<<dim3(B, KH, n_splits), kThreads, G::kSmem, stream>>>(
+          static_cast<const bf16*>(q), static_cast<const P*>(pages_k),
+          static_cast<const P*>(pages_v),
+          static_cast<const float*>(scales_k),
+          static_cast<const float*>(scales_v),
+          static_cast<const int*>(page_table),
+          static_cast<const int*>(positions), static_cast<bf16*>(out),
+          static_cast<float*>(part_acc), static_cast<float*>(part_m),
+          static_cast<float*>(part_l), static_cast<int*>(counters), H, KH,
+          n_pages, Pg, max_pages, 1.0f / sqrtf(static_cast<float>(D)));
   return cudaGetLastError();
 }
 
-// bf16 K1 at head_dim D and `split` keys per block (64, 128 or 256:
-// 16, 32 or 64 keys per warp); anything else is cudaErrorInvalidValue.
-template <int D>
-cudaError_t launch_bf16_sm90(const void* q, const void* pages_k,
-                             const void* pages_v, const void* page_table,
-                             const void* positions, void* out,
-                             void* part_acc, void* part_m, void* part_l,
-                             int B, int H, int KH, int n_pages, int Pg,
-                             int max_pages, int split, cudaStream_t stream) {
-#define RTT_SM90(KW)                                                       \
-  return launch_sm90<D, KW>(q, pages_k, pages_v, page_table, positions,   \
-                            out, part_acc, part_m, part_l, B, H, KH,      \
-                            n_pages, Pg, max_pages, stream)
+// bf16 q over pages of type P at head_dim D and `split` keys per block
+// (64, 128 or 256: 16, 32 or 64 keys per warp); anything else is
+// cudaErrorInvalidValue. scales_k / scales_v are read for int8 pages
+// only.
+template <typename P, int D>
+cudaError_t launch_split_sm90(const void* q, const void* pages_k,
+                              const void* pages_v, const void* scales_k,
+                              const void* scales_v, const void* page_table,
+                              const void* positions, void* out,
+                              void* part_acc, void* part_m, void* part_l,
+                              void* counters, int B, int H, int KH,
+                              int n_pages, int Pg, int max_pages, int split,
+                              cudaStream_t stream) {
+#define RTT_SM90(KW)                                                      \
+  return launch_sm90<P, D, KW>(q, pages_k, pages_v, scales_k, scales_v,  \
+                               page_table, positions, out, part_acc,     \
+                               part_m, part_l, counters, B, H, KH,       \
+                               n_pages, Pg, max_pages, stream)
   if (split == 64) RTT_SM90(16);
   if (split == 128) RTT_SM90(32);
   if (split == 256) RTT_SM90(64);

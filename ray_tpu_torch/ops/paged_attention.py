@@ -15,13 +15,13 @@ Layout contract (matches models/kv_cache.py):
 ``paged_decode_attention`` launches a hand-written CUDA kernel for
 tensors on a CUDA device — K1 (csrc/paged_decode_attention.cu), the
 Hopper counterpart of the TPU kernel
-``ray_tpu/ops/paged_attention.py::_kernel``, for fp pages (bf16 on the
-tensor cores, csrc/paged_decode_attention_sm90.cuh; fp32 on the scalar
-template, csrc/paged_decode_attention.cuh), and K2
+``ray_tpu/ops/paged_attention.py::_kernel``, for fp pages, and K2
 (csrc/paged_decode_attention_int8.cu), the counterpart of
-``_kernel_q``, for int8 pages with their scales — and runs the plain
-PyTorch version, ``paged_decode_attention_reference``, for tensors on
-the CPU. Nothing else is taken: a CUDA tensor the kernel does not
+``_kernel_q``, for int8 pages with their scales: bf16 q on the tensor
+cores (csrc/paged_decode_attention_sm90.cuh), fp32 q on the scalar
+template (csrc/paged_decode_attention.cuh), one launch per call that
+also merges the splits — and runs the plain PyTorch version,
+``paged_decode_attention_reference``, for tensors on the CPU. Nothing else is taken: a CUDA tensor the kernel does not
 accept raises. K1 counts its launches in
 ``paged_decode_attention.launches``, K2 in
 ``paged_decode_attention.launches_int8``.
@@ -42,20 +42,20 @@ _QMAX = 127.0
 
 _SOURCE = "paged_decode_attention.cu"             # K1
 _SOURCE_INT8 = "paged_decode_attention_int8.cu"   # K2
-# bf16 K1's tensor-core split pass, included by _SOURCE
+# the tensor-core split pass of bf16 K1 and bf16-q K2, included by both
 _SOURCE_SM90 = "paged_decode_attention_sm90.cuh"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8
-# keys per block of the scalar split-K pass (fp32 K1, K2): 16 slots x 4
-# kv heads at ~1k keys fill the 132 SMs with ~500 blocks
+# keys per block of the scalar split-K pass (fp32 K1, fp32-q K2): 16
+# slots x 4 kv heads at ~1k keys fill the 132 SMs with ~500 blocks
 _SPLIT_KEYS = 128
-# the split sizes bf16 K1's tensor-core pass is built for (4 warps of
-# 16, 32 or 64 keys), and the one it runs: the merge pass walks each
-# slot's splits serially, so fewer, larger splits take less time in all
-# at the TinyLlama decode shape (tools/torch_decode_profile.py's sweep)
+# the split sizes the tensor-core pass is built for (4 warps of 16, 32
+# or 64 keys), and the one each bf16 kernel runs, the fastest at the
+# TinyLlama decode shape in tools/torch_decode_profile.py's sweep
 _BF16_SPLITS = (64, 128, 256)
-_SPLIT_KEYS_BF16 = 256
+_SPLIT_KEYS_BF16 = 256        # K1
+_SPLIT_KEYS_INT8 = 256        # K2, bf16 q
 
 
 class PagedShapeError(ValueError):
@@ -352,10 +352,28 @@ def load_kernel(int8: bool = False) -> ctypes.CDLL:
 
 def split_keys_for(dtype, quantized: bool) -> int:
     """Keys per block of the split-K pass that ``paged_decode_attention``
-    runs for q (and page) dtype ``dtype``."""
-    if dtype == torch.bfloat16 and not quantized:
-        return _SPLIT_KEYS_BF16
+    runs for q dtype ``dtype`` over fp (K1) or int8 (K2) pages."""
+    if dtype == torch.bfloat16:
+        return _SPLIT_KEYS_INT8 if quantized else _SPLIT_KEYS_BF16
     return _SPLIT_KEYS
+
+
+# one int32 counter per (slot, kv head) for each (device, stream): the
+# kernel's split blocks draw tickets on it to find the one that merges,
+# and that block leaves it at 0 again. Calls on one stream run in order,
+# so they share it; two streams must not.
+_COUNTERS = {}
+
+
+def _counters(device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed counters for ``stream`` on ``device``:
+    zeroed once, when allocated or grown, never per call."""
+    key = (device, stream)
+    c = _COUNTERS.get(key)
+    if c is None or c.numel() < n:
+        c = _COUNTERS[key] = torch.zeros(n, dtype=torch.int32,
+                                         device=device)
+    return c
 
 
 def _launch_kernel(q, pages_k, pages_v, page_table, positions,
@@ -368,23 +386,24 @@ def _launch_kernel(q, pages_k, pages_v, page_table, positions,
     quantized = scales_k is not None
     if split_keys is None:
         split_keys = split_keys_for(q.dtype, quantized)
-    if q.dtype == torch.bfloat16 and not quantized \
-            and split_keys not in _BF16_SPLITS:
-        raise ValueError(f"bf16 K1 takes split_keys in {_BF16_SPLITS}, "
-                         f"not {split_keys}")
+    if q.dtype == torch.bfloat16 and split_keys not in _BF16_SPLITS:
+        raise ValueError(f"bf16 K1 and K2 take split_keys in "
+                         f"{_BF16_SPLITS}, not {split_keys}")
     lib = load_kernel(int8=quantized)
     B, H, D = q.shape
     KH, n_pages, Pg, _ = pages_k.shape
     max_pages = page_table.shape[1]
     n_splits = -(-max_pages * Pg // split_keys)
     out = torch.empty_like(q)
-    # per-split partial results, merged by the kernel's second pass
+    # per-split partial results, merged by the split block that ends
+    # last
     part_acc = torch.empty((B, KH, n_splits, H // KH, D),
                            dtype=torch.float32, device=q.device)
     part_ml = torch.empty((2, B, KH, n_splits, H // KH),
                           dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        counters = _counters(q.device, stream, B * KH)
         ptrs = [q.data_ptr(), pages_k.data_ptr(), pages_v.data_ptr()]
         if quantized:
             launch = lib.paged_decode_attention_int8_launch
@@ -394,8 +413,9 @@ def _launch_kernel(q, pages_k, pages_v, page_table, positions,
         err = launch(
             *ptrs, page_table.data_ptr(), positions.data_ptr(),
             out.data_ptr(), part_acc.data_ptr(), part_ml[0].data_ptr(),
-            part_ml[1].data_ptr(), B, H, KH, D, n_pages, Pg, max_pages,
-            split_keys, _DTYPE_CODES[q.dtype], stream)
+            part_ml[1].data_ptr(), counters.data_ptr(), B, H, KH, D,
+            n_pages, Pg, max_pages, split_keys, _DTYPE_CODES[q.dtype],
+            stream)
     kernel = "K2" if quantized else "K1"
     if err:
         raise RuntimeError(
@@ -416,7 +436,7 @@ def paged_decode_attention(q, pages_k, pages_v, page_table, positions,
 
     On a CUDA tensor this launches K1 (fp pages; adds one to
     ``paged_decode_attention.launches``) or K2 (int8 pages with scales,
-    dequantized in registers; adds one to
+    which no fp copy of the pool ever holds; adds one to
     ``paged_decode_attention.launches_int8``); it raises if the kernel
     does not take the inputs (dtype, head_dim, group size, contiguity,
     scale shape) or if the launch fails. On a CPU tensor it runs
@@ -450,12 +470,12 @@ paged_decode_attention.launches_int8 = 0     # K2
 def _bind(lib: ctypes.CDLL) -> None:
     """argtypes/restype of K1's C entries (run once, when _build loads
     the library)."""
-    _bind_entries(lib, lib.paged_decode_attention_launch, 9)
+    _bind_entries(lib, lib.paged_decode_attention_launch, 10)
 
 
 def _bind_int8(lib: ctypes.CDLL) -> None:
     """The same for K2's library, whose launch also takes the scales."""
-    _bind_entries(lib, lib.paged_decode_attention_int8_launch, 11)
+    _bind_entries(lib, lib.paged_decode_attention_int8_launch, 12)
 
 
 def _bind_entries(lib: ctypes.CDLL, launch, n_ptrs: int) -> None:

@@ -12,7 +12,10 @@ version sum in different orders, and the kernel multiplies q by
 1/sqrt(D) before the dot product), for K1 and for K2 (int8 pages,
 dequantized in the same order by both); bf16 inputs 4e-3 abs plus 2^-7 rel
 (both compute in fp32 and round the output to bf16 once, so they may
-differ by one bf16 ulp, at most 2^-7 of the value).
+differ by one bf16 ulp, at most 2^-7 of the value; the tensor-core pass
+of bf16 K1 and bf16-q K2 also rounds P to bf16, within the same limit,
+as tests/test_torch_paged_attention.py's emulation of its rounding
+shows against the JAX kernel on the CPU).
 
 Flash attention (K3 forward, K4 dQ, K5 dK/dV): fp32 (the scalar
 kernels) within 1e-4 abs and rel of the plain versions; bf16 (K3, K4
@@ -122,10 +125,12 @@ def test_tinyllama_decode_shape_bf16(dev):
 
 def _split_passes(names) -> dict:
     """How many of the profiler's device-kernel ``names`` are each
-    decode split pass: bf16 K1's tensor-core split_sm90, the scalar
-    split_kernel over bf16, fp32 and int8 pages."""
+    decode split pass: the tensor-core split_sm90 over bf16 pages (bf16
+    K1) and over int8 pages (bf16-q K2), the scalar split_kernel over
+    bf16, fp32 and int8 pages."""
     return {
-        "sm90": sum("::split_sm90<" in n for n in names),
+        "sm90": sum("::split_sm90<__nv_bfloat16" in n for n in names),
+        "sm90_int8": sum("::split_sm90<signed char" in n for n in names),
         "scalar_bf16": sum("::split_kernel<__nv_bfloat16, __nv_bfloat16"
                            in n for n in names),
         "scalar_fp32": sum("::split_kernel<float, float" in n
@@ -209,21 +214,60 @@ def test_bf16_k1_refuses_other_split_sizes(dev):
 
 
 def test_k1_passes_by_dtype(dev):
-    """bf16 K1 runs the tensor-core pass and never the scalar bf16
-    template; fp32 K1 and K2 (fp32 and bf16 q) run the scalar one (the
-    profiler's device-kernel names), each with one merge pass."""
+    """bf16 K1 runs the tensor-core pass over bf16 pages and bf16-q K2
+    the one over int8 pages, never a scalar bf16-q template; fp32 K1
+    and fp32-q K2 run the scalar one (the profiler's device-kernel
+    names). Each call is that one launch: the splits merge inside it,
+    and no merge kernel runs."""
     cases = {
         "sm90": _layout(23, 4, 16, 2, 64, 16, 8, 40, torch.bfloat16, dev),
         "scalar_fp32": _layout(24, 4, 16, 2, 64, 16, 8, 40, torch.float32,
                                dev),
-        "scalar_int8": _layout(25, 4, 16, 2, 64, 16, 8, 40, torch.bfloat16,
+        "sm90_int8": _layout(25, 4, 16, 2, 64, 16, 8, 40, torch.bfloat16,
+                             dev, int8=True),
+        "scalar_int8": _layout(25, 4, 16, 2, 64, 16, 8, 40, torch.float32,
                                dev, int8=True)}
     for want, args in cases.items():
         names = _device_kernel_names(
             lambda: pa.paged_decode_attention(*args))
         count = _split_passes(names)
         assert count == {k: int(k == want) for k in count}, (want, names)
-        assert sum("::merge_kernel<" in n for n in names) == 1
+        assert not any("merge_kernel" in n for n in names), names
+        assert len(names) == 1, names
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("int8", [False, True], ids=["K1", "K2"])
+def test_repeated_calls_are_bitwise_identical(dev, int8, dtype):
+    """Whichever split block of a slot ends last merges its splits, in
+    a fixed order: three calls on the same inputs give the same bits,
+    at the decode shape with many live splits."""
+    args = _layout(27, 16, 32, 4, 64, 64, 32, 513, dtype, dev, int8=int8)
+    outs = [pa.paged_decode_attention(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    for out in outs[1:]:
+        assert torch.equal(out, outs[0])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("int8", [False, True], ids=["K1", "K2"])
+def test_merge_of_many_splits_matches_plain(dev, int8, dtype):
+    """A 16,384-key window: with the smallest split each kernel takes,
+    slots of 1 to 256 live splits, past the splits whose weights the
+    merge keeps in shared memory (64) and over many rounds of loads."""
+    split = 64 if dtype == torch.bfloat16 else pa._SPLIT_KEYS
+    positions = [16383, 9000, 64 * split - 1, 64 * split, 8 * split,
+                 8 * split - 1, 9 * split, 0]
+    args = _layout(28, len(positions), 8, 2, 64, 64, 256,
+                   256 * len(positions) + 1, dtype, dev,
+                   positions=positions, int8=int8)
+    out = pa._launch_kernel(*args[:5], split_keys=split,
+                            scales_k=args[5] if int8 else None,
+                            scales_v=args[6] if int8 else None)
+    ref = pa.paged_decode_attention_reference(*args)
+    tol = (dict(rtol=2.0 ** -7, atol=4e-3) if dtype == torch.bfloat16
+           else dict(rtol=1e-4, atol=1e-4))
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
 
 
 def test_bf16_k1_counts_one_launch_per_call(dev):
@@ -357,6 +401,77 @@ def test_k2_tinyllama_decode_shape_bf16(dev):
     assert out.dtype == torch.bfloat16
     torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
                                atol=4e-3)
+
+
+def _contrast_scales(args):
+    """K2's inputs with the scales of every slot's odd logical pages
+    times 1e-6, so neighbouring pages' scales differ by 10^6 and a key
+    read with another page's scale shows."""
+    q, pk, pv, pt, pos, sk, sv = args
+    odd = pt[:, 1::2].reshape(-1).long()
+    odd = odd[odd > 0]
+    sk, sv = sk.clone(), sv.clone()
+    sk[:, odd] *= 1e-6
+    sv[:, odd] *= 1e-6
+    return q, pk, pv, pt, pos, sk, sv
+
+
+@pytest.mark.parametrize("Pg", [8, 16, 64])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_bf16_k2_tensor_core_pass_matches_plain(dev, rep, D, Pg):
+    """bf16-q K2 (the tensor-core pass over int8 pages) against the
+    plain version: windows of one key, ending on each side of a split
+    boundary and filling the page table, beyond it (clipped), a slot
+    with no visible key, a row of null pages, and random ones; scales
+    10^6 apart between neighbouring pages."""
+    split, L = pa._SPLIT_KEYS_INT8, 4 * pa._SPLIT_KEYS_INT8
+    positions = [0, split - 1, split, split + 1, L - 1, L + 40, -1, 0,
+                 2 * split + 5, 77]
+    args = _contrast_scales(_layout(
+        300 + rep * 10 + D + Pg, len(positions), 2 * rep, 2, D, Pg,
+        L // Pg, len(positions) * (L // Pg) + 1, torch.bfloat16, dev,
+        positions=positions, null_rows=(7, 9), int8=True))
+    out = pa.paged_decode_attention(*args)
+    torch.cuda.synchronize()
+    ref = pa.paged_decode_attention_reference(*args)
+    assert out.dtype == torch.bfloat16
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=4e-3)
+    assert bool((out[6] == 0).all())     # no visible key: zeros
+    # one key: that key's dequantized value, within two bf16 roundings
+    # (P * s_v / 127, then the output)
+    _q, _pk, pv, pt, _pos, _sk, sv = args
+    page = pt[0, 0].long()
+    first = pv[:, page, 0].float() * (sv[:, page] / 127.0)
+    torch.testing.assert_close(out[0].float(),
+                               first.repeat_interleave(rep, 0),
+                               rtol=2.0 ** -7, atol=0)
+
+
+@pytest.mark.parametrize("split", [64, 128, 256])
+def test_bf16_k2_every_split_size_matches_plain(dev, split):
+    """The split sizes the tensor-core pass is built for, over int8
+    pages at the TinyLlama decode shape, split boundaries included."""
+    positions = [0, split - 1, split, split + 1, 3 * split - 1,
+                 3 * split, 2047, 1000, 17, 64, 63, 65, 500, 1500, 1999,
+                 128]
+    args = _contrast_scales(_layout(
+        31, 16, 32, 4, 64, 64, 32, 513, torch.bfloat16, dev,
+        positions=positions, int8=True))
+    out = pa._launch_kernel(*args[:5], split_keys=split, scales_k=args[5],
+                            scales_v=args[6])
+    ref = pa.paged_decode_attention_reference(*args)
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2.0 ** -7,
+                               atol=4e-3)
+
+
+def test_bf16_k2_refuses_other_split_sizes(dev):
+    args = _layout(32, 2, 8, 2, 64, 8, 4, 16, torch.bfloat16, dev,
+                   int8=True)
+    with pytest.raises(ValueError, match="split_keys"):
+        pa._launch_kernel(*args[:5], split_keys=96, scales_k=args[5],
+                          scales_v=args[6])
 
 
 def test_k2_counts_its_own_launches(dev):

@@ -241,38 +241,49 @@ def test_build_names_libraries_by_content():
 
 
 def test_build_digest_covers_the_shared_header(tmp_path, monkeypatch):
-    """K1 and K2 are built from two sources that include one header: an
-    edit to the header alone must name a new library for each, so a
-    stale build is never loaded."""
+    """K1 and K2 are built from two sources that include both headers
+    (the scalar pass with the merge, and the tensor-core pass): an edit
+    to either header alone must name a new library for each, so a stale
+    build is never loaded."""
     for name in (tpa._SOURCE, tpa._SOURCE_INT8,
-                 "paged_decode_attention.cuh"):
+                 "paged_decode_attention.cuh", tpa._SOURCE_SM90):
         (tmp_path / name).write_bytes((_build.CSRC / name).read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     before = [_build.library_path(s)
               for s in (tpa._SOURCE, tpa._SOURCE_INT8)]
     assert before[0].name.startswith("paged_decode_attention-")
     assert before[1].name.startswith("paged_decode_attention_int8-")
-    header = tmp_path / "paged_decode_attention.cuh"
-    header.write_text(header.read_text() + "\n// edited\n")
-    after = [_build.library_path(s)
-             for s in (tpa._SOURCE, tpa._SOURCE_INT8)]
-    assert before[0] != after[0] and before[1] != after[1]
+    for header in ("paged_decode_attention.cuh", tpa._SOURCE_SM90):
+        path = tmp_path / header
+        path.write_text(path.read_text() + "\n// edited\n")
+        after = [_build.library_path(s)
+                 for s in (tpa._SOURCE, tpa._SOURCE_INT8)]
+        assert before[0] != after[0] and before[1] != after[1], header
+        before = after
 
 
 def test_bf16_k1_takes_only_its_split_sizes():
-    """The bf16 tensor-core pass is built for 64-, 128- and 256-key
-    splits: any other size raises before anything is built or
-    launched (the checks run on CPU tensors)."""
+    """The bf16 tensor-core pass (bf16 K1, and K2 with bf16 q over int8
+    pages) is built for 64-, 128- and 256-key splits: any other size
+    raises before anything is built or launched (the checks run on CPU
+    tensors)."""
     a = _kernel_args(q=torch.zeros(2, 8, 64, dtype=torch.bfloat16),
                      pages_k=torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),
                      pages_v=torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16))
     assert tpa.split_keys_for(torch.bfloat16, False) == \
         tpa._SPLIT_KEYS_BF16 in tpa._BF16_SPLITS
-    # fp32 K1 and K2 (bf16 q over int8 pages) keep the scalar split
+    assert tpa.split_keys_for(torch.bfloat16, True) == \
+        tpa._SPLIT_KEYS_INT8 in tpa._BF16_SPLITS
+    # fp32 K1 and fp32-q K2 keep the scalar split
     assert tpa.split_keys_for(torch.float32, False) == tpa._SPLIT_KEYS
-    assert tpa.split_keys_for(torch.bfloat16, True) == tpa._SPLIT_KEYS
+    assert tpa.split_keys_for(torch.float32, True) == tpa._SPLIT_KEYS
     with pytest.raises(ValueError, match="split_keys"):
         tpa._launch_kernel(**a, split_keys=96)
+    i8 = torch.zeros(2, 4, 8, 64, dtype=torch.int8)
+    scales = torch.ones(2, 4, 1)
+    with pytest.raises(ValueError, match="split_keys"):
+        tpa._launch_kernel(a["q"], i8, i8, a["page_table"], a["positions"],
+                           96, scales, scales)
 
 
 def test_bf16_k1_source_is_the_tensor_core_pass():
@@ -307,20 +318,146 @@ def test_build_digest_covers_the_sm90_header(tmp_path, monkeypatch):
 
 
 def test_ptxas_summary_names_both_template_ints():
-    """Phase 1 of chip_smoke.py reads K1's ptxas report for each
-    split_sm90<D, KW> instance (head_dim, keys per warp)."""
-    fn = ("_ZN12_GLOBAL__N_110split_sm90ILi{}ELi{}EEEvPK13__nv_bfloat16"
-          "S3_S3_PKiS5_PfS6_S6_iiiiif")
+    """Phase 1 of chip_smoke.py reads K1's and K2's ptxas reports for
+    each split_sm90<P, D, KW> instance (page type, head_dim, keys per
+    warp): the bf16 and int8 instances are told apart, and a template
+    of ints alone is still named by its ints."""
+    sig = "EEEvPK13__nv_bfloat16PKT_S6_PKfS8_PKiSA_PS3_PfSC_SC_Piiiiiif"
     report = "".join(
-        f"ptxas info    : Compiling entry function '{fn.format(d, kw)}' "
-        f"for 'sm_90a'\n"
-        f"ptxas info    : Function properties for {fn.format(d, kw)}\n"
+        f"ptxas info    : Compiling entry function '{fn}' for 'sm_90a'\n"
+        f"ptxas info    : Function properties for {fn}\n"
         f"    0 bytes stack frame, {spill} bytes spill stores, {spill} "
         f"bytes spill loads\n"
         f"ptxas info    : Used {regs} registers, used 1 barriers\n"
-        for d, kw, regs, spill in ((64, 32, 90, 0), (128, 64, 168, 8)))
-    assert _build.ptxas_summary(report, ("split_sm90",)) == {
-        "split_sm90<64, 32>": {"registers": 90, "spill_stores": 0,
-                               "spill_loads": 0, "warnings": []},
-        "split_sm90<128, 64>": {"registers": 168, "spill_stores": 8,
-                                "spill_loads": 8, "warnings": []}}
+        for fn, regs, spill in (
+            ("_ZN12_GLOBAL__N_110split_sm90I13__nv_bfloat16Li64ELi64"
+             + sig, 96, 0),
+            ("_ZN12_GLOBAL__N_110split_sm90IaLi64ELi64" + sig, 90, 0),
+            ("_ZN12_GLOBAL__N_110split_sm90IaLi128ELi16" + sig, 168, 8),
+            ("_ZN12_GLOBAL__N_18fwd_sm90ILi64EEEvPK13__nv_bfloat16",
+             120, 0)))
+    assert _build.ptxas_summary(report, ("split_sm90", "fwd_sm90")) == {
+        "split_sm90<__nv_bfloat16, 64, 64>": {
+            "registers": 96, "spill_stores": 0, "spill_loads": 0,
+            "warnings": []},
+        "split_sm90<int8_t, 64, 64>": {
+            "registers": 90, "spill_stores": 0, "spill_loads": 0,
+            "warnings": []},
+        "split_sm90<int8_t, 128, 16>": {
+            "registers": 168, "spill_stores": 8, "spill_loads": 8,
+            "warnings": []},
+        "fwd_sm90<64>": {"registers": 120, "spill_stores": 0,
+                         "spill_loads": 0, "warnings": []}}
+
+
+def test_k2_source_sends_bf16_q_to_the_tensor_core_pass():
+    """K2's library sends bf16 q (dtype 1) to split_sm90 over int8
+    pages and fp32 q to the scalar template, with no scalar bf16-q
+    instance left; the tensor-core pass widens int8 to bf16 and runs
+    mma.sync; every split pass ends in merge_tail, and no separate
+    merge kernel is left in csrc/."""
+    cu = (_build.CSRC / tpa._SOURCE_INT8).read_text()
+    sm90 = (_build.CSRC / tpa._SOURCE_SM90).read_text()
+    cuh = (_build.CSRC / "paged_decode_attention.cuh").read_text()
+    assert '#include "paged_decode_attention_sm90.cuh"' in cu
+    assert re.search(r"dtype == 1 && D == 64\) RTT_LAUNCH_SM90", cu)
+    assert re.search(r"dtype == 1 && D == 128\) RTT_LAUNCH_SM90", cu)
+    assert "launch_split_sm90<int8_t" in cu
+    assert re.search(r"dtype == 0 && D == 64\) RTT_LAUNCH\(float", cu)
+    assert "launch<T, int8_t" in cu
+    assert "__nv_bfloat16" not in cu       # no scalar bf16-q instance
+    assert re.search(r"template <typename P, int D, int KW>\s*"
+                     r"__global__[^;{]*\bsplit_sm90\(", sm90)
+    for text in ("widen_rows<G>(k_s", "widen_rows<G>(v_s",
+                 "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32"):
+        assert text in sm90, text
+    for src in (sm90, cuh):
+        assert src.count("merge_tail<") == 1
+    for path in _build.CSRC.glob("paged_decode_attention*"):
+        assert "merge_kernel" not in path.read_text(), path.name
+
+
+# ------------------------------- the int8 tensor-core pass's rounding
+
+
+def _emulate_int8_tensor_core_pass(q, pk, pv, pt, pos, sk, sv, split):
+    """The arithmetic of split_sm90<int8_t, D, split / 4> and its merge
+    in plain torch, at each of its rounding points: q in bf16, q8
+    widened to bf16 exactly, S = (q . q8) in fp32 scaled per key by
+    s_k / 127 / sqrt(D) after the product; each warp's softmax over its
+    split / 4 keys with the max floored at -1e29, l over the unrounded
+    P, P * s_v / 127 rounded to bf16 before PV; the 4 warps merged, then
+    the live splits merged in split order; bf16 out. Test-only."""
+    B, H, D = q.shape
+    KH, _, Pg, _ = pk.shape
+    rep, L, kw = H // KH, pt.shape[1] * Pg, split // 4
+    ptl = pt.long()
+    k8 = pk[:, ptl].reshape(KH, B, L, D).to(torch.bfloat16).float()
+    v8 = pv[:, ptl].reshape(KH, B, L, D).to(torch.bfloat16).float()
+    ks = (sk[:, ptl, 0] * (1.0 / 127.0) * (1.0 / np.sqrt(D))).float()
+    vs = (sv[:, ptl, 0] * (1.0 / 127.0)).float()
+    ks = ks.repeat_interleave(Pg, dim=2)                   # [KH, B, L]
+    vs = vs.repeat_interleave(Pg, dim=2)
+    qf = q.to(torch.bfloat16).float().reshape(B, KH, rep, D)
+    out = torch.zeros(B, KH, rep, D)
+
+    def merge(parts):   # [(m, l, o)] in order -> (M, L, O)
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        w = [torch.exp(p[0] - m) for p in parts]
+        return (m, sum(p[1] * wi for p, wi in zip(parts, w)),
+                sum(p[2] * wi[:, None] for p, wi in zip(parts, w)))
+
+    for b in range(B):
+        n = min(int(pos[b]) + 1, L)
+        for kh in range(KH):
+            splits = []
+            for k0 in range(0, max(n, 0), split):
+                warps = []
+                for w0 in range(k0, k0 + split, kw):
+                    keys = torch.arange(w0, w0 + kw)
+                    s = (qf[b, kh] @ k8[kh, b, w0:w0 + kw].T) * \
+                        ks[kh, b, w0:w0 + kw]
+                    s = torch.where(keys < n, s, torch.tensor(-1e30))
+                    m = s.amax(-1).clamp(min=-1e29)
+                    p = torch.exp(s - m[:, None])
+                    pb = (p * vs[kh, b, w0:w0 + kw]).to(torch.bfloat16)
+                    warps.append((m, p.sum(-1),
+                                  pb.float() @ v8[kh, b, w0:w0 + kw]))
+                splits.append(merge(warps))
+            if splits:
+                _, l, o = merge(splits) if len(splits) > 1 else splits[0]
+                out[b, kh] = o / l.clamp(min=1e-30)[:, None]
+    return out.reshape(B, H, D).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("Pg", [16, 64])
+@pytest.mark.parametrize("rep", [1, 4, 8])
+def test_int8_tensor_core_rounding_within_bf16_limit(rep, Pg):
+    """The int8 tensor-core pass's rounding points, emulated, against
+    the JAX kernel _kernel_q in interpret mode (bf16 q, the served
+    dtype): within the card tests' bf16 limit, 4e-3 + 2^-7 * |ref|, with
+    windows on each side of the 64-key split boundaries, one key, no
+    visible key and past the window."""
+    rng = np.random.default_rng(40 + rep + Pg)
+    B, KH, D, split, L = 6, 2, 64, 64, 256
+    max_pages = L // Pg
+    n_pages = B * max_pages + 1
+    pk, pv = (rng.integers(-127, 128, (KH, n_pages, Pg, D)).astype(np.int8)
+              for _ in range(2))
+    sk, sv = (rng.uniform(0.1, 2.0, (KH, n_pages, 1)).astype(np.float32)
+              for _ in range(2))
+    pt = (rng.permutation(n_pages - 1)[:B * max_pages] + 1).reshape(
+        B, max_pages).astype(np.int32)
+    pos = np.array([0, split - 1, split, 3 * split + 5, -1, L + 9],
+                   np.int32)
+    q = rng.standard_normal((B, KH * rep, D)).astype(np.float32)
+    q16 = torch.from_numpy(q).to(torch.bfloat16)
+    ref = np.asarray(jpa.paged_decode_attention(
+        jnp.asarray(q16.float().numpy(), jnp.bfloat16), jnp.asarray(pk),
+        jnp.asarray(pv), jnp.asarray(pt), jnp.asarray(pos),
+        jnp.asarray(sk), jnp.asarray(sv), interpret=True), np.float32)
+    emu = _emulate_int8_tensor_core_pass(
+        q16, *map(torch.from_numpy, (pk, pv, pt, pos, sk, sv)), split)
+    np.testing.assert_allclose(emu.float().numpy(), ref, rtol=2.0 ** -7,
+                               atol=4e-3)
+    assert not emu[4].any()                  # no visible key: zeros

@@ -14,9 +14,9 @@ and power limit:
    at the TinyLlama-1.1B decode shape (16 slots, 32 q / 4 kv heads,
    head_dim 64, 64-token pages, bf16 q, positions drawn over the
    2048-token window) for each split size in ``--split-keys``: median
-   time over 50 launches, CUDA events, L2 flushed before each; and the
-   median device time of its split pass and of its merge pass apart,
-   under torch.profiler.
+   time over 50 launches, CUDA events, L2 flushed before each; and,
+   under torch.profiler, the median device time of its one launch (the
+   split pass, which also merges the splits).
 2. One decode step of TinyLlama-1.1B at 16 slots (the engine's decode
    body: a single-token forward over the paged pool — its append and
    its decode kernel — plus the greedy pick), ``--steps`` times under
@@ -60,7 +60,7 @@ def _card() -> str:
 
 def kernel_split_sweep(splits, seed: int, kv_dtype: str) -> tuple:
     """{split: {"ms", "max_abs_err"}} at the decode shape, and a function
-    that adds each split's "split_pass_us" and "merge_pass_us"."""
+    that adds each split's "pass_us"."""
     g = np.random.default_rng(seed)
     B, H, KH, D, Pg, mp = 16, 32, 4, 64, 64, 32
     n_pages = B * mp + 1
@@ -111,8 +111,8 @@ def kernel_split_sweep(splits, seed: int, kv_dtype: str) -> tuple:
                       "max_abs_err": err}
 
     def passes():
-        """The split and merge passes apart, under torch.profiler: run
-        after every wall time is taken, since a process that has run a
+        """The kernel's device time under torch.profiler: run after
+        every wall time is taken, since a process that has run a
         profiler session launches kernels at a higher host cost."""
         for split in splits:
             out[split].update(_pass_us(lambda: pa._launch_kernel(
@@ -121,9 +121,9 @@ def kernel_split_sweep(splits, seed: int, kv_dtype: str) -> tuple:
 
 
 def _pass_us(launch, flush, n: int = 10) -> dict:
-    """Median device time of the decode kernel's split pass and of its
-    merge pass, per launch (us), under torch.profiler over ``n``
-    launches, each behind an L2 flush."""
+    """Median device time (us) of the decode kernel's split pass, which
+    also merges the splits, under torch.profiler over ``n`` calls, each
+    behind an L2 flush."""
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -131,16 +131,10 @@ def _pass_us(launch, flush, n: int = 10) -> dict:
             flush.zero_()
             launch()
         torch.cuda.synchronize()
-    times = {"split_pass_us": [], "merge_pass_us": []}
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        key = ("merge_pass_us" if "::merge_kernel<" in e.name else
-               "split_pass_us" if "::split_" in e.name else None)
-        if key:
-            times[key].append(e.device_time_total)
-    return {k: sorted(v)[len(v) // 2] if v else None
-            for k, v in times.items()}
+    times = [e.device_time_total for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and "::split_" in e.name]
+    return {"pass_us": sorted(times)[len(times) // 2] if times else None}
 
 
 def _wall_s(fn, n: int) -> float:
