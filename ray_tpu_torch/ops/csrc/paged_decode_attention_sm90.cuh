@@ -57,8 +57,8 @@
 //     copied itself to 16 bf16 values in the lower half (one
 //     __syncwarp between the warp's reads and writes of a row), so the
 //     ldmatrix code below is bf16's unchanged. The widening runs on
-//     byte permutes and fp32 adds (widen_int8): through the conversion
-//     unit it took ~0.4 us more a group (tools/torch_decode_stamps.py). The lane that copies a
+//     byte permutes and fp32 adds (widen_int8), not on the conversion
+//     unit, which converts 16 values a clock per SM. The lane that copies a
 //     row's first chunk also loads its page's two scales (through the
 //     page id it holds) and keeps (s_k / 127 / sqrt(D), s_v / 127) in
 //     the row's 16 bytes of padding: any page size, no second walk over
