@@ -307,7 +307,7 @@ def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
 
         # the main-path shape in fp32: windows that end on each side of
         # the split-K boundaries (pa._SPLIT_KEYS keys per split, and
-        # pa._SPLIT_KEYS_BF16 = 2 * split for bf16 K1) and of a page
+        # pa._SPLIT_KEYS_BF16 = 2 * split for bf16 q) and of a page
         split = pa._SPLIT_KEYS
         edges = [0, split - 2, split - 1, split, split + 1, 2 * split - 1,
                  2 * split, Pg - 1, Pg, 7 * split - 1, 7 * split,

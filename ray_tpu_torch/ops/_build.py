@@ -94,8 +94,8 @@ def ptxas_report(source: str) -> str:
     return report.read_text() if report.is_file() else ""
 
 
-# Itanium-mangled builtin types a kernel template may take
-_MANGLED_TYPES = {"a": "int8_t", "h": "uint8_t", "f": "float", "i": "int"}
+# Itanium-mangled builtin types a kernel template takes
+_MANGLED_TYPES = {"a": "int8_t"}
 _INT_ARG = re.compile(r"Li(\d+)E")      # an int literal
 _NAMED_ARG = re.compile(r"(\d+)")       # the length of a type's name
 

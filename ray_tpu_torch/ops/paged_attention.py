@@ -50,12 +50,12 @@ _MAX_REP = 8
 # keys per block of the scalar split-K pass (fp32 K1, fp32-q K2): 16
 # slots x 4 kv heads at ~1k keys fill the 132 SMs with ~500 blocks
 _SPLIT_KEYS = 128
-# the split sizes the tensor-core pass is built for (4 warps of 16, 32
-# or 64 keys), and the one each bf16 kernel runs, the fastest at the
-# TinyLlama decode shape in tools/torch_decode_profile.py's sweep
+# the split sizes the tensor-core pass (bf16 K1, bf16-q K2) is built
+# for (4 warps of 16, 32 or 64 keys), and the one it runs, the fastest
+# for both kernels at the TinyLlama decode shape in
+# tools/torch_decode_profile.py's sweep
 _BF16_SPLITS = (64, 128, 256)
-_SPLIT_KEYS_BF16 = 256        # K1
-_SPLIT_KEYS_INT8 = 256        # K2, bf16 q
+_SPLIT_KEYS_BF16 = 256
 
 
 class PagedShapeError(ValueError):
@@ -350,12 +350,10 @@ def load_kernel(int8: bool = False) -> ctypes.CDLL:
     return _build.load(_SOURCE, _bind)
 
 
-def split_keys_for(dtype, quantized: bool) -> int:
+def split_keys_for(dtype) -> int:
     """Keys per block of the split-K pass that ``paged_decode_attention``
-    runs for q dtype ``dtype`` over fp (K1) or int8 (K2) pages."""
-    if dtype == torch.bfloat16:
-        return _SPLIT_KEYS_INT8 if quantized else _SPLIT_KEYS_BF16
-    return _SPLIT_KEYS
+    runs for q dtype ``dtype``, over fp (K1) or int8 (K2) pages."""
+    return _SPLIT_KEYS_BF16 if dtype == torch.bfloat16 else _SPLIT_KEYS
 
 
 # one int32 counter per (slot, kv head) for each (device, stream): the
@@ -385,7 +383,7 @@ def _launch_kernel(q, pages_k, pages_v, page_table, positions,
                        scales_k, scales_v)
     quantized = scales_k is not None
     if split_keys is None:
-        split_keys = split_keys_for(q.dtype, quantized)
+        split_keys = split_keys_for(q.dtype)
     if q.dtype == torch.bfloat16 and split_keys not in _BF16_SPLITS:
         raise ValueError(f"bf16 K1 and K2 take split_keys in "
                          f"{_BF16_SPLITS}, not {split_keys}")

@@ -425,7 +425,7 @@ def test_bf16_k2_tensor_core_pass_matches_plain(dev, rep, D, Pg):
     boundary and filling the page table, beyond it (clipped), a slot
     with no visible key, a row of null pages, and random ones; scales
     10^6 apart between neighbouring pages."""
-    split, L = pa._SPLIT_KEYS_INT8, 4 * pa._SPLIT_KEYS_INT8
+    split, L = pa._SPLIT_KEYS_BF16, 4 * pa._SPLIT_KEYS_BF16
     positions = [0, split - 1, split, split + 1, L - 1, L + 40, -1, 0,
                  2 * split + 5, 77]
     args = _contrast_scales(_layout(

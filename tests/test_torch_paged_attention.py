@@ -270,13 +270,11 @@ def test_bf16_k1_takes_only_its_split_sizes():
     a = _kernel_args(q=torch.zeros(2, 8, 64, dtype=torch.bfloat16),
                      pages_k=torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16),
                      pages_v=torch.zeros(2, 4, 8, 64, dtype=torch.bfloat16))
-    assert tpa.split_keys_for(torch.bfloat16, False) == \
-        tpa._SPLIT_KEYS_BF16 in tpa._BF16_SPLITS
-    assert tpa.split_keys_for(torch.bfloat16, True) == \
-        tpa._SPLIT_KEYS_INT8 in tpa._BF16_SPLITS
+    # bf16 K1 and bf16-q K2 run the tensor-core pass at one split size;
     # fp32 K1 and fp32-q K2 keep the scalar split
-    assert tpa.split_keys_for(torch.float32, False) == tpa._SPLIT_KEYS
-    assert tpa.split_keys_for(torch.float32, True) == tpa._SPLIT_KEYS
+    assert tpa.split_keys_for(torch.bfloat16) == \
+        tpa._SPLIT_KEYS_BF16 in tpa._BF16_SPLITS
+    assert tpa.split_keys_for(torch.float32) == tpa._SPLIT_KEYS
     with pytest.raises(ValueError, match="split_keys"):
         tpa._launch_kernel(**a, split_keys=96)
     i8 = torch.zeros(2, 4, 8, 64, dtype=torch.int8)
