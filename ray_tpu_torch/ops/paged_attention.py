@@ -21,9 +21,9 @@ Hopper counterpart of the TPU kernel
 cores (csrc/paged_decode_attention_sm90.cuh), fp32 q on the scalar
 template (csrc/paged_decode_attention.cuh), one launch per call that
 also merges the splits — and runs the plain PyTorch version,
-``paged_decode_attention_reference``, for tensors on the CPU. Nothing else is taken: a CUDA tensor the kernel does not
-accept raises. K1 counts its launches in
-``paged_decode_attention.launches``, K2 in
+``paged_decode_attention_reference``, for tensors on the CPU. Nothing
+else is taken: a CUDA tensor the kernel does not accept raises. K1
+counts its launches in ``paged_decode_attention.launches``, K2 in
 ``paged_decode_attention.launches_int8``.
 
 Int8 pages use a symmetric absmax code: value = q * scale / 127 with q
