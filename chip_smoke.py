@@ -6,10 +6,10 @@ sm_90a).
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
-which raises on failure, run in the order 1, 3, 4, 4b, 2, 5, 6, 7: the
-host-timed serving phases come before any torch.profiler session,
-since a process that has run one launches kernels at a higher host
-cost for the rest of its life.
+which raises on failure, run in the order 1, 3, 4, 4b, 4c, 2, 5, 6, 6b,
+7, 7b: the host-timed serving phases come before any torch.profiler
+session, since a process that has run one launches kernels at a higher
+host cost for the rest of its life.
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
    limit. Builds the port's CUDA sources (K1 and K2, each with its
@@ -49,7 +49,10 @@ cost for the rest of its life.
    again (fully cached and page-aligned: the copy-on-write path), and
    a prompt sharing the 45-token prompt's first page — identical
    streams, 2 hit admissions, both engines leak-free (allocator
-   occupancy equals the cache's pages, tree invariants hold).
+   occupancy equals the cache's pages, tree invariants hold). Then the
+   same model and prompts through the static-cache loops: greedy
+   ``generate`` (16 new tokens) identical on the card and on the CPU,
+   and ``generate_stream`` (chunk 8) identical to ``generate``.
 4. The main path at full width: ``LlamaDeployment`` with the
    TinyLlama-1.1B config (bf16, random weights from ``--seed``),
    16 slots, 64-token pages. After one warm-up request it answers 16
@@ -84,6 +87,16 @@ cost for the rest of its life.
    output tok/s, TTFT p50 of each wave, ms per decode step on the int8
    pool, the pool's page and total bytes against an fp pool's, and the
    hit tokens.
+4c. The non-engine serving path at full width:
+   ``LlamaDeployment(tinyllama_1_1b(), use_engine=False)``, bf16 random
+   weights from ``--seed``, 64 new tokens, one warm-up request:
+   ``__call__`` on a 512-token prompt, ``stream`` on the same prompt
+   (its tokens must equal ``__call__``'s), ``generate_batch`` on 4
+   prompts of 512 tokens and 2 of 300 (two buckets). Teacher-forced,
+   as phase 4, each generated token of 3 requests (one per bucket and
+   the ``__call__``) within 0.05 of the top logit, in bf16 and with the
+   bf16 weights in fp32. Prints the batch's tok/s and ms per streamed
+   token beside the card's name and power limit.
 5. The flash-attention kernels against their plain versions on the
    card, each on the same inputs as its plain version: K3 (forward),
    K4 (dQ) and K5 (dK, dV) in fp32 (the scalar kernels) at T
@@ -96,8 +109,10 @@ cost for the rest of its life.
    of a fused qkv projection (output 4e-3 + 2^-7·|ref|, lse 1e-4,
    gradients 1e-2 + 2^-6·|ref|); at the GPT-2-124M shape (B 24, T
    1024, H 12, D 64, causal) in fp32 (1e-4) and bf16 (the same bf16
-   limits), where K4 and K5 on one shared delta must equal K4 and K5
-   called alone.
+   limits), and at the TinyLlama-1.1B training shape (B 8, T 1024, H
+   32, D 64, causal, K and V of 4 kv heads repeated per head) in bf16;
+   at each, K4 and K5 on one shared delta must equal K4 and K5 called
+   alone.
    Times each kernel (K4 and K5 on a delta formed beforehand), the
    delta pass, one whole backward (delta pass + K4 + K5), each plain
    version and the library yardstick (SDPA forward, backward and
@@ -108,6 +123,11 @@ cost for the rest of its life.
    reduced fp32 GPT-2 (2 layers, C 128, H 4, vocab 1024, T 128, batch
    4) with flash attention, the same weights and batch on both sides,
    3 AdamW steps: losses and grad norms within 1e-4 relative.
+6b. The same for a reduced fp32 Llama (2 layers, dim 256, 4 q / 2 kv
+   heads, vocab 1024, T 128, batch 4) with remat and flash attention,
+   trained with ``build_train_model`` and bench's cross-entropy: 3
+   AdamW steps card vs CPU within 1e-4 relative, and step 1's loss
+   identical with remat off on each device.
 7. The training main path at full width: GPT-2-124M (vocab 50304, 12
    layers, C 768, H 12, T 1024), bf16 compute on fp32 params, random
    weights from ``--seed``, batch 24 of ``RandomState(0)`` token ids,
@@ -120,7 +140,23 @@ cost for the rest of its life.
    card with dense fp32-score attention (1e-2 and 2 %). Prints train
    tokens/s, ms per step, MFU (against 989 TFLOP/s bf16) and peak
    device memory beside the card's name and power limit.
-8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5), then the
+7b. The Llama training main path at full width, ``bench.py --model
+   llama-1.1b``: ``tinyllama_1_1b(max_seq_len=1024, remat=True)``, bf16
+   compute on fp32 params (``build_train_model``), random weights from
+   ``--seed``, batch 8 of ``RandomState(0)`` ids, the mean
+   cross-entropy of the fp32 logits, ``adamw(3e-4, weight_decay=0.1)``:
+   1 warm-up step, then 10 timed steps. Checks that K3 was launched 2 x
+   22 x 11 times (remat runs each block's forward again in the
+   backward) and K4, K5 and the delta pass 22 x 11 times each, that
+   every loss is finite and the last below the first, and step 1's
+   loss and grad norm against the same step with dense fp32-score
+   attention (also under remat; 1e-2 and 2 %). Prints train tokens/s,
+   ms per step, MFU (``llama_flops_per_token(cfg, 1024)`` against 989
+   TFLOP/s) and peak device memory beside the card's name and power
+   limit.
+8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; the flash rows
+   at the GPT-2 shape with phase 7's launches, and under
+   ``"llama_1_1b"`` at the TinyLlama shape with phase 7b's), then the
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -490,6 +526,36 @@ def phase_engine_parity(tl, seed: int) -> None:
           "31 hit tokens; both leak-free")
 
 
+def phase_generate_parity(tl, seed: int) -> None:
+    """Phase 3's model through the static-cache loops: greedy
+    ``generate`` on the card equal to the CPU's for each of its 4
+    prompts, and ``generate_stream`` (chunk 8) equal to ``generate``."""
+    cfg = tl.LlamaConfig(vocab_size=32000, max_seq_len=256, dim=512,
+                         n_layers=2, n_heads=8, n_kv_heads=2,
+                         hidden_dim=1024, dtype=torch.float32)
+    sd = tl.init_params(cfg, seed=seed, device="cpu")
+    g = np.random.default_rng(seed)
+    prompts = [g.integers(0, cfg.vocab_size, n).tolist()
+               for n in (1, 16, 17, 45)]
+    gens = {}
+    for device in ("cpu", "cuda"):
+        model = tl.build_model(cfg, sd, device)
+        gens[device] = [tl.generate(model, [p], 16)[0, len(p):].tolist()
+                        for p in prompts]
+    streams = [[int(t[0]) for t in tl.generate_stream(model, [p], 16,
+                                                      chunk_size=8)]
+               for p in prompts]
+    if gens["cpu"] != gens["cuda"]:
+        raise AssertionError(f"generate: card and CPU tokens differ:\n"
+                             f"{gens['cuda']}\n{gens['cpu']}")
+    if streams != gens["cuda"]:
+        raise AssertionError(f"generate_stream differs from generate:\n"
+                             f"{streams}\n{gens['cuda']}")
+    print("phase 3: generate (static KV cache) on the card == on the CPU, "
+          "and generate_stream (chunk 8) == generate, on the same 4 "
+          "prompts, 16 greedy tokens each")
+
+
 def _teacher_forced_gaps(model, prompt, completion,
                          kv_dtype: str = "fp") -> list:
     """(top logit - logit of the generated token) at each completion
@@ -856,6 +922,86 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
     return res, two_steps
 
 
+def phase_static_path(tl, seed: int, smi: str) -> dict:
+    """The non-engine serving path at full width: ``LlamaDeployment(
+    tinyllama_1_1b(), use_engine=False)``, each request through the
+    static-cache ``generate``/``generate_stream`` loops."""
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+    cfg = tl.tinyllama_1_1b()
+    n_new = 64
+    params = tl.init_params(cfg, seed=seed, device="cuda")
+    dep = LlamaDeployment(cfg, params, max_new_tokens=n_new,
+                          use_engine=False, device="cuda")
+    del params
+    g = np.random.default_rng(seed + 2)
+
+    def rand(n):
+        return g.integers(0, cfg.vocab_size, n).tolist()
+
+    if len(dep(rand(100))) != 100 + n_new:
+        raise AssertionError("warm-up request came back short")
+    prompt = rand(512)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    out = dep(prompt)
+    call_s = time.monotonic() - t0
+    stamps, streamed = [], []
+    t0 = time.monotonic()
+    for tok in dep.stream(prompt):
+        stamps.append(time.monotonic())
+        streamed.append(tok)
+    if out[:512] != prompt or streamed != out[512:]:
+        raise AssertionError("stream's tokens differ from __call__'s")
+    # two buckets: 4 prompts of 512 tokens, 2 of 300
+    prompts = [rand(512), rand(300), rand(512), rand(512), rand(300),
+               rand(512)]
+    t1 = time.monotonic()
+    batch = dep.generate_batch(prompts)
+    batch_s = time.monotonic() - t1
+    if [len(b) for b in batch] != [n_new] * len(prompts):
+        raise AssertionError(f"batch came back short: "
+                             f"{[len(b) for b in batch]}")
+
+    # teacher-forced through the paged T > 1 gather path, as phase 4:
+    # the __call__ request and one request of each bucket, in bf16 and
+    # with the same bf16 weights evaluated in fp32
+    checked = [(prompt, out[512:]), (prompts[0], batch[0]),
+               (prompts[1], batch[1])]
+    gaps_bf16 = [x for p, o in checked
+                 for x in _teacher_forced_gaps(dep.model, p, o)]
+    ref32 = tl.build_model(
+        dataclasses.replace(cfg, dtype=torch.float32),
+        {k: v.float() for k, v in dep.model.state_dict().items()}, "cuda")
+    gaps = [x for p, o in checked for x in _teacher_forced_gaps(ref32, p, o)]
+    del ref32, dep
+    for kind, gs in (("bf16", gaps_bf16), ("fp32", gaps)):
+        if max(gs) > LOGIT_SLACK:
+            raise AssertionError(
+                f"teacher-forced check: a generated token sits {max(gs)}"
+                f" below the top {kind} logit (allowed {LOGIT_SLACK})")
+    res = {"card": smi, "model": "tinyllama_1_1b bf16 (random weights, "
+           f"seed {seed}), LlamaDeployment(use_engine=False)",
+           "new_tokens": n_new, "call_s": call_s,
+           "stream_ttft_s": stamps[0] - t0,
+           "stream_ms_per_token": (stamps[-1] - stamps[0])
+           / (len(stamps) - 1) * 1e3,
+           "batch_prompt_lengths": [len(p) for p in prompts],
+           "batch_s": batch_s,
+           "batch_tok_s": len(prompts) * n_new / batch_s,
+           "teacher_forced_max_gap_fp32": max(gaps),
+           "teacher_forced_max_gap_bf16": max(gaps_bf16),
+           "teacher_forced_positions": len(gaps)}
+    print(f"phase 4c: TinyLlama-1.1B bf16 via LlamaDeployment(use_engine="
+          f"False) on {smi}: __call__ 512 + {n_new} tokens in "
+          f"{call_s * 1e3:.1f} ms; stream == __call__, first token after "
+          f"{res['stream_ttft_s'] * 1e3:.1f} ms, then "
+          f"{res['stream_ms_per_token']:.2f} ms per token; generate_batch "
+          f"(4 x 512 + 2 x 300 tokens, 2 buckets) {res['batch_tok_s']:.1f}"
+          f" tok/s; teacher-forced over {len(gaps)} tokens: max gap "
+          f"{max(gaps):.4f} in fp32, {max(gaps_bf16):.4f} in bf16")
+    return res
+
+
 # --------------------------------------------------------------------
 # Training: flash attention (K3, K4, K5) and the GPT-2 train step
 # --------------------------------------------------------------------
@@ -954,9 +1100,10 @@ def _check_tensor_core_route(names, calls: int, where: str) -> dict:
 
 
 def phase_flash_kernels(fa, seed: int) -> tuple:
-    """K3, K4, K5 against their plain versions (fp32 small cases, then
-    the GPT-2-124M shape in fp32 and bf16), with times and bounds; the
-    kernel rows and the whole backward's times."""
+    """K3, K4, K5 against their plain versions (fp32 small cases, the
+    GPT-2-124M shape in fp32 and bf16, the TinyLlama-1.1B training
+    shape in bf16), with times and bounds; the kernel rows and the
+    whole backward's times at each shape."""
     fp32 = {"o": (FLASH_FP32_TOL,), "grad": (FLASH_FP32_TOL,)}
     worst = 0.0
     for T in (128, 256, 512):
@@ -1000,23 +1147,82 @@ def phase_flash_kernels(fa, seed: int) -> tuple:
     del cases
 
     B, T, H, D = 24, 1024, 12, 64
-    scale = D ** -0.5
     args = _flash_inputs(seed + 1, B, T, H, D, torch.float32)
-    err32 = _flash_errors(fa, *args, True, scale, fp32)
+    err32 = _flash_errors(fa, *args, True, D ** -0.5, fp32)
     print(f"phase 5: K3/K4/K5 fp32 at B={B} T={T} H={H} D={D} causal: "
           f"max abs err {err32} (tol {FLASH_FP32_TOL})")
     del args
-    q, k, v, do = _flash_inputs(seed, B, T, H, D, torch.bfloat16)
-    err16 = {}
+    gpt2 = _flash_shape(fa, *_flash_inputs(seed, B, T, H, D, torch.bfloat16),
+                        "GPT-2-124M")
+    # the TinyLlama-1.1B training shape: 32 heads over K and V of 4 kv
+    # heads repeated per head, as the cache-free Llama forward gives them
+    q, k, v, do = _flash_inputs(seed + 2, 8, 1024, 32, 64, torch.bfloat16)
+    k, v = (x[:, :, :4].repeat_interleave(8, dim=2) for x in (k, v))
+    llama = _flash_shape(fa, q, k, v, do, "TinyLlama-1.1B")
+    del q, k, v, do
 
-    def gpt2_case():
-        err16.update(_flash_errors(fa, q, k, v, do, True, scale, bf16))
+    rows = []
+    tensor = ("wgmma, bf16 in, fp32 accumulators; TMA ring of 2 "
+              "swizzled stages; 1 consumer warpgroup + 1 producer warp "
+              "per 64-row tile; CTAs grouped by (batch, head); ")
+    for key, name, body, lib_key, errs, design in (
+            ("fwd", "flash_fwd", 91, "fwd", ("o",),
+             tensor + "Q and P as register A operands"),
+            ("dq", "flash_bwd_dq", 204, "bwd", ("dq",),
+             tensor + "Q and dO as register A operands of S and dP, dS of "
+             "dQ += dS K; delta from the shared pass"),
+            ("dkv", "flash_bwd_dkv", 259, "bwd", ("dk", "dv"),
+             tensor + "P^T and dS^T as register A operands; delta from "
+             "the shared pass")):
+        row = {"name": name, "route": "cuda",
+               "source": f"ray_tpu_torch/ops/csrc/{fa._SOURCE_SM90}",
+               "replaces": f"ray_tpu/ops/flash_attention.py:{body}",
+               "design": design, "launches": None,
+               "max_abs_err_fp32": max(err32[e] for e in errs)}
+        for res, into in ((gpt2, row), (llama, {})):
+            nbytes, flops = res["spec"][key]
+            into.update({
+                "max_abs_err": max(res["err"][e] for e in errs),
+                "ms": res["ms"][key], "plain_ms": res["plain"][key],
+                "bound_ms": res["bound"][key][0],
+                "bound_by": res["bound"][key][1],
+                "library_ms": res["lib"][lib_key],
+                "shape": dict(res["shape"], bytes=nbytes, flops=flops)})
+            if res is llama:
+                row["llama_1_1b"] = into
+        rows.append(row)
+    backward_ms = {where: {
+        "delta_ms": res["ms"]["delta"], "delta_bound_ms":
+        res["bound"]["delta"][0], "backward_ms": res["ms"]["bwd"],
+        "backward_bound_ms": res["bound"]["bwd"][0],
+        "sdpa_forward_ms": res["lib"]["fwd"],
+        "sdpa_backward_ms": res["lib"]["bwd"],
+        "sdpa_fwd_bwd_ms": res["lib"]["fwd_bwd"]}
+        for where, res in (("gpt2_124m", gpt2), ("llama_1_1b", llama))}
+    return rows, backward_ms
 
-    _check_tensor_core_route(_device_kernels(gpt2_case), 1, "GPT-2 shape")
-    print(f"phase 5: K3/K4/K5 bf16 on the tensor cores at the same shape: "
-          f"max abs err {err16} (tol o {FLASH_BF16_O[0]} + "
-          f"{FLASH_BF16_O[1]} * |ref|, grads {FLASH_BF16_GRAD[0]} + "
-          f"{FLASH_BF16_GRAD[1]} * |ref|)")
+
+def _flash_shape(fa, q, k, v, do, where: str) -> dict:
+    """bf16 K3, K4 and K5 (causal) at one training shape: each against
+    its plain version at the bf16 limits, on the tensor cores by the
+    profiler's kernel names; K4 and K5 on one shared delta equal to K4
+    and K5 called alone; then the times (CUDA events, L2 flushed) of
+    each kernel (K4 and K5 on a delta formed beforehand), the delta
+    pass, one whole backward, the plain versions and SDPA, and each
+    bound from these inputs."""
+    B, T, H, D = q.shape
+    scale = D ** -0.5
+    bf16 = {"o": FLASH_BF16_O, "grad": FLASH_BF16_GRAD}
+    err = {}
+
+    def case():
+        err.update(_flash_errors(fa, q, k, v, do, True, scale, bf16))
+
+    _check_tensor_core_route(_device_kernels(case), 1, f"{where} shape")
+    print(f"phase 5: K3/K4/K5 bf16 on the tensor cores at the {where} "
+          f"shape (B={B} T={T} H={H} D={D} causal): max abs err {err} (tol "
+          f"o {FLASH_BF16_O[0]} + {FLASH_BF16_O[1]} * |ref|, grads "
+          f"{FLASH_BF16_GRAD[0]} + {FLASH_BF16_GRAD[1]} * |ref|)")
 
     ro, rlse = fa.flash_fwd_reference(q, k, v, True, scale)
     # K4 and K5 on one delta give what each gives alone
@@ -1091,51 +1297,25 @@ def phase_flash_kernels(fa, seed: int) -> tuple:
         t_ops = flops / BF16_FLOPS * 1e3
         bound[key] = (max(t_bytes, t_ops),
                       "bytes" if t_bytes >= t_ops else "operations")
-    rows = []
-    tensor = ("wgmma, bf16 in, fp32 accumulators; TMA ring of 2 "
-              "swizzled stages; 1 consumer warpgroup + 1 producer warp "
-              "per 64-row tile; CTAs grouped by (batch, head); ")
-    for key, name, body, lib_ms, errs, design in (
-            ("fwd", "flash_fwd", 91, lib["fwd"], ("o",),
-             tensor + "Q and P as register A operands"),
-            ("dq", "flash_bwd_dq", 204, lib["bwd"], ("dq",),
-             tensor + "Q and dO as register A operands of S and dP, dS of "
-             "dQ += dS K; delta from the shared pass"),
-            ("dkv", "flash_bwd_dkv", 259, lib["bwd"], ("dk", "dv"),
-             tensor + "P^T and dS^T as register A operands; delta from "
-             "the shared pass")):
-        nbytes, flops = spec[key]
-        rows.append({
-            "name": name, "route": "cuda",
-            "source": f"ray_tpu_torch/ops/csrc/{fa._SOURCE_SM90}",
-            "replaces": f"ray_tpu/ops/flash_attention.py:{body}",
-            "design": design, "launches": None,
-            "max_abs_err": max(err16[e] for e in errs),
-            "max_abs_err_fp32": max(err32[e] for e in errs),
-            "ms": ms[key], "plain_ms": plain[key],
-            "bound_ms": bound[key][0], "bound_by": bound[key][1],
-            "library_ms": lib_ms,
-            "shape": {"B": B, "T": T, "H": H, "D": D, "causal": True,
-                      "bytes": nbytes, "flops": flops,
-                      "dtype": "bfloat16"}})
-        print(f"phase 5: {name} bf16: kernel {ms[key]:.4f} ms "
-              f"({flops / ms[key] / 1e9:.1f} TFLOP/s), plain "
+    for key, name in (("fwd", "flash_fwd"), ("dq", "flash_bwd_dq"),
+                      ("dkv", "flash_bwd_dkv")):
+        print(f"phase 5: {where} {name} bf16: kernel {ms[key]:.4f} ms "
+              f"({spec[key][1] / ms[key] / 1e9:.1f} TFLOP/s), plain "
               f"{plain[key]:.4f} ms, bound {bound[key][0]:.4f} ms "
-              f"({nbytes} bytes, {flops} flops)")
-    backward_ms = {"delta_ms": ms["delta"], "delta_bound_ms":
-                   bound["delta"][0], "backward_ms": ms["bwd"],
-                   "backward_bound_ms": bound["bwd"][0],
-                   "sdpa_backward_ms": lib["bwd"]}
-    print(f"phase 5: delta pass {ms['delta']:.4f} ms (bound "
+              f"({spec[key][0]} bytes, {spec[key][1]} flops)")
+    print(f"phase 5: {where} delta pass {ms['delta']:.4f} ms (bound "
           f"{bound['delta'][0]:.4f} ms); one backward, delta pass + K4 + "
           f"K5, {ms['bwd']:.4f} ms ({spec['bwd'][1] / ms['bwd'] / 1e9:.1f}"
           f" TFLOP/s, bound {bound['bwd'][0]:.4f} ms) beside SDPA's "
           f"backward (dq, dk, dv) {lib['bwd']:.4f} ms: "
           f"{ms['bwd'] / lib['bwd']:.3f}x")
-    print(f"phase 5: SDPA (is_causal) yardstick: forward {lib['fwd']:.4f}"
-          f" ms, backward {lib['bwd']:.4f} ms, forward+backward "
-          f"{lib['fwd_bwd']:.4f} ms")
-    return rows, backward_ms
+    print(f"phase 5: {where} SDPA (is_causal) yardstick: forward "
+          f"{lib['fwd']:.4f} ms, backward {lib['bwd']:.4f} ms, "
+          f"forward+backward {lib['fwd_bwd']:.4f} ms")
+    return {"err": err, "ms": ms, "plain": plain, "lib": lib,
+            "spec": spec, "bound": bound,
+            "shape": {"B": B, "T": T, "H": H, "D": D, "causal": True,
+                      "dtype": "bfloat16"}}
 
 
 def _gpt2_loss(model, b):
@@ -1145,12 +1325,26 @@ def _gpt2_loss(model, b):
                                 y)
 
 
-def _trainer(cfg, sd, batch, device, lr):
-    from ray_tpu_torch.models.gpt2 import build_model
+def _llama_loss(model, b):
+    """bench.py's Llama loss: the mean softmax cross-entropy of the fp32
+    logits of ids[:, :-1] against ids[:, 1:]."""
+    x, y = b["ids"][:, :-1], b["ids"][:, 1:]
+    logits = model(x)
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+
+
+def _trainer(cfg, sd, batch, device, lr, llama: bool = False):
+    """(state, step, batch on the device) of the GPT-2 train step, or
+    with ``llama`` the Llama one (fp32 masters from
+    ``build_train_model``)."""
+    from ray_tpu_torch.models import gpt2, llama as tl
     from ray_tpu_torch.train import spmd
+    build = tl.build_train_model if llama else gpt2.build_model
     opt = spmd.adamw(lr, weight_decay=0.1)
-    state = spmd.TrainState.create(build_model(cfg, sd, device), opt)
-    return state, spmd.make_train_step(_gpt2_loss, opt), spmd.put_batch(
+    state = spmd.TrainState.create(build(cfg, sd, device), opt)
+    return state, spmd.make_train_step(
+        _llama_loss if llama else _gpt2_loss, opt), spmd.put_batch(
         batch, device)
 
 
@@ -1176,6 +1370,41 @@ def phase_train_parity(seed: int) -> None:
     print(f"phase 6: GPT-2 fp32 train step (2 layers, C 128, H 4, vocab "
           f"1024, T 128, batch 4), 3 AdamW steps: (loss, grad norm) card "
           f"{runs['cuda']} == CPU {runs['cpu']} within {TRAIN_RTOL} rel")
+
+
+def phase_llama_train_parity(tl, seed: int) -> None:
+    """A reduced fp32 Llama (GQA, remat, flash) and one batch trained 3
+    steps on the card (kernels) and on the CPU (plain versions); step
+    1's loss also without remat on each device."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tl.LlamaConfig(vocab_size=1024, max_seq_len=128, dim=256,
+                         n_layers=2, n_heads=4, n_kv_heads=2,
+                         hidden_dim=512, dtype=torch.float32, remat=True,
+                         attention_impl="flash")
+    sd = tl.init_params(cfg, seed, device="cpu")
+    batch = {"ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(4, 129)).astype(np.int32)}
+    runs = {}
+    for device in ("cpu", "cuda"):
+        state, step, b = _trainer(
+            dataclasses.replace(cfg, remat=False), sd, batch, device, 3e-4,
+            llama=True)
+        no_remat = step(state, b)[1]["loss"].item()
+        state, step, b = _trainer(cfg, sd, batch, device, 3e-4, llama=True)
+        runs[device] = []
+        for _ in range(3):
+            state, m = step(state, b)
+            runs[device].append((m["loss"].item(), m["grad_norm"].item()))
+        if runs[device][0][0] != no_remat:
+            raise AssertionError(f"{device}: step 1's loss {runs[device][0]}"
+                                 f" with remat, {no_remat} without")
+    np.testing.assert_allclose(runs["cuda"], runs["cpu"], rtol=TRAIN_RTOL)
+    print(f"phase 6b: Llama fp32 train step (2 layers, dim 256, 4 q / 2 kv "
+          f"heads, vocab 1024, T 128, batch 4, remat, flash), 3 AdamW "
+          f"steps: (loss, grad norm) card {runs['cuda']} == CPU "
+          f"{runs['cpu']} within {TRAIN_RTOL} rel; step 1's loss the same "
+          f"without remat on each device")
 
 
 def phase_train_main_path(fa, seed: int, smi: str) -> dict:
@@ -1256,6 +1485,88 @@ def phase_train_main_path(fa, seed: int, smi: str) -> dict:
     return res
 
 
+def phase_llama_train_main_path(tl, fa, seed: int, smi: str) -> dict:
+    """bench.py's llama-1.1b: TinyLlama-1.1B widths with remat, bf16 on
+    fp32 params, batch 8 x T 1024: 1 warm-up + 10 timed steps."""
+    cfg = tl.tinyllama_1_1b(max_seq_len=1024, remat=True)
+    B, T, n_steps = 8, 1024, 10
+    batch = {"ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(B, T + 1), dtype=np.int32)}
+    t0 = time.monotonic()
+    # fp32 draws for the fp32 masters
+    sd = tl.init_params(dataclasses.replace(cfg, dtype=cfg.param_dtype),
+                        seed, device="cuda")
+
+    # step 1 with dense fp32-score attention (remat too: its scores are
+    # 1.07 GB a layer): what the kernels' step 1 is held to
+    state, step, b = _trainer(
+        dataclasses.replace(cfg, attention_impl="dense_fp32"), sd, batch,
+        "cuda", 3e-4, llama=True)
+    state, m = step(state, b)
+    ref_loss, ref_norm = m["loss"].item(), m["grad_norm"].item()
+    del state, step, m
+    torch.cuda.empty_cache()
+
+    state, step, b = _trainer(cfg, sd, batch, "cuda", 3e-4, llama=True)
+    del sd
+    torch.cuda.synchronize()
+    t_setup = time.monotonic() - t0
+    torch.cuda.reset_peak_memory_stats()
+    kernels = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+               fa.flash_bwd_dkv)
+    for kern in kernels:
+        kern.launches = 0
+    state, m = step(state, b)                    # warm-up: step 1
+    losses = [m["loss"]]
+    first_norm = m["grad_norm"].item()
+    ts = time.monotonic()
+    for _ in range(n_steps):
+        state, m = step(state, b)
+        losses.append(m["loss"])
+    last = m["loss"].item()                      # waits for the device
+    dt = time.monotonic() - ts
+    launches = [kern.launches for kern in kernels]
+    peak = torch.cuda.max_memory_allocated()
+    losses = [float(x) for x in losses]
+    per_step = cfg.n_layers * (n_steps + 1)
+    # remat runs each block's forward again in the backward: K3 twice
+    if launches != [2 * per_step] + [per_step] * 3:
+        raise AssertionError(
+            f"K3/delta/K4/K5 launches {launches} != [2, 1, 1, 1] x "
+            f"{cfg.n_layers} layers x {n_steps + 1} steps")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"losses not finite and falling: {losses}")
+    if abs(losses[0] - ref_loss) > 1e-2 or \
+            abs(first_norm - ref_norm) > 0.02 * ref_norm:
+        raise AssertionError(
+            f"step 1 (loss {losses[0]}, grad norm {first_norm}) vs dense "
+            f"fp32 attention (loss {ref_loss}, grad norm {ref_norm})")
+    tok_s = B * T * n_steps / dt
+    res = {"card": smi, "model": f"tinyllama_1_1b remat, bf16 on fp32 "
+           f"params (random weights, seed {seed})", "batch": B, "seq": T,
+           "timed_steps": n_steps, "train_tok_s": tok_s,
+           "step_ms": dt / n_steps * 1e3,
+           "flops_per_token": tl.llama_flops_per_token(cfg, T),
+           "mfu": tok_s * tl.llama_flops_per_token(cfg, T) / BF16_FLOPS,
+           "peak_mem_gb": peak / 1e9, "losses": losses,
+           "step1_loss": losses[0], "step1_loss_dense_fp32": ref_loss,
+           "step1_grad_norm": first_norm,
+           "step1_grad_norm_dense_fp32": ref_norm,
+           "launches": dict(zip(("flash_fwd", "flash_bwd_delta",
+                                 "flash_bwd_dq", "flash_bwd_dkv"),
+                                launches)),
+           "setup_s": t_setup}
+    print(f"phase 7b: TinyLlama-1.1B train (remat), batch {B} x T {T}, bf16 "
+          f"on fp32 params, on {smi}: {tok_s:.1f} tokens/s, "
+          f"{res['step_ms']:.2f} ms/step, MFU {res['mfu']:.4f} (989 "
+          f"TFLOP/s bf16), peak memory {res['peak_mem_gb']:.2f} GB; loss "
+          f"{losses[0]:.4f} -> {last:.4f} over {n_steps + 1} steps; step 1 "
+          f"vs dense fp32 attention: loss {losses[0]:.5f} / "
+          f"{ref_loss:.5f}, grad norm {first_norm:.5f} / {ref_norm:.5f}; "
+          f"K3/delta/K4/K5 launched {launches}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1324,12 +1635,16 @@ def main(argv=None) -> int:
     # session: after one, the process launches kernels at a higher host
     # cost for the rest of its life.
     phase_engine_parity(tl, args.seed)
+    phase_generate_parity(tl, args.seed)
     print(f"phase 3 done at {time.monotonic() - t0:.1f} s")
     main_path, steps_fp = phase_main_path(tl, pa, args.seed, smi)
     print(f"phase 4 done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     int8_path, steps_int8 = phase_int8_prefix_path(tl, pa, args.seed, smi)
     print(f"phase 4b done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    static_path = phase_static_path(tl, args.seed, smi)
+    print(f"phase 4c done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
@@ -1356,10 +1671,17 @@ def main(argv=None) -> int:
     print(f"phase 5 done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     phase_train_parity(args.seed)
+    phase_llama_train_parity(tl, args.seed)
     print(f"phase 6 done at {time.monotonic() - t0:.1f} s")
     train = phase_train_main_path(fa, args.seed, smi)
+    print(f"phase 7 done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    llama_train = phase_llama_train_main_path(tl, fa, args.seed, smi)
+    print(f"phase 7b done at {time.monotonic() - t0:.1f} s")
     for row in flash:
         row["launches"] = train["launches"][row["name"]]
+        row["llama_1_1b"]["launches"] = \
+            llama_train["launches"][row["name"]]
     kernels = {"kernels": [k1, k2] + flash}
     if args.out:
         with open(args.out, "w") as f:
@@ -1368,7 +1690,9 @@ def main(argv=None) -> int:
                        "flash_backward": backward_ms,
                        "main_path": main_path,
                        "int8_prefix_path": int8_path,
+                       "static_path": static_path,
                        "train_main_path": train,
+                       "llama_train_main_path": llama_train,
                        "total_s": time.monotonic() - t0}, f, indent=1)
     print(f"total {time.monotonic() - t0:.1f} s")
     print(json.dumps(kernels))

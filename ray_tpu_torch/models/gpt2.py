@@ -20,7 +20,7 @@ Same model as the flax reference, rounding at the same places:
   operands.
 
 ``gpt2_sharding_rules`` waits for the mesh slice (ROADMAP.md queue 1,
-item 14).
+item 12).
 """
 from __future__ import annotations
 
@@ -35,7 +35,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.llama import _tied_logits
+from ray_tpu_torch.models.llama import tied_logits
 from ray_tpu_torch.ops.attention import multi_head_attention
 
 
@@ -149,33 +149,6 @@ class Block(nn.Module):
     def forward(self, x, deterministic: bool = True):
         x = x + self.attn(self.ln_1(x).to(self.dtype), deterministic)
         return x + self.mlp(self.ln_2(x).to(self.dtype), deterministic)
-
-
-class _TiedLogits(torch.autograd.Function):
-    """``llama._tied_logits`` (fp32 logits from bf16 operands, never
-    rounded to bf16) with its backward written out: the fp32 gradient
-    rounded to the operands' dtype, then two bf16 GEMMs."""
-
-    @staticmethod
-    def forward(ctx, x, w):
-        ctx.save_for_backward(x, w)
-        return _tied_logits(x, w)
-
-    @staticmethod
-    def backward(ctx, g):
-        x, w = ctx.saved_tensors
-        g2 = g.reshape(-1, g.shape[-1]).to(x.dtype)
-        dx = (g2 @ w).reshape(x.shape)
-        dw = g2.t() @ x.reshape(-1, x.shape[-1])
-        return dx, dw
-
-
-def tied_logits(x: torch.Tensor, wte: torch.Tensor) -> torch.Tensor:
-    """fp32 logits ``x @ wte.T`` with ``wte`` cast to ``x.dtype``."""
-    w = wte.to(x.dtype)
-    if x.dtype == torch.float32:
-        return x @ w.t()
-    return _TiedLogits.apply(x, w)
 
 
 class GPT2(nn.Module):

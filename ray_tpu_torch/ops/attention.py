@@ -18,7 +18,7 @@ impl:
   back to dense.
 
 ``"ring"`` (sequence-parallel) is not ported yet (ROADMAP.md queue 1,
-item 14).
+item 12).
 """
 from __future__ import annotations
 
@@ -79,7 +79,7 @@ def multi_head_attention(q, k, v, causal: bool = True, impl: str = "auto",
     if impl == "ring":
         raise NotImplementedError(
             "impl='ring' (sequence-parallel ring attention) is not ported "
-            "yet (ROADMAP.md queue 1, item 14)")
+            "yet (ROADMAP.md queue 1, item 12)")
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

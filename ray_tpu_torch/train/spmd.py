@@ -11,7 +11,7 @@ the step waits for the device: the returned metrics are device
 tensors, read when the caller reads them.
 
 ``shard_state``, ``state_shardings`` and ``batch_shardings`` wait for
-DDP/FSDP (ROADMAP.md queue 1, item 13).
+DDP/FSDP (ROADMAP.md queue 1, item 11).
 """
 from __future__ import annotations
 

@@ -335,6 +335,27 @@ def test_engine_on_card_matches_cpu(dev):
     assert streams[0] == streams[1]
 
 
+def test_generate_on_card_matches_cpu(dev):
+    """Static-cache greedy ``generate`` on the card equals the CPU's for
+    the same fp32 weights, and ``generate_stream`` gives its tokens."""
+    from ray_tpu_torch.models.llama import (build_model, generate,
+                                            generate_stream, init_params,
+                                            llama_tiny)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama_tiny(dtype=torch.float32, dim=128, n_heads=2, n_kv_heads=1)
+    sd = init_params(cfg, seed=0, device="cpu")
+    prompt = np.random.RandomState(0).randint(1, 200, (2, 9))
+    cpu = generate(build_model(cfg, sd, "cpu"), prompt, 20)
+    model = build_model(cfg, sd, dev)
+    card = generate(model, prompt, 20)
+    assert card.device.type == "cuda" and card.dtype == torch.int32
+    assert torch.equal(card.cpu(), cpu)
+    rows = list(generate_stream(model, prompt, 20, chunk_size=8))
+    np.testing.assert_array_equal(np.stack(rows, axis=1),
+                                  cpu[:, 9:].numpy())
+
+
 def test_bf16_deployment_on_card(dev):
     from ray_tpu_torch.models.llama import llama_tiny
     from ray_tpu_torch.serve.llm import LlamaDeployment
@@ -638,6 +659,17 @@ def test_flash_kernels_gpt2_shape_bf16(dev):
     _assert_bf16_close(out, ref)
 
 
+def test_flash_kernels_tinyllama_training_shape_bf16(dev):
+    """The TinyLlama-1.1B training attention shape (B 8, T 1024, H 32, D
+    64, causal), K and V of 4 kv heads repeated per head as the
+    cache-free Llama forward gives them (``repeat_interleave``)."""
+    q, k, v, do = _flash_case(2, 8, 1024, 32, 64, torch.bfloat16, dev)
+    k, v = (x[:, :, :4].repeat_interleave(8, dim=2) for x in (k, v))
+    out = _flash_all(q, k, v, do, True, 0.125, kernel=True)
+    ref = _flash_all(q, k, v, do, True, 0.125, kernel=False)
+    _assert_bf16_close(out, ref)
+
+
 @pytest.mark.parametrize("D", [64, 128])
 def test_flash_kernels_on_strided_qkv_views_bf16(dev, D):
     """bf16 q, k, v as the column views of one fused projection (row
@@ -821,6 +853,46 @@ def test_gpt2_train_step_fp32_card_matches_cpu(dev):
     assert fa.flash_bwd_dkv.launches - before == 3 * cfg.n_layer
     cpu = _train(cfg, sd, batch, "cpu", 3)
     np.testing.assert_allclose(card, cpu, rtol=1e-4)
+
+
+def _llama_loss(model, b):
+    x, y = b["ids"][:, :-1], b["ids"][:, 1:]
+    logits = model(x)
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+
+
+def test_llama_train_step_fp32_card_matches_cpu(dev):
+    """The Llama train step (GQA, remat, flash) in fp32: 3 AdamW steps
+    on the card (K3, K4, K5; K3 twice per layer under remat) against the
+    CPU (plain versions)."""
+    from ray_tpu_torch.models.llama import build_train_model, init_params, \
+        llama_tiny
+    from ray_tpu_torch.train import spmd
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = llama_tiny(max_seq_len=128, dtype=torch.float32, dim=128,
+                     remat=True, attention_impl="flash")
+    sd = init_params(cfg, 0, "cpu")
+    batch = {"ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 129)).astype(np.int32)}
+    runs = []
+    for d in (dev, "cpu"):
+        opt = spmd.adamw(1e-3, weight_decay=0.1)
+        state = spmd.TrainState.create(build_train_model(cfg, sd, d), opt)
+        step = spmd.make_train_step(_llama_loss, opt)
+        b = spmd.put_batch(batch, d)
+        before = (fa.flash_fwd.launches, fa.flash_bwd_dkv.launches)
+        out = []
+        for _ in range(3):
+            state, m = step(state, b)
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        if d == dev:
+            assert (fa.flash_fwd.launches - before[0],
+                    fa.flash_bwd_dkv.launches - before[1]) == \
+                (2 * 3 * cfg.n_layers, 3 * cfg.n_layers)
+        runs.append(out)
+    np.testing.assert_allclose(runs[0], runs[1], rtol=1e-4)
 
 
 def test_gpt2_bf16_train_step_on_card(dev):

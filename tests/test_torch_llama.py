@@ -122,16 +122,6 @@ def test_init_params_seeded_at_flax_scales():
     assert model.tok_embeddings.dtype == torch.float32
 
 
-def test_unported_branches_raise(models):
-    _, _, tmodel = models
-    ids = torch.zeros((1, 2), dtype=torch.int64)
-    for call in (lambda: tmodel(ids, None, None),
-                 lambda: tl.generate(tmodel, None, ids, 4),
-                 lambda: tl.generate_stream(tmodel, None, ids, 4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
-
-
 def test_pick_token_ties_take_first_max():
     logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [3.0, 3.0, 3.0, 3.0]])
     assert tl._pick_token(logits, 0.0).tolist() == [1, 0]

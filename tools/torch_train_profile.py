@@ -1,13 +1,17 @@
-"""Where the time of the port's GPT-2 train step goes, on one NVIDIA GPU.
+"""Where the time of the port's train step goes, on one NVIDIA GPU.
 
-    python3 tools/torch_train_profile.py [--steps 5] [--seed 0]
-        [--out profile.json]
+    python3 tools/torch_train_profile.py [--model {gpt2,llama-1.1b}]
+        [--steps 5] [--seed 0] [--out profile.json]
 
 Runs from the root of a checkout of the repo (it imports
-``ray_tpu_torch``; no JAX). The step is the one ``chip_smoke.py``
-phase 7 times: GPT-2-124M (bf16 compute on fp32 params, random weights
-from ``--seed``) at batch 24 x T 1024 of ``RandomState(0)`` token ids,
-AdamW, flash attention through the port's CUDA kernels. Under
+``ray_tpu_torch``; no JAX). ``--model`` takes ``bench.py``'s names. The
+step is the one ``chip_smoke.py`` times: for ``gpt2`` (default, phase
+7) GPT-2-124M at batch 24 x T 1024, for ``llama-1.1b`` (phase 7b)
+TinyLlama-1.1B widths with remat at batch 8 x T 1024 and the mean
+cross-entropy of the fp32 logits; both bf16 compute on fp32 params,
+random weights from ``--seed``, ``RandomState(0)`` token ids,
+``adamw(3e-4, weight_decay=0.1)``, flash attention through the port's
+CUDA kernels. Under
 ``torch.profiler`` it reports, beside the card's name and power limit:
 wall time per step (without the profiler), device-busy time per step
 (sum of kernel times), the idle share, kernel launches per step, the
@@ -18,6 +22,7 @@ together), matrix products, and everything else.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import sys
 from pathlib import Path
@@ -31,6 +36,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 from torch_decode_profile import _card, _profile  # noqa: E402
 
 from ray_tpu_torch.models import gpt2  # noqa: E402
+from ray_tpu_torch.models import llama  # noqa: E402
 from ray_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from ray_tpu_torch.train import spmd  # noqa: E402
 
@@ -44,10 +50,33 @@ _FLASH = {"k3_ms": ("::fwd_kernel<", "::fwd_sm90<"),
 _GEMM = ("gemm", "xmma", "cutlass", "nvjet", "cublas")
 
 
-def _loss(model, b):
+def _gpt2_loss(model, b):
     x, y = b["ids"][:, :-1], b["ids"][:, 1:]
     return gpt2.linear_cross_entropy(model(x, return_features=True),
                                      model.wte, y)
+
+
+def _llama_loss(model, b):
+    x, y = b["ids"][:, :-1], b["ids"][:, 1:]
+    logits = model(x)
+    return torch.nn.functional.cross_entropy(
+        logits.reshape(-1, logits.shape[-1]), y.reshape(-1).long())
+
+
+def _setup(name: str, seed: int):
+    """(description, model, loss, batch size, sequence length, vocab
+    size) of ``bench.py``'s ``--model name`` on the card."""
+    if name == "llama-1.1b":
+        cfg = llama.tinyllama_1_1b(max_seq_len=1024, remat=True)
+        sd = llama.init_params(
+            dataclasses.replace(cfg, dtype=cfg.param_dtype), seed, "cuda")
+        return ("TinyLlama-1.1B (remat)",
+                llama.build_train_model(cfg, sd, "cuda"), _llama_loss,
+                8, 1024, cfg.vocab_size)
+    cfg = gpt2.gpt2_124m()
+    return ("GPT-2-124M",
+            gpt2.build_model(cfg, gpt2.init_params(cfg, seed, "cuda"),
+                             "cuda"), _gpt2_loss, 24, 1024, cfg.vocab_size)
 
 
 def _groups(top_all) -> dict:
@@ -68,6 +97,8 @@ def _groups(top_all) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--model", choices=("gpt2", "llama-1.1b"),
+                    default="gpt2")
     ap.add_argument("--steps", type=int, default=5)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None)
@@ -79,27 +110,25 @@ def main(argv=None) -> int:
     card = _card()
     fa.load_kernel()
     fa.load_kernel(sm90=True)
-    cfg = gpt2.gpt2_124m()
-    B, T = 24, 1024
-    model = gpt2.build_model(cfg, gpt2.init_params(cfg, args.seed, "cuda"),
-                             "cuda")
+    what, model, loss, B, T, vocab = _setup(args.model, args.seed)
     opt = spmd.adamw(3e-4, weight_decay=0.1)
     state = spmd.TrainState.create(model, opt)
-    step = spmd.make_train_step(_loss, opt)
+    step = spmd.make_train_step(loss, opt)
     batch = spmd.put_batch({"ids": np.random.RandomState(0).randint(
-        0, cfg.vocab_size, size=(B, T + 1), dtype=np.int32)}, "cuda")
+        0, vocab, size=(B, T + 1), dtype=np.int32)}, "cuda")
 
     def train_step():
         step(state, batch)
 
-    res = {"card": card, "torch": torch.__version__, "batch": B, "seq": T}
+    res = {"card": card, "torch": torch.__version__, "model": args.model,
+           "batch": B, "seq": T}
     prof = _profile(train_step, args.steps, top=None)
     res["train_step"] = {k: v for k, v in prof.items()
                          if k != "top_kernels_ms"}
     res["train_step"]["top_kernels_ms"] = prof["top_kernels_ms"][:12]
     res["train_step"].update(_groups(prof["top_kernels_ms"]))
     res["train_step"]["tokens_per_s"] = B * T / (prof["wall_ms"] / 1e3)
-    print(f"GPT-2-124M train step, batch {B} x T {T}, on {card}: "
+    print(f"{what} train step, batch {B} x T {T}, on {card}: "
           f"{json.dumps(res['train_step'], indent=1)}")
     if args.out:
         with open(args.out, "w") as f:
