@@ -6,10 +6,10 @@ sm_90a).
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
-which raises on failure, run in the order 1, 3, 4, 4b, 4c, 2, 5, 6, 6b,
-7, 7b: the host-timed serving phases come before any torch.profiler
-session, since a process that has run one launches kernels at a higher
-host cost for the rest of its life.
+which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 2, 5, 6,
+6b, 7, 7b, then 4d's profile: the host-timed serving phases come before
+any torch.profiler session, since a process that has run one launches
+kernels at a higher host cost for the rest of its life.
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
    limit. Builds the port's CUDA sources (K1 and K2, each with its
@@ -50,6 +50,24 @@ host cost for the rest of its life.
    a prompt sharing the 45-token prompt's first page — identical
    streams, 2 hit admissions, both engines leak-free (allocator
    occupancy equals the cache's pages, tree invariants hold). Then the
+   engine's loops and lanes, card vs CPU, on the fp and on the int8
+   pool: the 4 prompts and a repetitive one (an 8-token block x 4), 24
+   greedy tokens, an eos that the lockstep stream of the first prompt
+   first emits mid-stream, for ``overlap`` False and True x
+   ``spec_len`` 0 and 4 (``spec_ngram`` 1): on the fp pool identical
+   streams in every mode, also equal to the lockstep streams without
+   speculation; on the int8 pool identical, or parting at a near-tie
+   (at the first differing token both devices' tokens within 0.1 of
+   the top logit, teacher-forced on the CPU over a fresh int8 pool: the
+   two pools' bytes differ by one int8 step here and there, since a
+   last-bit difference of an fp32 K or V value flips ``round``); the
+   verify run on the card in both pools. Then the overlapped loop's
+   stale path on the card: each decode dispatch queued behind a ~50 ms
+   spin kernel (the card behind the host, as in a device-bound step;
+   decode chunk 2), spec_len 0 and 4: ``fetchq_depth`` reaches 2 (at most 2 with
+   speculation) and the streams equal the CPU's lockstep ones. And
+   ``capture_logprobs=True``: the same streams, logprobs within 1e-4
+   and as many as tokens. Then the
    same model and prompts through the static-cache loops: greedy
    ``generate`` (16 new tokens) identical on the card and on the CPU,
    and ``generate_stream`` (chunk 8) identical to ``generate``.
@@ -97,6 +115,35 @@ host cost for the rest of its life.
    the ``__call__``) within 0.05 of the top logit, in bf16 and with the
    bf16 weights in fp32. Prints the batch's tok/s and ms per streamed
    token beside the card's name and power limit.
+4d. The engine's default loop at full width: TinyLlama-1.1B bf16
+   (random weights from ``--seed``) through ``LlamaDeployment``, 16
+   slots, 64-token pages, 64 new tokens; one wave of 16 requests, each
+   streamed by its own thread: 8 repetitive prompts (a 64-256-token
+   block repeated to 512-1536 tokens, as in code-edit and extraction
+   traffic) and 8 random ones of 16-1536 tokens. The eos is the token
+   of a warm-up run of the wave without one that the most streams hold
+   (then the most often). The wave runs three ways: ``overlap=False``,
+   ``overlap=True``, and ``overlap=True, spec_len=4``. Checks: every
+   stream ends at its first eos or at 64 tokens, at least 4 end early;
+   K1 launched once per layer on every decode-lane step and K2 never;
+   ``fetchq_depth`` (``load_report``'s, read right after each decode
+   dispatch) at most 2, its maximum recorded (the card finishes each
+   dispatch before the host plans the next round here, so the
+   overlapped arm holds one; phase 3 shows it holding two when the
+   card lags); the speculative arm verified and accepted drafts; teacher-forced through the gather
+   path, every token of the 2 longest speculative repetitive streams
+   within 0.05 of the top logit, in bf16 and with the bf16 weights in
+   fp32. Prints output tok/s, TTFT p50, time per output token p50,
+   decode-lane and verify dispatches, and for the speculative arm
+   ``accept_rate`` and ``tokens_per_dispatch``, beside the card's name
+   and power limit. Then 4 requests (2 repetitive, 2 random, the eos
+   on) through ``LLMEngine(capture_logprobs=True)``: as many logprobs
+   as tokens, each within 0.05 of the teacher-forced fp32
+   ``log_softmax`` of the served bf16 model (and the distance to the
+   same weights in fp32 printed). After phase 7b (no profiler session
+   may precede a timed phase), torch.profiler's device time of one
+   verify dispatch (16 rows x 5 tokens) against one decode step, on a
+   fresh model and pool of this shape.
 5. The flash-attention kernels against their plain versions on the
    card, each on the same inputs as its plain version: K3 (forward),
    K4 (dQ) and K5 (dK, dV) in fp32 (the scalar kernels) at T
@@ -154,7 +201,9 @@ host cost for the rest of its life.
    ms per step, MFU (``llama_flops_per_token(cfg, 1024)`` against 989
    TFLOP/s) and peak device memory beside the card's name and power
    limit.
-8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; the flash rows
+8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; K1's
+   ``launches`` are phase 4's, ``launches_default_loop`` phase 4d's
+   three arms; the flash rows
    at the GPT-2 shape with phase 7's launches, and under
    ``"llama_1_1b"`` at the TinyLlama shape with phase 7b's), then the
    ``{"ok": true, ...}`` line.
@@ -164,6 +213,7 @@ Exits non-zero, printing no result, when no CUDA device is visible.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import subprocess
@@ -180,6 +230,7 @@ K1_FP32_TOL = 1e-4
 K1_BF16_ATOL, K1_BF16_RTOL = 4e-3, 2.0 ** -7
 SDPA_TOL = 2e-2                    # the yardstick rounds P to bf16
 LOGIT_SLACK = 0.05
+LOGPROB_CARD_TOL = 1e-4            # fp32 logprobs, card vs CPU
 INT8_LOGIT_SLACK = 0.1             # + one int8 step (s/254) per element
 FLASH_FP32_TOL = 1e-4
 FLASH_BF16_O = (4e-3, 2.0 ** -7)   # one rounding of an fp32 result
@@ -460,10 +511,11 @@ def phase_kernels(pa, seed: int, int8: bool = False) -> dict:
                 "dtype": "int8 pages, bfloat16 q" if int8 else "bfloat16"}}
 
 
-def _serve(model, waves, n, device, **kw):
+def _serve(model, waves, n, device, logprobs=None, **kw):
     """Each wave of prompts submitted after the previous one finished;
     the streams per wave, and the engine (checked leak-free: every page
-    free or held by the prefix cache)."""
+    free or held by the prefix cache). With ``capture_logprobs`` each
+    request's logprobs are appended to the list ``logprobs``."""
     from ray_tpu_torch.serve.engine import LLMEngine
     eng = LLMEngine(model, max_slots=4, page_size=16, n_pages=64,
                     chunk=4, device=device, **kw)
@@ -473,6 +525,8 @@ def _serve(model, waves, n, device, **kw):
         while eng.step():
             pass
         out.append([h.result() for h in hs])
+        if logprobs is not None:
+            logprobs += [h.logprobs for h in hs]
     cached = 0
     if eng.prefix_cache is not None:
         eng.prefix_cache.check_invariants()
@@ -526,6 +580,145 @@ def phase_engine_parity(tl, seed: int) -> None:
           "31 hit tokens; both leak-free")
 
 
+def phase_engine_modes(tl, seed: int) -> dict:
+    """Phase 3's model and prompts (plus a repetitive one) through the
+    engine's loops and lanes on the card and on the CPU: for each pool,
+    ``overlap`` off and on x ``spec_len`` 0 and 4 (``spec_ngram`` 1:
+    phase 3's random model rarely repeats a longer suffix), with an eos
+    that the lockstep stream of the shortest prompt first emits
+    mid-stream. On the fp pool card == CPU for every mode, and every
+    mode gives the lockstep streams without speculation (fp32
+    speculation is exact). On the int8 pool card == CPU, or a stream
+    parts at a near-tie: both tokens within ``INT8_LOGIT_SLACK`` of the
+    top logit (``_int8_parting_gaps``: int8 bytes cannot match across
+    devices). The verify ran on the card in both pools. Then logprob
+    capture: the same streams, logprobs within ``LOGPROB_CARD_TOL``."""
+    cfg = tl.LlamaConfig(vocab_size=32000, max_seq_len=256, dim=512,
+                         n_layers=2, n_heads=8, n_kv_heads=2,
+                         hidden_dim=1024, dtype=torch.float32)
+    sd = tl.init_params(cfg, seed=seed, device="cpu")
+    g = np.random.default_rng(seed)
+    prompts = [g.integers(0, cfg.vocab_size, n).tolist()
+               for n in (1, 16, 17, 45)]
+    prompts.append(g.integers(0, cfg.vocab_size, 8).tolist() * 4)
+    models = {d: tl.build_model(cfg, sd, d) for d in ("cpu", "cuda")}
+    n = 24
+    res = {}
+    for kv_dtype in ("fp", "int8"):
+        base, _ = _serve(models["cpu"], [prompts], n, "cpu",
+                         kv_dtype=kv_dtype, overlap=False)
+        first = base[0][0]
+        eos = next(t for i, t in enumerate(first)
+                   if i >= n // 3 and t not in first[:i])
+        want = [s[:s.index(eos) + 1] if eos in s else s for s in base[0]]
+        rounds, parted = {}, {}
+        for overlap in (False, True):
+            for spec in (0, 4):
+                runs = {}
+                for device in ("cpu", "cuda"):
+                    runs[device], eng = _serve(
+                        models[device], [prompts], n, device,
+                        kv_dtype=kv_dtype, eos_id=eos, overlap=overlap,
+                        spec_len=spec, spec_ngram=1)
+                    if spec:
+                        rounds[(device, overlap)] = \
+                            eng.spec_stats()["rounds"]
+                mode = (f"{kv_dtype} pool, overlap={overlap}, "
+                        f"spec_len={spec}, eos {eos}")
+                gaps = ([] if kv_dtype == "fp" else _int8_parting_gaps(
+                    models["cpu"], prompts, runs["cpu"][0],
+                    runs["cuda"][0]))
+                parted[mode] = gaps
+                if ((kv_dtype == "fp" and runs["cpu"] != runs["cuda"])
+                        or any(x > INT8_LOGIT_SLACK for x in gaps)):
+                    raise AssertionError(
+                        f"{mode}: card and CPU streams differ (int8: "
+                        f"parting gaps {gaps}, allowed "
+                        f"{INT8_LOGIT_SLACK}):\n{runs['cuda']}\n"
+                        f"{runs['cpu']}")
+                if kv_dtype == "fp" and runs["cuda"][0] != want:
+                    raise AssertionError(
+                        f"{mode}: streams differ from the lockstep "
+                        f"loop's without speculation:\n{runs['cuda'][0]}"
+                        f"\n{want}")
+        if not all(rounds.values()):
+            raise AssertionError(f"{kv_dtype} pool: a spec run verified "
+                                 f"nothing: {rounds}")
+        res[kv_dtype] = {"eos": eos, "spec_rounds": {
+            f"{d} overlap={o}": r for (d, o), r in rounds.items()},
+            "parting_gaps": parted}
+        n_parted = sum(map(len, parted.values()))
+        print(f"phase 3: {kv_dtype} pool, overlap off/on x spec_len 0/4 "
+              f"(spec_ngram 1) with eos {eos}: "
+              + ("card == CPU in every mode, and == the lockstep stream "
+                 "without speculation" if kv_dtype == "fp" else
+                 f"card == CPU but for {n_parted} of "
+                 f"{4 * len(prompts)} streams, each parting at a "
+                 f"near-tie (max gap "
+                 f"{max((x for v in parted.values() for x in v), default=0):.4f}"
+                 f", allowed {INT8_LOGIT_SLACK})")
+              + f"; verify rounds {res[kv_dtype]['spec_rounds']}")
+    # The overlapped loop's stale path on the card. At these sizes (and
+    # at phase 4d's) the host is the bottleneck: each dispatch is done
+    # before the next round is planned, so the pipeline never holds two.
+    # Queued behind a ~50 ms spin, each decode dispatch finishes after
+    # the next round is planned from a stale frontier, as in a
+    # device-bound step: two dispatches in flight, the eos revealed a
+    # round late, the streams those of the CPU's lockstep loop.
+    from ray_tpu_torch.serve.engine import LLMEngine
+    eos = res["fp"]["eos"]
+    want, _ = _serve(models["cpu"], [prompts], n, "cpu", eos_id=eos,
+                     overlap=False)
+    lagged = {}
+    for spec in (0, 4):
+        # decode chunk 2: dispatches of at most 4 steps (~600 kernels);
+        # one of more kernels than CUDA's launch queue holds would block
+        # the host behind the spin until the card catches up
+        eng = LLMEngine(models["cuda"], max_slots=4, page_size=16,
+                        n_pages=64, chunk=2, device="cuda", eos_id=eos,
+                        overlap=True, spec_len=spec, spec_ngram=1)
+        depths = _probe_depth(eng, lag_cycles=25 * SPIN_CYCLES)
+        hs = [eng.submit(p, max_new_tokens=n) for p in prompts]
+        while eng.step():
+            pass
+        got = [h.result() for h in hs]
+        del eng._dispatch_chunk_locked
+        if got != want[0] or eng.alloc.occupancy():
+            raise AssertionError(f"device-lagged overlapped loop, spec_len"
+                                 f" {spec}: streams differ from the CPU's "
+                                 f"lockstep ones, or pages leaked:\n{got}"
+                                 f"\n{want[0]}")
+        lagged[spec] = max(depths, default=0)
+    if lagged[0] != 2 or lagged[4] > 2:
+        raise AssertionError(f"device-lagged overlapped loop: fetchq_depth "
+                             f"reached {lagged}, want 2 without "
+                             f"speculation and at most 2 with it")
+    res["lagged_fetchq_depth_max"] = lagged
+    print(f"phase 3: overlapped loop on the card with each decode "
+          f"dispatch queued behind a ~50 ms spin (the card behind the "
+          f"host): fetchq_depth reached {lagged[0]} (spec_len 4: "
+          f"{lagged[4]}), streams == the CPU's lockstep ones, eos {eos}")
+    lps, toks = {}, {}
+    for device in ("cpu", "cuda"):
+        lps[device] = []
+        toks[device], _ = _serve(models[device], [prompts], n, device,
+                                 logprobs=lps[device],
+                                 capture_logprobs=True)
+    if toks["cpu"] != toks["cuda"]:
+        raise AssertionError("logprob capture: card and CPU streams differ")
+    err = max(abs(a - b) for x, y in zip(lps["cpu"], lps["cuda"])
+              for a, b in zip(x, y))
+    if (any(len(x) != len(t) for x, t in zip(lps["cuda"], toks["cuda"][0]))
+            or err > LOGPROB_CARD_TOL):
+        raise AssertionError(f"logprob capture: card vs CPU max error "
+                             f"{err} (allowed {LOGPROB_CARD_TOL}), or "
+                             f"lengths differ from the tokens")
+    res["logprob_max_abs_err"] = err
+    print(f"phase 3: logprob capture, card vs CPU: the same streams, "
+          f"logprobs within {err:.2e} (allowed {LOGPROB_CARD_TOL})")
+    return res
+
+
 def phase_generate_parity(tl, seed: int) -> None:
     """Phase 3's model through the static-cache loops: greedy
     ``generate`` on the card equal to the CPU's for each of its 4
@@ -556,21 +749,71 @@ def phase_generate_parity(tl, seed: int) -> None:
           "prompts, 16 greedy tokens each")
 
 
-def _teacher_forced_gaps(model, prompt, completion,
-                         kv_dtype: str = "fp") -> list:
-    """(top logit - logit of the generated token) at each completion
-    position, from one T > 1 forward (gather path, no kernel) of
-    ``model`` over prompt + completion in a fresh ``kv_dtype`` pool."""
+def _teacher_forced_logits(model, prompt, completion,
+                           kv_dtype: str = "fp",
+                           device: str = "cuda") -> torch.Tensor:
+    """fp32 logits [len(completion), vocab] that predict each completion
+    token, from one T > 1 forward (gather path, no kernel) of ``model``
+    (on ``device``) over prompt + completion in a fresh ``kv_dtype``
+    pool."""
     from ray_tpu_torch.models.kv_cache import init_kv_pool, kv_layer_view
     ids = prompt + completion[:-1]
     Pg = 64
     n = -(-len(ids) // Pg)
-    pool = init_kv_pool(model.cfg, n + 1, Pg, kv_dtype, device="cuda")
-    pt = torch.arange(1, n + 1, dtype=torch.int32, device="cuda")[None]
-    logits = model(torch.tensor([ids], device="cuda"),
+    pool = init_kv_pool(model.cfg, n + 1, Pg, kv_dtype, device=device)
+    pt = torch.arange(1, n + 1, dtype=torch.int32, device=device)[None]
+    logits = model(torch.tensor([ids], device=device),
                    [kv_layer_view(layer, pt) for layer in pool],
-                   torch.zeros(1, dtype=torch.int32, device="cuda"))[0]
-    rows = logits[len(prompt) - 1:]
+                   torch.zeros(1, dtype=torch.int32, device=device))[0]
+    return logits[len(prompt) - 1:]
+
+
+def _probe_depth(eng, lag_cycles: int = 0) -> list:
+    """Record ``load_report``'s ``fetchq_depth`` right after each decode
+    dispatch of ``eng`` (the moment the pipeline is deepest; between
+    steps the trailing drain has already taken the older dispatch) into
+    the returned list. With ``lag_cycles`` each dispatch is queued
+    behind a spin kernel of that many cycles, so the card runs behind
+    the host as in a device-bound step."""
+    depths = []
+    dispatch = eng._dispatch_chunk_locked
+
+    def probe(steps):
+        if lag_cycles:
+            torch.cuda._sleep(lag_cycles)
+        dispatch(steps)
+        depths.append(eng._report_locked()["fetchq_depth"])
+
+    eng._dispatch_chunk_locked = probe     # ``del`` it to restore
+    return depths
+
+
+def _int8_parting_gaps(model, prompts, cpu, card) -> list:
+    """Where a card stream parts from the CPU's over an int8 pool: at the
+    first differing token, (top logit - logit) of the CPU's and of the
+    card's token, teacher-forced on the CPU over a fresh int8 pool. The
+    two pools cannot hold the same bytes: a last-bit difference of an
+    fp32 K or V value flips ``round`` now and then, so one int8 element
+    in a few thousand differs by one step (seen from the first round on,
+    with and without speculation), and a near-tie can then go either
+    way."""
+    gaps = []
+    for p, a, b in zip(prompts, cpu, card):
+        if a == b:
+            continue
+        i = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        row = _teacher_forced_logits(model, p, a[:i + 1], "int8",
+                                     "cpu")[-1]
+        gaps.append(max(float(row.max() - row[a[i]]),
+                        float(row.max() - row[b[i]])))
+    return gaps
+
+
+def _teacher_forced_gaps(model, prompt, completion,
+                         kv_dtype: str = "fp") -> list:
+    """(top logit - logit of the generated token) at each completion
+    position, teacher-forced (``_teacher_forced_logits``)."""
+    rows = _teacher_forced_logits(model, prompt, completion, kv_dtype)
     tok = torch.tensor(completion, device="cuda")
     gap = rows.max(dim=-1).values - rows[torch.arange(len(completion)),
                                          tok]
@@ -1002,6 +1245,269 @@ def phase_static_path(tl, seed: int, smi: str) -> dict:
     return res
 
 
+def _default_loop_wave(tl, seed: int, vocab: int) -> list:
+    """Phase 4d's 16 prompts: 8 repetitive — two blocks of 64-256
+    tokens (two documents), each repeated whole to four lengths in
+    512-1536, as in code-edit and extraction traffic over one document
+    — and 8 random of 16-1536 tokens."""
+    g = np.random.default_rng(seed + 4)
+    prompts = []
+    for _ in range(2):
+        block = g.integers(0, vocab, int(g.integers(64, 257))).tolist()
+        reps = np.arange(-(-512 // len(block)), 1536 // len(block) + 1)
+        for k in g.choice(reps, 4, replace=len(reps) < 4):
+            prompts.append(block * int(k))
+    prompts += [g.integers(0, vocab, int(n)).tolist()
+                for n in g.integers(16, 1537, 8)]
+    return prompts
+
+
+def _run_wave(dep, prompts) -> tuple:
+    """Every prompt streamed by its own thread: (streams, token stamps,
+    wall seconds)."""
+    outs = [None] * len(prompts)
+    stamps = [[] for _ in prompts]
+
+    def stream(i):
+        toks = []
+        for t in dep.stream(prompts[i]):
+            stamps[i].append(time.monotonic())
+            toks.append(t)
+        outs[i] = toks
+
+    t0 = time.monotonic()
+    threads = [threading.Thread(target=stream, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a streaming request did not finish")
+    return outs, stamps, time.monotonic() - t0
+
+
+def phase_default_loop_path(tl, pa, seed: int, smi: str) -> tuple:
+    """Phase 4d: the engine's default loop at full width — the lockstep
+    loop, the overlapped loop, and the overlapped loop with n-gram
+    speculation — over one wave with an eos, then logprob capture."""
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+    cfg = tl.tinyllama_1_1b()
+    n_new, Pg = 64, 64
+    params = tl.init_params(cfg, seed=seed, device="cuda")
+    prompts = _default_loop_wave(tl, seed, cfg.vocab_size)
+    p50 = lambda xs: sorted(xs)[len(xs) // 2]  # noqa: E731
+
+    def deployment(**kw):
+        # the deployments share ``params`` (build_model does not copy)
+        return LlamaDeployment(cfg, params, max_new_tokens=n_new,
+                               max_slots=16, page_size=Pg, device="cuda",
+                               **kw)
+
+    # the eos: of the wave served without one, the token that the most
+    # streams first emit mid-stream (at their 5th token or later), then
+    # the most frequent — an eos that ends several requests early
+    # after some decoding, not one stream's repeated token
+    dep = deployment()
+    warm = dep.generate_batch(prompts)
+    dep.shutdown()
+    del dep
+    counts = collections.Counter(t for o in warm for t in o)
+    streams = collections.Counter(t for o in warm for t in set(o)
+                                  if o.index(t) >= 4)
+    eos = max(streams, key=lambda t: (streams[t], counts[t]))
+    print(f"phase 4d: warm-up wave without an eos: eos {eos}, first "
+          f"emitted mid-stream by {streams[eos]} of {len(warm)} streams, "
+          f"{counts[eos]} times in all")
+
+    arms = (("lockstep", dict(overlap=False, spec_len=0)),
+            ("overlap", dict(overlap=True, spec_len=0)),
+            ("overlap+spec", dict(overlap=True, spec_len=4)))
+    res = {"card": smi, "model": "tinyllama_1_1b bf16 (random weights, "
+           f"seed {seed})", "requests": len(prompts), "new_tokens": n_new,
+           "prompt_tokens": sum(map(len, prompts)), "eos_id": eos,
+           "eos_count_in_warm_wave": counts[eos],
+           "eos_mid_stream_in_warm_wave": streams[eos], "arms": {}}
+    for name, kw in arms:
+        dep = deployment(eos_id=eos, **kw)
+        eng = dep.engine()
+        dep(prompts[0][:100])           # the verify and the decode warm
+        eng.reset_latency_stats()
+        depths = _probe_depth(eng)
+        stats0 = dict(eng.stats)
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_attention.launches_int8 = 0
+        outs, stamps, wall = _run_wave(dep, prompts)
+        launches = (pa.paged_decode_attention.launches,
+                    pa.paged_decode_attention.launches_int8)
+        del eng._dispatch_chunk_locked      # the probe's reference cycle
+        delta = {k: eng.stats[k] - stats0.get(k, 0)
+                 for k in ("decode_steps", "chunks", "spec_rounds",
+                           "spec_riders", "spec_proposed", "spec_accepted",
+                           "spec_tokens")}
+        bad = [i for i, o in enumerate(outs)
+               if not (o and (o.index(eos) == len(o) - 1 if eos in o
+                              else len(o) == n_new))]
+        if bad:
+            raise AssertionError(f"{name}: streams {bad} do not end at "
+                                 f"their first eos {eos} or at {n_new}")
+        early = sum(len(o) < n_new for o in outs)
+        if early < 4:
+            raise AssertionError(f"{name}: only {early} requests ended "
+                                 f"early at the eos {eos}")
+        if launches != (cfg.n_layers * delta["decode_steps"], 0):
+            raise AssertionError(
+                f"{name}: (K1, K2) launches {launches} != "
+                f"({cfg.n_layers} layers x {delta['decode_steps']} "
+                f"decode-lane steps, 0)")
+        if max(depths, default=0) > 2:
+            raise AssertionError(f"{name}: fetchq_depth reached "
+                                 f"{max(depths)} (at most 2)")
+        n_out = sum(map(len, outs))
+        tpots = [(s[-1] - s[0]) / (len(s) - 1) for s in stamps
+                 if len(s) > 1]
+        arm = {"output_tok_s": n_out / wall, "output_tokens": n_out,
+               "wall_s": wall, "ttft_p50_s": p50(list(eng.ttfts_s)),
+               "tpot_p50_s": p50(tpots), "ended_at_eos": early,
+               "decode_lane_steps": delta["decode_steps"],
+               "decode_lane_dispatches": delta["chunks"],
+               "verify_dispatches": delta["spec_rounds"],
+               "k1_launches": launches[0],
+               "fetchq_depth_max": max(depths, default=0)}
+        if kw["spec_len"]:
+            # spec_stats() over this wave only (the warm-up excluded)
+            spec = {"rounds": delta["spec_rounds"],
+                    "proposed_tokens": delta["spec_proposed"],
+                    "accepted_tokens": delta["spec_accepted"],
+                    "accept_rate": delta["spec_accepted"]
+                    / max(1, delta["spec_proposed"]),
+                    "tokens_per_dispatch": delta["spec_tokens"]
+                    / max(1, delta["spec_riders"])}
+            if spec["rounds"] <= 0 or spec["accepted_tokens"] <= 0:
+                raise AssertionError(f"{name}: speculation did not engage:"
+                                     f" {spec}")
+            arm["spec_stats"] = spec
+            spec_dep, spec_outs = dep, outs
+        else:
+            dep.shutdown()
+        res["arms"][name] = arm
+        print(f"phase 4d: {name}: {len(prompts)} requests, eos {eos}, on "
+              f"{smi}: output {arm['output_tok_s']:.1f} tok/s ({n_out} "
+              f"tokens, {early} ended at the eos), TTFT p50 "
+              f"{arm['ttft_p50_s'] * 1e3:.1f} ms, time per output token "
+              f"p50 {arm['tpot_p50_s'] * 1e3:.2f} ms; {delta['chunks']} "
+              f"decode-lane dispatches ({delta['decode_steps']} steps, K1 "
+              f"{launches[0]} = {cfg.n_layers} x {delta['decode_steps']}),"
+              f" {delta['spec_rounds']} verify dispatches; fetchq_depth "
+              f"max {arm['fetchq_depth_max']}"
+              + (f"; accept_rate {spec['accept_rate']:.4f}, "
+                 f"tokens_per_dispatch {spec['tokens_per_dispatch']:.4f}"
+                 if kw["spec_len"] else ""))
+
+    # teacher-forced, through the gather path: every token of the 2
+    # longest speculative streams of repetitive prompts, in bf16 and
+    # with the same bf16 weights evaluated in fp32
+    checked = sorted(range(8), key=lambda i: -len(spec_outs[i]))[:2]
+    ref32 = tl.build_model(dataclasses.replace(cfg, dtype=torch.float32),
+                           {k: v.float() for k, v in params.items()},
+                           "cuda")
+    gaps = {kind: [x for i in checked
+                   for x in _teacher_forced_gaps(m, prompts[i],
+                                                 spec_outs[i])]
+            for kind, m in (("bf16", spec_dep.model), ("fp32", ref32))}
+    for kind, gs in gaps.items():
+        if max(gs) > LOGIT_SLACK:
+            raise AssertionError(
+                f"phase 4d teacher-forced: a speculative token sits "
+                f"{max(gs)} below the top {kind} logit (allowed "
+                f"{LOGIT_SLACK})")
+    res["teacher_forced_max_gap"] = {k: max(v) for k, v in gaps.items()}
+    res["teacher_forced_positions"] = len(gaps["bf16"])
+    print(f"phase 4d: teacher-forced over {len(gaps['bf16'])} tokens of 2 "
+          f"speculative requests: max gap to the top logit "
+          f"{max(gaps['bf16']):.4f} in bf16, {max(gaps['fp32']):.4f} in "
+          f"fp32")
+
+    spec_dep.shutdown()
+    # logprob capture: 4 requests (2 repetitive, 2 random), the eos on
+    lp_eng = LLMEngine(spec_dep.model, max_slots=16, page_size=Pg,
+                       n_pages=16 * 32 + 1, chunk=8, eos_id=eos,
+                       capture_logprobs=True, device="cuda")
+    picked = [prompts[0], prompts[1], prompts[8], prompts[9]]
+    hs = [lp_eng.submit(p, max_new_tokens=n_new) for p in picked]
+    while lp_eng.step():
+        pass
+    errs = {"bf16": [], "fp32": []}
+    for p, h in zip(picked, hs):
+        toks, lps = h.result(), h.logprobs
+        if len(lps) != len(toks):
+            raise AssertionError(f"{len(lps)} logprobs for {len(toks)} "
+                                 f"tokens")
+        for kind, m in (("bf16", spec_dep.model), ("fp32", ref32)):
+            want = torch.log_softmax(
+                _teacher_forced_logits(m, p, toks).float(), dim=-1)[
+                torch.arange(len(toks)), torch.tensor(toks)].tolist()
+            errs[kind] += [abs(a - b) for a, b in zip(lps, want)]
+    del ref32
+    res["logprob_max_abs_err"] = {k: max(v) for k, v in errs.items()}
+    res["logprob_tokens"] = len(errs["bf16"])
+    if max(errs["bf16"]) > LOGIT_SLACK:
+        raise AssertionError(
+            f"captured logprobs {max(errs['bf16'])} from the "
+            f"teacher-forced fp32 log_softmax (allowed {LOGIT_SLACK})")
+    print(f"phase 4d: logprob capture at full width, 4 requests, "
+          f"{len(errs['bf16'])} tokens: captured vs teacher-forced fp32 "
+          f"log_softmax of the bf16 model max error "
+          f"{max(errs['bf16']):.4f} (allowed {LOGIT_SLACK}); of the same "
+          f"weights in fp32 {max(errs['fp32']):.4f}")
+    return res
+
+
+def phase_verify_device_time(tl, seed: int, smi: str) -> dict:
+    """Device time (torch.profiler, kernels and copies summed) of one
+    speculative verify dispatch (the engine's ``_verify_step``: 16 rows
+    x 5 tokens through the gather path, argmax read back) against one
+    decode step (``_decode_step``), on phase 4d's model and pool shape
+    at the wave's positions + 32. Runs last: no profiler session comes
+    before a timed phase."""
+    from ray_tpu_torch.serve.engine import LLMEngine
+    cfg = tl.tinyllama_1_1b()
+    model = tl.build_model(cfg, tl.init_params(cfg, seed=seed,
+                                               device="cuda"), "cuda")
+    eng = LLMEngine(model, max_slots=16, page_size=64, n_pages=16 * 32 + 1,
+                    spec_len=4, device="cuda")
+    S, T = 16, eng.spec_len + 1
+    pt = np.arange(1, S * 32 + 1, dtype=np.int32).reshape(S, 32)
+    start = np.asarray([min(len(p) + 32, cfg.max_seq_len - T)
+                        for p in _default_loop_wave(tl, seed,
+                                                    cfg.vocab_size)],
+                       np.int32)
+    rows = np.random.default_rng(seed).integers(
+        0, cfg.vocab_size, (S, T)).astype(np.int32)
+
+    def verify():
+        eng._verify_step(rows, start, pt)
+
+    def decode_step():
+        eng._dev_pos.copy_(torch.from_numpy(start).cuda())
+        eng._decode_step(pt, 1, list(range(S)))
+
+    res = {}
+    for key, fn in (("verify_dispatch", verify),
+                    ("decode_step", decode_step)):
+        events = _device_events(fn)
+        res[f"{key}_device_ms"] = sum(
+            e.time_range.end - e.time_range.start for e in events) / 1e3
+        res[f"{key}_device_events"] = len(events)
+    print(f"phase 4d: device time of one verify dispatch (16 rows x {T} "
+          f"tokens) {res['verify_dispatch_device_ms']:.3f} ms "
+          f"({res['verify_dispatch_device_events']} device events) "
+          f"against one decode step {res['decode_step_device_ms']:.3f} ms "
+          f"({res['decode_step_device_events']}), on {smi}")
+    return res
+
+
 # --------------------------------------------------------------------
 # Training: flash attention (K3, K4, K5) and the GPT-2 train step
 # --------------------------------------------------------------------
@@ -1055,8 +1561,14 @@ def _flash_errors(fa, q, k, v, do, causal, scale, limits):
 
 
 def _device_kernels(fn, warm=None) -> list:
-    """Names of the kernels ``fn`` ran on the card, from torch.profiler
-    (demangled, e.g. ``void (anonymous namespace)::dq_sm90<64>(...)``).
+    """Names of the kernels ``fn`` ran on the card (``_device_events``)."""
+    return [e.name for e in _device_events(fn, warm)]
+
+
+def _device_events(fn, warm=None) -> list:
+    """The device events (kernels, copies) of ``fn`` on the card, from
+    torch.profiler (names demangled, e.g. ``void (anonymous
+    namespace)::dq_sm90<64>(...)``).
     A session can miss a kernel of its first calls (the first bf16
     flash forward of phase 5, on the H100, once the sessions of phases 2
     and 4 had run in the process, though the kernel had run before the
@@ -1080,7 +1592,7 @@ def _device_kernels(fn, warm=None) -> list:
     marks = [e.time_range.end for e in events if "spin_kernel" in e.name]
     if not marks:
         raise AssertionError("the profiler recorded no marker kernel")
-    return [e.name for e in events if e.time_range.start >= max(marks)]
+    return [e for e in events if e.time_range.start >= max(marks)]
 
 
 def _check_tensor_core_route(names, calls: int, where: str) -> dict:
@@ -1635,6 +2147,7 @@ def main(argv=None) -> int:
     # session: after one, the process launches kernels at a higher host
     # cost for the rest of its life.
     phase_engine_parity(tl, args.seed)
+    engine_modes = phase_engine_modes(tl, args.seed)
     phase_generate_parity(tl, args.seed)
     print(f"phase 3 done at {time.monotonic() - t0:.1f} s")
     main_path, steps_fp = phase_main_path(tl, pa, args.seed, smi)
@@ -1646,9 +2159,14 @@ def main(argv=None) -> int:
     static_path = phase_static_path(tl, args.seed, smi)
     print(f"phase 4c done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
+    default_loop = phase_default_loop_path(tl, pa, args.seed, smi)
+    print(f"phase 4d done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
     k1["launches"] = main_path["k1_launches"]
+    k1["launches_default_loop"] = sum(
+        arm["k1_launches"] for arm in default_loop["arms"].values())
     k2["launches"] = int8_path["k2_launches"]
     # which split pass the served pools' decode steps run: the
     # tensor-core pass over bf16 pages on the fp pool (K1) and over int8
@@ -1678,6 +2196,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     llama_train = phase_llama_train_main_path(tl, fa, args.seed, smi)
     print(f"phase 7b done at {time.monotonic() - t0:.1f} s")
+    default_loop.update(phase_verify_device_time(tl, args.seed, smi))
     for row in flash:
         row["launches"] = train["launches"][row["name"]]
         row["llama_1_1b"]["launches"] = \
@@ -1691,6 +2210,8 @@ def main(argv=None) -> int:
                        "main_path": main_path,
                        "int8_prefix_path": int8_path,
                        "static_path": static_path,
+                       "engine_modes": engine_modes,
+                       "default_loop_path": default_loop,
                        "train_main_path": train,
                        "llama_train_main_path": llama_train,
                        "total_s": time.monotonic() - t0}, f, indent=1)

@@ -37,22 +37,36 @@ device (``"cuda"`` by default, ``"cpu"`` when the caller asks).
   slot is evicted, its pages freed, and the request requeued at the
   front with prompt = original prompt + tokens generated so far, so
   clients see an uninterrupted stream.
-- The scheduler is the lockstep loop of the reference
-  (``overlap=False``): without an eos, completions are dispatch-time
-  arithmetic and readbacks trail; with an eos, every round drains
+- The scheduler runs the reference's OVERLAPPED loop by default
+  (``overlap``, env ``RAY_TPU_OVERLAP=0/1``): each round plans from the
+  token frontier the host has read back so far, which may trail the
+  device by one dispatch (``SlotView.stale``), and the trailing drain
+  holds the pipeline at two dispatches. With an eos a slot can decode
+  past a late-revealed eos by at most one decode chunk; emission
+  truncates where the lockstep loop would. ``overlap=False`` is the
+  lockstep loop: with an eos or speculation every round drains the
   readbacks before planning.
+- Speculative decoding (``spec_len``, serve/spec_decode.py): the host
+  proposes prompt-lookup drafts per slot, ONE batched verify scores
+  ``[cur, drafts...]`` rows at each slot's own offset through the
+  paged ``T >= 1`` forward, the longest draft prefix matching the
+  argmax plus the bonus token is kept, and the KV frontier is clamped
+  back to it. Greedy only.
+- Logprob capture (``capture_logprobs``): the chosen token's logprob
+  under the sampling distribution rides each readback beside the
+  tokens (``RequestHandle.logprobs``).
 
-Not ported yet (ROADMAP.md, queue 1): speculative decoding, KV pull
+Not ported yet (ROADMAP.md, queue 1): KV pull
 (``kv_pin_prefix``/``kv_export_pages``/``kv_release_pages``),
 ``swap_weights``, fault injection, priority lanes and replica roles,
-the overlapped loop, logprob capture, tensor parallelism, deadlines,
-the metrics registry and the event log.
+tensor parallelism, deadlines, the metrics registry and the event log.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
 import itertools
+import os
 import queue
 import threading
 import time
@@ -71,6 +85,7 @@ from ray_tpu_torch.serve.errors import (EngineDraining, EngineOverloaded,
                                         RequestError)
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
 from ray_tpu_torch.serve.scheduler import SlotView, StepPlan, plan_step
+from ray_tpu_torch.serve.spec_decode import NGramIndex
 from ray_tpu_torch.util.envknobs import resolve_kv_dtype
 
 _DONE = object()
@@ -89,6 +104,12 @@ class _Request:
     t_submit: float = 0.0        # monotonic clock at submit()
     t_first: Optional[float] = None   # first token EMITTED to stream
     t_last_emit: Optional[float] = None
+    logprobs: Optional[List[float]] = None
+                                 # per-token sampling logprobs, index-
+                                 # aligned with ``generated`` (None
+                                 # unless ``capture_logprobs``);
+                                 # appended by _emit_to in the loop that
+                                 # appends the tokens
 
     @property
     def remaining(self) -> int:
@@ -162,6 +183,16 @@ class RequestHandle:
             return None
         return self._req.t_first - self._req.t_submit
 
+    @property
+    def logprobs(self) -> Optional[List[float]]:
+        """Per-token sampling logprobs, index-aligned with ``result()``:
+        entry i is log p(token_i | prefix) under the distribution that
+        picked it (logits / temperature when temperature > 0). None
+        unless the engine was built with ``capture_logprobs=True``. Read
+        after ``done`` for the complete list."""
+        lp = self._req.logprobs
+        return None if lp is None else list(lp)
+
 
 @dataclasses.dataclass
 class _Slot:
@@ -183,6 +214,11 @@ class _Slot:
     preempted: bool = False      # in-flight tokens must be discarded
     shared: int = 0              # leading pages owned by the prefix
                                  # cache (read-only for this slot)
+    spec: Optional[Any] = None   # per-slot proposer (NGramIndex); dies
+                                 # with the slot on preemption
+    spec_pending: List[int] = dataclasses.field(default_factory=list)
+                                 # drafts proposed at plan time, used by
+                                 # this round's verify
 
     @property
     def prefill_remaining(self) -> int:
@@ -190,28 +226,39 @@ class _Slot:
 
 
 class _Readback:
-    """A device buffer's copy into pinned host memory, enqueued right
-    behind the dispatch that produced it, and the event that marks the
-    copy done. On the CPU the buffer is its own copy."""
+    """A dispatch's token buffer (and, under logprob capture, its fp32
+    logprob buffer) copied into pinned host memory right behind the
+    dispatch, and the event that marks the copies done. On the CPU the
+    buffers are their own copies."""
 
-    def __init__(self, buf: torch.Tensor):
+    def __init__(self, buf: torch.Tensor,
+                 lps: Optional[torch.Tensor] = None):
+        bufs = [buf] if lps is None else [buf, lps]
         if buf.device.type == "cuda":
-            self.host = torch.empty(buf.shape, dtype=buf.dtype,
-                                    pin_memory=True)
-            self.host.copy_(buf, non_blocking=True)
+            self.host = []
+            for b in bufs:
+                h = torch.empty(b.shape, dtype=b.dtype, pin_memory=True)
+                h.copy_(b, non_blocking=True)
+                self.host.append(h)
             self.event = torch.cuda.Event()
             self.event.record(torch.cuda.current_stream(buf.device))
         else:
-            self.host = buf
+            self.host = bufs
             self.event = None
 
     def ready(self) -> bool:
         return self.event is None or self.event.query()
 
     def get(self) -> np.ndarray:
+        """The tokens (blocks until the copy is done)."""
         if self.event is not None:
             self.event.synchronize()
-        return self.host.numpy()
+        return self.host[0].numpy()
+
+    def logprobs(self) -> Optional[np.ndarray]:
+        """The logprobs beside the tokens, None without capture; call
+        after ``get``."""
+        return self.host[1].numpy() if len(self.host) > 1 else None
 
 
 class LLMEngine:
@@ -245,6 +292,24 @@ class LLMEngine:
         junk in either raises.
     prefix_digest_max: most path hashes ``load_report``'s
         ``prefix_digest`` advertises (prefix-closed, longest first).
+    spec_len: speculative decoding — up to this many prompt-lookup
+        draft tokens per slot per round, verified by one batched
+        forward; 0 (default) disables. Greedy only: silently off at
+        temperature > 0 and under ``capture_logprobs`` (the verify emits
+        tokens without their distributions).
+    spec_ngram: suffix n-gram order of the prompt-lookup proposer.
+    spec_proposer: a zero-argument factory of objects with
+        ``NGramIndex``'s ``sync``/``propose``, built once per admitted
+        slot (default ``NGramIndex(spec_ngram)``).
+    overlap: the overlapped loop (default on): a round plans from the
+        frontier read back so far while the previous dispatch may still
+        run, and reads its own tokens a round late; ``False`` is the
+        lockstep loop. ``RAY_TPU_OVERLAP=0``/``1`` overrides it (any
+        other value is ignored).
+    capture_logprobs: record each emitted token's logprob under the
+        sampling distribution (fp32 logits, divided by the temperature
+        when it is > 0), read back with the tokens;
+        ``RequestHandle.logprobs``.
     device: ``None``/``"cuda"`` (default: the card; raises without
         one) or ``"cpu"``.
     """
@@ -259,6 +324,10 @@ class LLMEngine:
                  prefix_cache: bool = False,
                  kv_dtype: Optional[str] = None,
                  prefix_digest_max: int = 512,
+                 spec_len: int = 0, spec_ngram: int = 3,
+                 spec_proposer=None,
+                 overlap: Optional[bool] = None,
+                 capture_logprobs: bool = False,
                  device=None):
         self.device = resolve_device(device)
         for p in model.parameters():
@@ -267,6 +336,10 @@ class LLMEngine:
                                  f"engine runs on {self.device}")
         if max_queued is not None and max_queued < 0:
             raise ValueError("max_queued must be >= 0 or None")
+        if spec_len < 0:
+            raise ValueError("spec_len must be >= 0")
+        if spec_len and spec_ngram < 1:
+            raise ValueError("spec_ngram must be >= 1")
         self.model = model
         self.cfg = model.cfg
         self.S = max_slots
@@ -275,6 +348,13 @@ class LLMEngine:
         self.PC = max(1, int(prefill_chunk or 256))
         self.temperature = temperature
         self.eos_id = eos_id
+        self.capture_logprobs = bool(capture_logprobs)
+        self.spec_len = (spec_len if temperature <= 0.0
+                         and not self.capture_logprobs else 0)
+        self.spec_ngram = spec_ngram
+        self._proposer_factory = (
+            spec_proposer if spec_proposer is not None
+            else (lambda: NGramIndex(spec_ngram)))
         self.KMAX = (max(chunk, 128) if max_run_ahead is None
                      else max(chunk, int(max_run_ahead)))
         # page-table width == the attention window per slot, capped at
@@ -312,6 +392,9 @@ class LLMEngine:
         # without an eos the schedule is deterministic: slots retire by
         # arithmetic at dispatch time and readbacks never gate planning
         self._deferred = eos_id is None
+        env = os.environ.get("RAY_TPU_OVERLAP", "")
+        self.overlap = (env == "1" if env in ("0", "1")
+                        else overlap is None or bool(overlap))
         self._stopped = False
         self._draining = False
         self._thread: Optional[threading.Thread] = None
@@ -366,7 +449,8 @@ class LLMEngine:
                 f"prompt+completion {total} exceeds model "
                 f"max_seq_len {self.cfg.max_seq_len}")
         req = _Request(next(self._rid), prompt_ids, max_new_tokens,
-                       t_submit=time.monotonic())
+                       t_submit=time.monotonic(),
+                       logprobs=[] if self.capture_logprobs else None)
         with self._work:
             if self._stopped:
                 raise EngineShutdown("engine stopped")
@@ -431,42 +515,48 @@ class LLMEngine:
 
     def load_report(self) -> Dict[str, Any]:
         """Compact load snapshot: free capacity, queue pressure,
-        outstanding token work, latency EWMAs (the fields of the
-        reference's report that this engine has)."""
+        outstanding token work, latency EWMAs, the readback pipeline
+        (the fields of the reference's report that this engine has)."""
         with self._lock:
-            outstanding = 0
-            for slot in self.slots:
-                if slot is not None:
-                    outstanding += max(0, slot.prefill_remaining)
-                    outstanding += max(0, slot.req.remaining)
-            for req in self._wait:
-                outstanding += len(req.prompt) + req.max_new_tokens
-            return {
-                "free_slots": sum(1 for s in self.slots if s is None),
-                "total_slots": self.S,
-                "free_pages": self.alloc.n_free,
-                "kv_dtype": self.kv_dtype,
-                "kv_page_bytes": self.page_bytes,
-                "kv_bytes_in_use": self.alloc.bytes_in_use(),
-                "kv_bytes_total": self.alloc.bytes_total(),
-                "queue_depth": len(self._wait),
-                "outstanding_tokens": outstanding,
-                "max_queued": self.max_queued,
-                "shed_total": self.stats.get("shed", 0),
-                "ttft_ewma_s": self._ttft_ewma,
-                "itl_ewma_s": self._itl_ewma,
-                "draining": self._draining,
-                "stopped": self._stopped,
-                "fetchq_depth": len(self._fetchq),
-                "pending_prefills": len(self._pending_prefill),
-                "prefix_digest": (self.prefix_cache.digest(
-                    self.prefix_digest_max)
-                    if self.prefix_cache is not None else frozenset()),
-                "has_work": bool(self._wait or any(self.slots)
-                                 or self._fetchq
-                                 or self._pending_prefill),
-                "device": str(self.device),
-            }
+            return self._report_locked()
+
+    def _report_locked(self) -> Dict[str, Any]:
+        outstanding = 0
+        for slot in self.slots:
+            if slot is not None:
+                outstanding += max(0, slot.prefill_remaining)
+                outstanding += max(0, slot.req.remaining)
+        for req in self._wait:
+            outstanding += len(req.prompt) + req.max_new_tokens
+        return {
+            "free_slots": sum(1 for s in self.slots if s is None),
+            "total_slots": self.S,
+            "free_pages": self.alloc.n_free,
+            "kv_dtype": self.kv_dtype,
+            "kv_page_bytes": self.page_bytes,
+            "kv_bytes_in_use": self.alloc.bytes_in_use(),
+            "kv_bytes_total": self.alloc.bytes_total(),
+            "queue_depth": len(self._wait),
+            "outstanding_tokens": outstanding,
+            "max_queued": self.max_queued,
+            "shed_total": self.stats.get("shed", 0),
+            "ttft_ewma_s": self._ttft_ewma,
+            "itl_ewma_s": self._itl_ewma,
+            "draining": self._draining,
+            "stopped": self._stopped,
+            # dispatches whose tokens are still in flight: the
+            # overlapped loop holds this at <= 2
+            "fetchq_depth": len(self._fetchq),
+            "pending_prefills": len(self._pending_prefill),
+            "overlap": self.overlap,
+            "prefix_digest": (self.prefix_cache.digest(
+                self.prefix_digest_max)
+                if self.prefix_cache is not None else frozenset()),
+            "has_work": bool(self._wait or any(self.slots)
+                             or self._fetchq
+                             or self._pending_prefill),
+            "device": str(self.device),
+        }
 
     def shutdown(self):
         """Stop the engine and FAIL everything still queued or in
@@ -544,21 +634,35 @@ class LLMEngine:
         self._fail_req_locked(slot.req, err, count)
 
     def step(self) -> bool:
-        """One scheduler iteration (lockstep loop):
+        """One scheduler iteration:
 
             drain -> admit -> plan round -> dispatch prefill chunk
-                  -> grow/preempt -> dispatch decode chunk
+                  -> grow/preempt -> dispatch decode chunk (or verify)
                   -> fetch the previous dispatch's tokens (trailing)
 
-        Without an eos the pre-plan drain only reads buffers already
-        copied back (never blocks) and slots retire by arithmetic at
-        dispatch; with an eos sampled tokens decide completion, so the
-        round drains every readback before planning. Returns False
-        when idle."""
+        The pre-plan drain takes one of three modes:
+
+        1. overlapped loop (``overlap``): a ready-only sweep that never
+           blocks, eos or not. The round is planned from a frontier
+           that may trail the device by one dispatch; the eos is then
+           revealed at readback, emission truncates there, and the
+           planner caps stale riders at one decode chunk.
+        2. lockstep loop with an eos or speculation: a full drain —
+           sampled tokens decide completion, and the proposer and the
+           verify's input token are host state.
+        3. lockstep without either: opportunistic, ready buffers only;
+           slots retire by arithmetic at dispatch.
+
+        The trailing drain blocks only on a dispatch OLDER than the one
+        just queued, so at most two are in flight. Returns False when
+        idle."""
         with self._lock:
             if self._stopped:
                 return False
-            self._drain_fetches_locked(ready_only=self._deferred)
+            if self.overlap or (self._deferred and not self.spec_len):
+                self._drain_fetches_locked(ready_only=True)
+            else:
+                self._drain_fetches_locked()
             self._admit_locked()
             if not any(self.slots):
                 if self._fetchq or self._pending_prefill:
@@ -568,29 +672,66 @@ class LLMEngine:
             plan = self._plan_steps_locked()
             if plan.prefill:
                 self._dispatch_prefill_locked(plan.prefill)
-            if plan.decode_steps:
+            if plan.spec:
+                self._dispatch_spec_locked(plan.spec)
+            elif plan.decode_steps:
                 self._grow_or_preempt_locked(plan.decode_steps)
                 self._dispatch_chunk_locked(plan.decode_steps)
                 if self._deferred:
                     self._retire_planned_locked()
-            # block only on a dispatch OLDER than the one just queued
             self._drain_fetches_locked(limit=1, keep=1)
             return True
 
     def _plan_steps_locked(self) -> StepPlan:
-        """Plan this round with the pure planner (serve/scheduler.py)."""
+        """Plan this round with the pure planner (serve/scheduler.py),
+        after refreshing each seeded slot's drafts when speculation is
+        on. ``stale`` counts each live slot's dispatched but undrained
+        decode steps; the identity check keeps a freed-and-reseated
+        slot's old rides from counting as its own."""
+        if self.spec_len:
+            self._propose_spec_locked()
+        stale = [0] * self.S
+        for _rb, riders, steps in self._fetchq:
+            for i, slot, _take in riders:
+                if self.slots[i] is slot:
+                    stale[i] += steps
         views = [SlotView(sid=i, admit_seq=s.admit_seq,
                           prompt_remaining=s.prefill_remaining,
                           owed=max(0, self._owed(s))
                           if s.cur is not None else 0,
-                          seeded=s.cur is not None)
+                          seeded=s.cur is not None,
+                          spec_drafts=len(s.spec_pending),
+                          stale=stale[i])
                  for i, s in enumerate(self.slots) if s is not None]
         return plan_step(views, total_slots=self.S,
                          prefill_budget=self.PC,
                          decode_chunk=self.K,
                          max_run_ahead=self.KMAX,
                          prefill_batch=self._max_prefill_batch,
-                         eos_bounded=self.eos_id is not None)
+                         eos_bounded=self.eos_id is not None,
+                         spec_enabled=bool(self.spec_len))
+
+    def _propose_spec_locked(self):
+        """Refresh each seeded slot's prompt-lookup drafts. Under the
+        lockstep loop this runs after the round's full drain, so
+        ``req.generated`` is the device's stream; under the overlapped
+        loop it may trail by one round — harmless: a mispositioned
+        draft is just rejected by the verify, and ``prompt +
+        generated`` only grows. A slot with one token left proposes
+        nothing (the bonus token covers it)."""
+        for s in self.slots:
+            if s is None:
+                continue
+            s.spec_pending = []
+            if (s.cur is None or s.preempted or s.req.closed
+                    or not s.req.generated):
+                continue
+            if s.spec is None:
+                s.spec = self._proposer_factory()
+            s.spec.sync(s.req.prompt + s.req.generated)
+            room = min(self.spec_len, s.req.remaining - 1)
+            if room > 0:
+                s.spec_pending = [int(t) for t in s.spec.propose(room)]
 
     def _owed(self, slot: _Slot) -> int:
         """Decode steps this slot still needs, by dispatch-time
@@ -873,14 +1014,112 @@ class LLMEngine:
             riders.append((i, slot, take))
         if not riders:
             return     # every planned rider was preempted meanwhile
-        toks = self._decode_step(pt, steps,
-                                 [i for i, _s, _t in riders])
+        toks, lps = self._decode_step(pt, steps,
+                                      [i for i, _s, _t in riders])
         for _i, slot, _t in riders:
             slot.pos += steps
             slot.decoded += steps
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += steps
-        self._fetchq.append((_Readback(toks), riders, steps))
+        self._fetchq.append((_Readback(toks, lps), riders, steps))
+
+    def _dispatch_spec_locked(self, grants):
+        """One batched draft-and-verify dispatch. Each granted slot's
+        row ``[cur, d_1 .. d_k]`` (its last emitted token and up to
+        ``spec_len`` drafts) is scored in ONE forward at the slot's own
+        offset; the longest draft prefix equal to the argmax is
+        accepted, plus the argmax after it: 1 to k+1 tokens, each
+        exactly what plain greedy decode gives.
+
+        Rollback clamps ``pos`` (and ``decoded``) to the tokens produced:
+        the KV written past it for rejected drafts is overwritten before
+        any query reaches it, and the pages stay the slot's. The
+        surviving slots' device ``cur``/``pos`` are reseeded with the
+        accepted frontier.
+
+        Host-synchronous: acceptance decides the next input, so the
+        argmax is read back here. Under the overlapped loop the round
+        was planned from a stale frontier, so every readback is settled
+        first: the drafts were hints, but the verify's input must be the
+        device's latest token."""
+        if self.overlap:
+            self._drain_fetches_locked()
+        T = self.spec_len + 1
+        rows = []
+        for g in grants:
+            slot = self.slots[g.sid]
+            if (slot is None or slot.cur is None
+                    or not slot.req.generated):
+                continue       # closed by the drain, or seeded since
+            drafts = slot.spec_pending[:max(0, g.drafts)]
+            self._check_cow_locked(slot, slot.pos)
+            # cover every verify write (cur + drafts): prefix-cache
+            # eviction first, then youngest-other preemption
+            self._grow_locked(g.sid, slot,
+                              -(-(slot.pos + len(drafts) + 1) // self.Pg))
+            if self.slots[g.sid] is slot:
+                rows.append((g.sid, slot, drafts))
+        # a later grant's growth can evict an earlier grant's slot
+        rows = [(ix, slot, d) for ix, slot, d in rows
+                if self.slots[ix] is slot]
+        if not rows:
+            return
+        ids = np.zeros((self.S, T), np.int32)
+        start = np.zeros((self.S,), np.int32)
+        pt = np.zeros((self.S, self.max_pages), np.int32)
+        for i, slot, drafts in rows:
+            ids[i, 0] = slot.req.generated[-1]
+            ids[i, 1:1 + len(drafts)] = drafts
+            start[i] = slot.pos
+            pt[i, :len(slot.pages)] = slot.pages
+        out = self._verify_step(ids, start, pt)
+        self.stats["spec_rounds"] += 1
+        seeds = []
+        for i, slot, drafts in rows:
+            row = out[i]
+            a = 0
+            while a < len(drafts) and drafts[a] == int(row[a]):
+                a += 1
+            produced = a + 1
+            self.stats["spec_riders"] += 1
+            self.stats["spec_proposed"] += len(drafts)
+            self.stats["spec_accepted"] += a
+            self.stats["spec_rejected"] += len(drafts) - a
+            self.stats["spec_tokens"] += produced
+            slot.spec_pending = []
+            slot.pos += produced
+            slot.decoded += produced
+            self._emit_to(slot.req, row[:produced].tolist(), i)
+            if self.slots[i] is slot:        # not closed by the emission
+                seeds.append((i, slot, int(row[a])))
+        if seeds:
+            self._seed_step(
+                self._h2d(np.asarray([t for _i, _s, t in seeds], np.int32)),
+                [(i, slot, r) for r, (i, slot, _t) in enumerate(seeds)])
+
+    def spec_stats(self) -> Optional[Dict[str, Any]]:
+        """Speculative-decoding counters (None when speculation is off).
+        ``tokens_per_dispatch`` is emitted tokens per (slot, verify)
+        ride: above 1.0 speculation beat one token per forward."""
+        if not self.spec_len:
+            return None
+        with self._lock:
+            s = self.stats
+            proposed = s["spec_proposed"]
+            riders = s["spec_riders"]
+            return {
+                "spec_len": self.spec_len,
+                "spec_ngram": self.spec_ngram,
+                "rounds": s["spec_rounds"],
+                "proposed_tokens": proposed,
+                "accepted_tokens": s["spec_accepted"],
+                "rejected_tokens": s["spec_rejected"],
+                "accept_rate": round(s["spec_accepted"] / proposed, 4)
+                if proposed else 0.0,
+                "tokens_per_dispatch":
+                    round(s["spec_tokens"] / riders, 4)
+                    if riders else 0.0,
+            }
 
     def _drain_fetches_locked(self, limit: Optional[int] = None,
                               keep: int = 0,
@@ -913,20 +1152,28 @@ class LLMEngine:
             # prefill firsts FIRST: a slot's seeding prefill precedes
             # its first decode ride, and both can land in one drain
             for rb, placements in pend_pre:
-                firsts = rb.get()
+                firsts, f_lps = rb.get(), rb.logprobs()
                 for ix, slot, row in placements:
                     if not slot.preempted:
-                        self._emit_to(slot.req, [int(firsts[row])], ix)
+                        self._emit_to(slot.req, [int(firsts[row])], ix,
+                                      None if f_lps is None
+                                      else [float(f_lps[row])])
             for rb, riders, _steps in batch:
-                toks = rb.get()
+                toks, lps = rb.get(), rb.logprobs()
                 for i, slot, take in riders:
                     if not slot.preempted:
-                        self._emit_to(slot.req, toks[:take, i].tolist(), i)
+                        self._emit_to(slot.req, toks[:take, i].tolist(), i,
+                                      None if lps is None
+                                      else lps[:take, i].tolist())
 
-    def _emit_to(self, req: _Request, tokens: List[int], ix: int):
+    def _emit_to(self, req: _Request, tokens: List[int], ix: int,
+                 lps: Optional[List[float]] = None):
         """Deliver tokens to the request; close it at eos or budget. In
         no-eos mode the slot was retired at dispatch time; with an eos,
-        closing here frees it."""
+        closing here frees it. ``lps`` (logprob capture) is aligned with
+        ``tokens``; exactly the emitted prefix is appended, so
+        truncation keeps ``req.logprobs`` aligned with
+        ``req.generated``."""
         if req.closed:
             return
         done = False
@@ -947,6 +1194,8 @@ class LLMEngine:
                     or req.remaining <= 0):
                 done = True
                 break
+        if n_put and req.logprobs is not None and lps is not None:
+            req.logprobs.extend(float(x) for x in lps[:n_put])
         if n_put:
             now = time.monotonic()
             if req.t_last_emit is not None:
@@ -991,7 +1240,7 @@ class LLMEngine:
             start[r] = slot.prefilled
             last_idx[r] = take - 1
             pt[r, :len(slot.pages)] = slot.pages
-        firsts = self._prefill_step(ids, start, last_idx, pt)
+        firsts, lps = self._prefill_step(ids, start, last_idx, pt)
         placements = []
         for r, (ix, slot, take) in enumerate(rows):
             slot.prefilled += take
@@ -1004,29 +1253,31 @@ class LLMEngine:
                 slot.cur = -1      # device-seeded: ridable
         # queued even with no finished rows, so drains (and preemption
         # barriers) sync on every in-flight prefill
-        self._pending_prefill.append((_Readback(firsts), placements))
+        self._pending_prefill.append((_Readback(firsts, lps), placements))
         self.stats["prefills"] += 1
         self.stats["prefill_tokens"] += sum(t for _i, _s, t in rows)
 
-    def _prefill_step(self, ids, start, last_idx, pt) -> torch.Tensor:
+    def _prefill_step(self, ids, start, last_idx, pt):
         """Device half of ``_prefill_batch`` (the reference's jitted
         ``_build_prefill`` executable): [B, T] ids at per-row start
         offsets append into the rows' pages and attend causally over
         each row's page window; each row's last real position samples
-        a candidate first token. Returns int32 [B] on the device."""
+        a candidate first token. Returns int32 [B] on the device, and
+        its fp32 [B] logprobs under capture (else None)."""
         page_table = self._h2d(pt)
         kv = [kv_layer_view(layer, page_table) for layer in self.pages]
         logits = self.model(self._h2d(ids), kv, self._h2d(start))
         rows = torch.arange(ids.shape[0], device=self.device)
         last = logits[rows, self._h2d(last_idx).long()]
-        return _pick_token(last, self.temperature, self._gen)
+        firsts = _pick_token(last, self.temperature, self._gen)
+        return firsts, self._logprob(last, firsts)
 
-    def _decode_step(self, pt, steps: int, riders: List[int]
-                     ) -> torch.Tensor:
+    def _decode_step(self, pt, steps: int, riders: List[int]):
         """Device half of ``_dispatch_chunk_locked`` (the reference's
         ``_build_decode``): ``steps`` single-token forwards over every
         slot, chaining ``pos``/``cur`` on the device. Returns the int32
-        [steps, S] token buffer. Slots not riding get position 0 first,
+        [steps, S] token buffer, and under capture the fp32 [steps, S]
+        logprobs (else None). Slots not riding get position 0 first,
         so the decode kernel reads one null-page key for them, not a
         stale window (their outputs are never read)."""
         riding = set(riders)
@@ -1036,14 +1287,41 @@ class LLMEngine:
         page_table = self._h2d(pt)
         kv = [kv_layer_view(layer, page_table) for layer in self.pages]
         pos, cur = self._dev_pos, self._dev_cur
-        out = []
+        out, lps = [], []
         for _ in range(steps):
-            logits = self.model(cur[:, None], kv, pos)
-            cur = _pick_token(logits[:, -1], self.temperature, self._gen)
+            logits = self.model(cur[:, None], kv, pos)[:, -1]
+            cur = _pick_token(logits, self.temperature, self._gen)
             pos = pos + 1
             out.append(cur)
+            if self.capture_logprobs:
+                lps.append(self._logprob(logits, cur))
         self._dev_pos, self._dev_cur = pos, cur
-        return torch.stack(out)
+        return torch.stack(out), torch.stack(lps) if lps else None
+
+    def _verify_step(self, ids, start, pt) -> np.ndarray:
+        """Device half of ``_dispatch_spec_locked`` (the reference's
+        ``_build_verify``): [S, T] rows of ``[cur, drafts...]`` append at
+        each row's own offset and attend causally over its page window
+        — the paged ``T >= 1`` forward chunked prefill runs — and the
+        argmax at every position is read back: int32 [S, T] on the
+        host."""
+        page_table = self._h2d(pt)
+        kv = [kv_layer_view(layer, page_table) for layer in self.pages]
+        logits = self.model(self._h2d(ids), kv, self._h2d(start))
+        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+    def _logprob(self, logits: torch.Tensor,
+                 tokens: torch.Tensor) -> Optional[torch.Tensor]:
+        """Under capture, each row's logprob of ``tokens`` under the
+        sampling distribution (fp32 logits, divided by the temperature
+        when it is > 0): fp32 [B]. None without capture."""
+        if not self.capture_logprobs:
+            return None
+        scaled = logits.float()
+        if self.temperature > 0.0:
+            scaled = scaled / self.temperature
+        return torch.log_softmax(scaled, dim=-1).gather(
+            1, tokens.long()[:, None])[:, 0]
 
     def _seed_step(self, firsts: torch.Tensor, placements) -> None:
         """Admission seeding (the reference's ``_build_seed``): scatter

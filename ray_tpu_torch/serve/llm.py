@@ -6,9 +6,10 @@ with ``use_engine=False``, behind the static-cache ``generate`` and
 Wrap it with a serve deployment at the use site; here it is a plain
 class whose ``__call__``/``stream``/``generate_batch`` are the request
 entry points. The engine's int8 KV pool (``kv_dtype``) and prefix cache
-(``prefix_cache``) pass through. The engine pool, fleet, autoscaler,
-watchdog, speculative decoding and tensor parallelism of the reference
-are not ported yet (ROADMAP.md, queue 1).
+(``prefix_cache``), speculative decoding (``spec_len``, ``spec_ngram``)
+and the loop (``overlap``) pass through. The engine pool, fleet,
+autoscaler, watchdog and tensor parallelism of the reference are not
+ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -51,6 +52,11 @@ class LlamaDeployment:
         (``RAY_TPU_KV_DTYPE`` overrides it when the engine is built).
     prefix_cache: share KV pages of identical page-aligned prompt
         prefixes across requests (default off).
+    spec_len, spec_ngram: the engine's speculative decoding (up to
+        ``spec_len`` prompt-lookup drafts per slot per round, suffix
+        n-gram order ``spec_ngram``; 0 = off, the default; greedy only).
+    overlap: the engine's overlapped loop; None (default) defers to the
+        engine's default (on) and ``RAY_TPU_OVERLAP``.
     device: ``None``/``"cuda"`` (the card; raises without one) or
         ``"cpu"``.
     """
@@ -65,7 +71,9 @@ class LlamaDeployment:
                  prefill_chunk: Optional[int] = None,
                  eos_id: Optional[int] = None,
                  kv_dtype: Optional[str] = None,
-                 prefix_cache: bool = False, device=None):
+                 prefix_cache: bool = False, spec_len: int = 0,
+                 spec_ngram: int = 3, overlap: Optional[bool] = None,
+                 device=None):
         self.device = resolve_device(device)
         self.cfg = config or llama_tiny()
         if params is None:
@@ -81,7 +89,8 @@ class LlamaDeployment:
         self._engine_opts = dict(
             max_slots=max_slots, page_size=page_size, n_pages=n_pages,
             chunk=decode_chunk or stream_chunk, prefill_chunk=prefill_chunk,
-            eos_id=eos_id, kv_dtype=kv_dtype, prefix_cache=prefix_cache)
+            eos_id=eos_id, kv_dtype=kv_dtype, prefix_cache=prefix_cache,
+            spec_len=spec_len, spec_ngram=spec_ngram, overlap=overlap)
         self._engine = None
         self._engine_lock = threading.Lock()
 

@@ -1,7 +1,8 @@
 """Own copy of the pure step planner of ``ray_tpu/serve/scheduler.py``
-(``SlotView``, ``PrefillGrant``, ``StepPlan``, ``plan_step``), without
-its speculative-decoding lane, priority lanes, replica roles and
-stale-frontier cap, which the port's engine does not have yet
+(``SlotView``, ``PrefillGrant``, ``SpecGrant``, ``StepPlan``,
+``plan_step``), with its speculative-decoding lane and stale-frontier
+cap, without its priority lanes, replica roles, KV-pull phase and
+scheduler profiles, which the port's engine does not have yet
 (ROADMAP.md, queue 1).
 
 One scheduling round of the continuous-batching engine
@@ -9,23 +10,35 @@ One scheduling round of the continuous-batching engine
 snapshot of the slots, decide (a) which mid-prefill slots advance and
 by how many prompt tokens, under a shared per-round token budget
 (``prefill_budget``, the ``prefill_chunk`` knob), and (b) how many
-decode steps to dispatch in the SAME round. The engine dispatches the
-prefill chunk first and the decode chunk right behind it, so the
-device interleaves ``P D P D ...`` and in-flight decode never stalls
-for a whole prompt.
+decode steps to dispatch in the SAME round, or which slots ride one
+batched speculative verify instead. The engine dispatches the prefill
+chunk first and the decode chunk right behind it, so the device
+interleaves ``P D P D ...`` and in-flight decode never stalls for a
+whole prompt.
 
 Policy, in order:
 
 - Prefill grants: mid-prefill slots in admission order (FIFO) each
   receive ``min(prompt_remaining, budget_left)`` tokens until the
   round's token budget or the prefill batch width runs out.
+- Spec lane (``spec_enabled``, serve/spec_decode.py): when any seeded
+  slot carries draft tokens this round, ONE batched verify replaces the
+  decode chunk — every seeded slot rides it (a slot with zero drafts
+  is a plain one-token row). Drafts are clamped so a verify never
+  emits past a slot's remaining budget (``owed - 1``: the bonus token
+  is guaranteed) nor past ``max_run_ahead - 1``. The prefill lane is
+  planned first either way.
 - Decode steps: if any seeded slot exists, decode rides every round.
   While admission work is pending (a free slot, an unseeded slot, a
   prefill grant this round) the cadence stays at ``decode_chunk`` so
   new arrivals join promptly; with a full, fully-seeded batch the plan
-  runs ahead to the next completion event (min owed over riders). With
-  an eos the run-ahead is bounded — tokens past an unpredicted eos are
-  wasted.
+  runs ahead to the next completion event (min owed over riders) — but
+  not in spec mode, where running ahead would decode past every future
+  proposal window. With an eos the run-ahead is bounded — tokens past
+  an unpredicted eos are wasted — and under the engine's OVERLAPPED
+  loop, where the views may trail the device (``SlotView.stale``), any
+  stale rider caps it at one ``decode_chunk``: the most a late-revealed
+  eos ever discards per slot.
 """
 from __future__ import annotations
 
@@ -46,6 +59,9 @@ class SlotView:
     prompt_remaining: int    # prompt tokens not yet prefilled
     owed: int                # decode steps still owed (seeded slots)
     seeded: bool             # riding decode dispatches already
+    spec_drafts: int = 0     # draft tokens proposed this round
+    stale: int = 0           # decode steps dispatched but not yet read
+                             # back (overlapped loop; 0 in lockstep)
 
     @property
     def prefilling(self) -> bool:
@@ -59,25 +75,37 @@ class PrefillGrant:
 
 
 @dataclasses.dataclass(frozen=True)
+class SpecGrant:
+    """One slot's ride on this round's batched verify: ``drafts``
+    proposed tokens to verify (0: a plain one-token row)."""
+    sid: int
+    drafts: int
+
+
+@dataclasses.dataclass(frozen=True)
 class StepPlan:
     prefill: Tuple[PrefillGrant, ...]
     decode_steps: int
+    spec: Tuple[SpecGrant, ...] = ()
 
     @property
     def idle(self) -> bool:
-        return not self.prefill and self.decode_steps == 0
+        return (not self.prefill and self.decode_steps == 0
+                and not self.spec)
 
 
 def plan_step(slots: Sequence[SlotView], *, total_slots: int,
               prefill_budget: int, decode_chunk: int,
               max_run_ahead: int, prefill_batch: int,
-              eos_bounded: bool) -> StepPlan:
+              eos_bounded: bool, spec_enabled: bool = False) -> StepPlan:
     """Plan one scheduling round. Pure: no device, no clock, no
     engine state — everything it needs is in the arguments.
 
     slots: occupied slots only (free slots are ``total_slots`` minus
     ``len(slots)``). Returns the prefill grants (FIFO, budget-packed)
-    and the decode step count (0 = no decode dispatch).
+    and either the decode step count (0 = no decode dispatch) or, when
+    ``spec_enabled`` and any seeded slot proposed drafts, the spec
+    grants of one batched verify (the lanes are exclusive per round).
     """
     if prefill_budget < 1:
         raise ValueError("prefill_budget must be >= 1")
@@ -99,6 +127,13 @@ def plan_step(slots: Sequence[SlotView], *, total_slots: int,
     if not seeded:
         return StepPlan(tuple(grants), 0)
 
+    if spec_enabled and any(v.spec_drafts > 0 for v in seeded):
+        spec = tuple(
+            SpecGrant(v.sid, max(0, min(v.spec_drafts, v.owed - 1,
+                                        max_run_ahead - 1)))
+            for v in seeded)
+        return StepPlan(tuple(grants), 0, spec)
+
     # an eos-mode rider's owed can arrive negative (decoded past its
     # budget while emission trails) and must not drag min(rem) below
     # the 1-step floor
@@ -106,7 +141,10 @@ def plan_step(slots: Sequence[SlotView], *, total_slots: int,
     quick = (len(slots) < total_slots
              or any(not v.seeded for v in slots)
              or bool(grants))
-    steps = decode_chunk if quick else max(decode_chunk, min(rem))
+    steps = (decode_chunk if quick or spec_enabled
+             else max(decode_chunk, min(rem)))
     if eos_bounded:
         steps = min(steps, 2 * decode_chunk)
+        if any(v.stale > 0 for v in seeded):
+            steps = min(steps, decode_chunk)
     return StepPlan(tuple(grants), max(1, min(steps, max_run_ahead)))

@@ -93,7 +93,8 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.models.gpt2",
                  "ray_tpu_torch.train.spmd",
                  "ray_tpu_torch.util.envknobs",
-                 "ray_tpu_torch.serve.prefix_cache"):
+                 "ray_tpu_torch.serve.prefix_cache",
+                 "ray_tpu_torch.serve.spec_decode"):
         assert name in res["modules"]
 
 

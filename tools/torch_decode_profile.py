@@ -1,7 +1,7 @@
 """Where the time of the port's serving step goes, on one NVIDIA GPU.
 
     python3 tools/torch_decode_profile.py [--kv-dtype fp|int8]
-        [--steps 20] [--seed 0] [--split-keys 64,128,256]
+        [--steps 20] [--seed 0] [--split-keys 64,128,256] [--spec-len 4]
         [--out profile.json]
 
 Runs from the root of a checkout of the repo (it imports
@@ -24,6 +24,9 @@ and power limit:
    (sum of kernel times), the idle share, kernel launches per step and
    the kernels that take the most device time.
 3. The same for one chunked-prefill call (4 rows x 256 tokens).
+4. The same for one speculative verify (the engine's ``_verify_step``:
+   16 rows of ``--spec-len`` + 1 tokens at the decode positions, the
+   paged T > 1 gather path, plus the argmax read back).
 
 Random weights from ``--seed``; nothing is downloaded.
 """
@@ -184,6 +187,7 @@ def main(argv=None) -> int:
     ap.add_argument("--steps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--split-keys", default="64,128,256")
+    ap.add_argument("--spec-len", type=int, default=4)
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -229,6 +233,17 @@ def main(argv=None) -> int:
     res["prefill_4x256"] = _profile(prefill, max(3, args.steps // 4))
     print(f"prefill 4 x 256 tokens, {args.kv_dtype} pool, on {card}: "
           f"{json.dumps(res['prefill_4x256'], indent=1)}")
+
+    rows = torch.from_numpy(g.integers(
+        0, cfg.vocab_size, (S, args.spec_len + 1)).astype(np.int32)).cuda()
+
+    def verify():
+        torch.argmax(model(rows, kv, pos), dim=-1).to(torch.int32).cpu()
+
+    key = f"verify_16x{args.spec_len + 1}"
+    res[key] = _profile(verify, args.steps)
+    print(f"speculative verify, 16 rows x {args.spec_len + 1} tokens, "
+          f"{args.kv_dtype} pool, on {card}: {json.dumps(res[key], indent=1)}")
     passes()
     print(f"{kernel} by split size on {card}: {res['kernel_split_ms']}")
     if args.out:
