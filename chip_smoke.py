@@ -6,8 +6,8 @@ sm_90a).
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
-which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 2, 5, 6,
-6b, 7, 7b, then 4d's profile: the host-timed serving phases come before
+which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 2, 5,
+6, 6b, 7, 7b, then 4d's profile: the host-timed serving phases come before
 any torch.profiler session, since a process that has run one launches
 kernels at a higher host cost for the rest of its life.
 
@@ -144,6 +144,49 @@ kernels at a higher host cost for the rest of its life.
    may precede a timed phase), torch.profiler's device time of one
    verify dispatch (16 rows x 5 tokens) against one decode step, on a
    fresh model and pool of this shape.
+4e. Cross-replica KV pull and the hot weight swap at full width: one
+   TinyLlama-1.1B bf16 model (random weights from ``--seed``) shared by
+   two ``LLMEngine``s on the card, each with 16 slots, 64-token pages,
+   513 pages and the prefix cache, once with an fp pool and once with
+   an int8 pool. The donor serves phase 4b's first wave (its 1024-token
+   system prompt behind 4 of the 8). A fresh requester (warmed by one
+   request) gets a request over that system prompt with a pull hint
+   (its 16 ``path_hashes``) beside 4 background requests of 300-1200
+   tokens, and once the pulled request's first token is out, 7 more
+   over the system prompt with distinct tails (hints too); its
+   ``kv_fetcher`` is ``pull_prefix`` over ``loopback_call(KVDonor)``,
+   the JSON + base64 wire. Checks: 16 pages land, the requester's
+   re-export of them equals the donor's export byte for byte, one pull
+   with no abort or fallback, the 7 hit >= 7 x 1024 tokens locally with
+   no second pull, K1 (fp) or K2 (int8) launched once per layer on
+   every decode step of the requester and the other never, every
+   stream complete, the pulled request's tokens teacher-forced within
+   0.05 of the top logit in bf16 (over a pool of its dtype) and with
+   the bf16 weights in fp32 (int8: 0.1, as phase 4b). Then the pulled
+   request alone on fresh requesters: with the default chunks, in 4
+   chunks (``max_chunk_bytes`` of 4 pages), and one page a chunk
+   through ``FaultyTransport(drop_p=0.15, dup_p=0.3)`` seeded with
+   ``--seed`` + 0..3 (drops and duplicates must both strike), each of
+   which lands the donor's bytes or falls back, counted; the donor ends with
+   no open transfer and no pinned page. Prints, beside the card's name
+   and power limit, the pull's host ms split into export, encode and
+   decode (re-timed on the pull's bytes as one chunk), the rest of the
+   wire and landing, the wire bytes and MB/s, the pulled request's
+   TTFT against the same prompt cold on a fresh requester, beside the
+   same background and alone, the background's TTFTs in both, and the
+   export of the 16 pages on an idle card one synchronous copy per page
+   column against the engine's one batched copy (the bytes equal). On
+   the fp requester, a preempt-mode swap to the same tensors staged
+   from the host under a new ``weights_id`` in the middle of 4 streams
+   of 256 tokens: streams complete, ``weight_generation`` 1, >= 16
+   pages evicted, bf16 tokens teacher-forced within 0.05; prints the
+   staging ms, the flip's pause (engine lock held) and peak device
+   memory. Last, at phase 3's reduced fp32 width: a pull's streams
+   equal a cold recompute on the card and on the CPU (int8: or part at
+   a near-tie, as phase 3), a preempt swap of the same tensors leaves
+   the streams unchanged, and after a drain swap to other weights the
+   request in flight ends on the old weights and the next equals a
+   fresh engine on the new ones.
 5. The flash-attention kernels against their plain versions on the
    card, each on the same inputs as its plain version: K3 (forward),
    K4 (dQ) and K5 (dK, dV) in fp32 (the scalar kernels) at T
@@ -203,7 +246,9 @@ kernels at a higher host cost for the rest of its life.
    limit.
 8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; K1's
    ``launches`` are phase 4's, ``launches_default_loop`` phase 4d's
-   three arms; the flash rows
+   three arms, ``launches_kv_pull`` phase 4e's fp requester; K2's
+   ``launches`` phase 4b's, ``launches_kv_pull`` phase 4e's int8
+   requester; the flash rows
    at the GPT-2 shape with phase 7's launches, and under
    ``"llama_1_1b"`` at the TinyLlama shape with phase 7b's), then the
    ``{"ok": true, ...}`` line.
@@ -977,6 +1022,29 @@ def _expected_hits(cached_prompts, prompt, Pg: int) -> int:
     return best - 1 if best == len(prompt) else best
 
 
+def _chat_traffic(vocab: int, seed: int) -> tuple:
+    """Phase 4b's chat traffic, from ``default_rng(seed + 1)``: a
+    100-token warm-up prompt; one 1024-token system prompt; two
+    page-aligned prompts (512, 1024 tokens); wave 1: 4 prompts behind
+    the system prompt (own 16-512-token tails), the page-aligned two, 2
+    random of 16-1536 tokens; wave 2: 4 more behind the system prompt,
+    exact repeats of the page-aligned two (fully cached: the COW path),
+    2 random."""
+    g = np.random.default_rng(seed + 1)
+
+    def rand(n):
+        return g.integers(0, vocab, int(n)).tolist()
+
+    warm = rand(100)
+    system = rand(1024)
+    aligned = [rand(512), rand(1024)]
+    wave1 = ([system + rand(n) for n in g.integers(16, 513, 4)] + aligned
+             + [rand(n) for n in g.integers(16, 1537, 2)])
+    wave2 = ([system + rand(n) for n in g.integers(16, 513, 4)] + aligned
+             + [rand(n) for n in g.integers(16, 1537, 2)])
+    return warm, system, aligned, wave1, wave2
+
+
 def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
     """The int8 KV + prefix-cache main path at full width: two waves of
     chat traffic behind one TinyLlama-1.1B replica."""
@@ -991,12 +1059,8 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
                           page_size=Pg, kv_dtype="int8", prefix_cache=True,
                           device="cuda")
     del params
-    g = np.random.default_rng(seed + 1)
-
-    def rand(n):
-        return g.integers(0, cfg.vocab_size, int(n)).tolist()
-
-    warm_prompt = rand(100)
+    warm_prompt, system, aligned, wave1, wave2 = _chat_traffic(
+        cfg.vocab_size, seed)
     if len(dep(warm_prompt)) != 100 + n_new:
         raise AssertionError("warm-up request came back short")
     eng = dep.engine()
@@ -1006,16 +1070,6 @@ def phase_int8_prefix_path(tl, pa, seed: int, smi: str) -> dict:
     t_setup = time.monotonic() - t0
     eng.reset_latency_stats()
 
-    # wave 1: 4 prompts behind one 1024-token system prompt, page-aligned
-    # prompts of 512 and 1024 tokens, 2 random prompts; wave 2: 4 more
-    # behind the system prompt, exact repeats of the page-aligned two
-    # (fully cached: the COW path), 2 random
-    system = rand(1024)
-    aligned = [rand(512), rand(1024)]
-    wave1 = ([system + rand(n) for n in g.integers(16, 513, 4)] + aligned
-             + [rand(n) for n in g.integers(16, 1537, 2)])
-    wave2 = ([system + rand(n) for n in g.integers(16, 513, 4)] + aligned
-             + [rand(n) for n in g.integers(16, 1537, 2)])
     want_hits = [_expected_hits([warm_prompt] + wave1, p, Pg)
                  for p in wave2]
     if sum(want_hits) != 4 * 1024 + 511 + 1023:
@@ -1511,6 +1565,514 @@ def phase_verify_device_time(tl, seed: int, smi: str) -> dict:
 # --------------------------------------------------------------------
 # Training: flash attention (K3, K4, K5) and the GPT-2 train step
 # --------------------------------------------------------------------
+
+def _timed(obj, name: str, log: list) -> None:
+    """Shadow method ``name`` of ``obj`` with a wrapper that appends each
+    call's host seconds to ``log`` (``del obj.<name>`` restores it)."""
+    fn = getattr(obj, name)
+
+    def wrapped(*args, **kw):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kw)
+        finally:
+            log.append(time.perf_counter() - t)
+
+    setattr(obj, name, wrapped)
+
+
+def _pinned_pages(eng, hashes) -> list:
+    """``eng``'s bytes of the pages over ``hashes``, pinned around the
+    export."""
+    pages = eng.kv_pin_prefix(hashes)
+    try:
+        return eng.kv_export_pages(pages)
+    finally:
+        eng.kv_release_pages(pages)
+
+
+def _pull_run(make, donor, hashes, prompt, n_new, call=None,
+              background=(), followers=()):
+    """A fresh requester from ``make``, warmed by one 100-token request,
+    serves ``prompt`` with a pull hint over ``hashes`` while the
+    ``background`` prompts (no hint) run beside it; the ``followers``
+    (each with the same hint) are submitted once the pulled request's
+    first token is out. ``call`` is the pull's call seam (default: the
+    JSON + base64 loopback over ``donor``). Returns the requester, the
+    streams (pulled, background, followers), the host seconds of the
+    fetch, export and landing, the payload and the K1/K2 launches and
+    decode steps of the served traffic."""
+    from ray_tpu_torch.ops import paged_attention as pa
+    from ray_tpu_torch.serve import kv_migration as km
+    req = make().start()
+    if len(req.submit(list(range(1, 101)), 8).result()) != 8:
+        raise AssertionError("warm-up request came back short")
+    req.reset_latency_stats()
+    call = call or km.loopback_call(donor)
+    got = {"export": [], "land": []}
+    _timed(donor._engine, "kv_export_pages", got["export"])
+    _timed(req, "_land_pulled_pages_locked", got["land"])
+
+    def fetcher(pull):
+        t = time.perf_counter()
+        payload = km.pull_prefix(call, pull["hashes"],
+                                 stats=req.kv_migration_stats)
+        got["fetch_s"], got["payload"] = time.perf_counter() - t, payload
+        return payload
+
+    req.kv_fetcher = fetcher
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
+    steps0 = req.stats["decode_steps"]
+    h = req.submit(prompt, n_new, pull={"hashes": hashes})
+    bg = [req.submit(p, n_new) for p in background]
+    it = h.stream()
+    first = next(it)
+    hits0 = req.stats["cache_hit_tokens"]
+    fol = [req.submit(p, n_new, pull={"hashes": hashes})
+           for p in followers]
+    streams = ([first] + list(it), [b.result() for b in bg],
+               [f.result() for f in fol])
+    if not req.wait_idle(timeout_s=60):
+        raise AssertionError("requester not idle after the pull")
+    del donor._engine.kv_export_pages, req._land_pulled_pages_locked
+    got.update(
+        req=req, streams=streams, ttft_s=h.ttft_s,
+        bg_ttft_s=[b.ttft_s for b in bg],
+        follower_hit_tokens=req.stats["cache_hit_tokens"] - hits0,
+        launches=(pa.paged_decode_attention.launches,
+                  pa.paged_decode_attention.launches_int8),
+        decode_steps=req.stats["decode_steps"] - steps0)
+    return got
+
+
+def _export_ab(eng, hashes) -> list:
+    """Host ms of exporting ``hashes``' pages of ``eng`` (idle) one
+    synchronous copy per page column (``export_page_bytes``) and in one
+    batched copy (the engine's ``export_pages_bytes``), in the order
+    per-page, batched, batched, per-page; the bytes must agree."""
+    from ray_tpu_torch.models.kv_cache import (export_page_bytes,
+                                               export_pages_bytes)
+    pages = eng.kv_pin_prefix(hashes)
+    try:
+        out, got = [], []
+        for batched in (False, True, True, False):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got.append(export_pages_bytes(eng.pages, pages) if batched
+                       else [export_page_bytes(eng.pages, p)
+                             for p in pages])
+            out.append((time.perf_counter() - t) * 1e3)
+        if any(g != got[0] for g in got):
+            raise AssertionError("batched and per-page exports differ")
+        return out
+    finally:
+        eng.kv_release_pages(pages)
+
+
+def _cold_run(make, prompt, n_new, background=()):
+    """The same prompt with no hint on a fresh, warmed requester, beside
+    the same background: its stream and TTFT, and the background's."""
+    eng = make().start()
+    eng.submit(list(range(1, 101)), 8).result()
+    eng.reset_latency_stats()
+    h = eng.submit(prompt, n_new)
+    bg = [eng.submit(p, n_new) for p in background]
+    for b in bg:
+        b.result()
+    out = (h.result(), h.ttft_s, [b.ttft_s for b in bg])
+    eng.shutdown()
+    return out
+
+
+def _wire_pieces_ms(payload) -> tuple:
+    """The pull's encode and decode, timed again on its own bytes as one
+    chunk: base64 plus the response envelope's JSON encode (the donor's
+    side) and the JSON decode plus base64 (the requester's)."""
+    import base64
+    from ray_tpu_torch.serve.fleet import wire
+    t0 = time.perf_counter()
+    body = wire.encode(wire.ok({"chunk_idx": 0, "pages": [
+        [[base64.b64encode(b).decode("ascii") for b in layer]
+         for layer in page] for page in payload["pages"]]}))
+    t1 = time.perf_counter()
+    rsp = wire.decode(body)
+    _ = [[[base64.b64decode(c) for c in layer] for layer in page]
+         for page in rsp["result"]["pages"]]
+    t2 = time.perf_counter()
+    return (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+
+def _swap_fp32_reduced(tl, seed: int) -> dict:
+    """Phase 4e's fp32 checks at phase 3's reduced width (TF32 off): a
+    pull on the card, fp and int8 pools, against a cold recompute on
+    the card and the CPU engine; a preempt swap of the same tensors
+    against an unswapped run; a drain swap to other weights."""
+    from ray_tpu_torch.serve import kv_migration as km
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.prefix_cache import path_hashes
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = tl.LlamaConfig(vocab_size=32000, max_seq_len=256, dim=512,
+                         n_layers=2, n_heads=8, n_kv_heads=2,
+                         hidden_dim=1024, dtype=torch.float32)
+    sd = tl.init_params(cfg, seed=seed, device="cpu")
+    models = {d: tl.build_model(cfg, sd, d) for d in ("cpu", "cuda")}
+    g = np.random.default_rng(seed + 5)
+    prefix = g.integers(0, cfg.vocab_size, 64).tolist()     # 4 pages
+    prompts = [prefix + g.integers(0, cfg.vocab_size, n).tolist()
+               for n in (5, 17)]
+    hashes = path_hashes(prefix, 16)
+
+    def make(device, model=None, **kw):
+        return LLMEngine(model or models[device], max_slots=4,
+                         page_size=16, n_pages=64, chunk=4, device=device,
+                         **kw)
+
+    def serve(eng, ps, n=16, **kw):
+        hs = [eng.submit(p, max_new_tokens=n, **kw) for p in ps]
+        while eng.step():
+            pass
+        return [h.result() for h in hs]
+
+    res = {}
+    for kv_dtype in ("fp", "int8"):
+        donor_eng = make("cuda", kv_dtype=kv_dtype, prefix_cache=True)
+        serve(donor_eng, [prefix + [7, 7]])
+        donor = km.KVDonor(donor_eng)
+        req = make("cuda", kv_dtype=kv_dtype, prefix_cache=True)
+        req.kv_fetcher = lambda pull, req=req, donor=donor: km.pull_prefix(
+            km.loopback_call(donor), pull["hashes"],
+            stats=req.kv_migration_stats)
+        pulled = serve(req, prompts[:1], pull={"hashes": hashes})
+        pulled += serve(req, prompts[1:])
+        cold = {d: make(d, kv_dtype=kv_dtype) for d in ("cuda", "cpu")}
+        card, cpu = ([serve(e, [p])[0] for p in prompts]
+                     for e in cold.values())
+        if _pinned_pages(req, hashes) != _pinned_pages(donor_eng, hashes):
+            raise AssertionError(f"{kv_dtype}: landed bytes differ from "
+                                 f"the donor's")
+        if (req.kv_migration_stats["pulled_pages"], req.stats[
+                "cache_hit_tokens"]) != (4, 2 * 64):
+            raise AssertionError(f"{kv_dtype}: pull stats "
+                                 f"{req.kv_migration_stats} {req.stats}")
+        # fp: identical; int8: identical or parting at a near-tie, as
+        # phase 3 holds an int8 pool (one int8 step here and there)
+        partings = {}
+        for name, ref in (("card", card), ("cpu", cpu)):
+            if kv_dtype == "fp" and pulled != ref:
+                raise AssertionError(f"fp: pulled streams differ from a "
+                                     f"cold recompute on the {name}")
+            gaps = _int8_parting_gaps(models["cpu"], prompts, ref, pulled)
+            if max(gaps, default=0.0) > INT8_LOGIT_SLACK:
+                raise AssertionError(f"int8: pulled streams part from the "
+                                     f"{name}'s beyond a near-tie ({gaps})")
+            partings[name] = len(gaps)
+        res[f"pull_{kv_dtype}"] = {"near_tie_partings": partings}
+    # preempt swap of the same tensors (staged from the host) mid-wave
+    wave = prompts + [g.integers(0, cfg.vocab_size, 30).tolist()]
+    want = serve(make("cuda"), wave)
+    eng = make("cuda", prefix_cache=True)
+    hs = [eng.submit(p, max_new_tokens=16) for p in wave]
+    eng.step()
+    if not any(s is not None for s in eng.slots):
+        raise AssertionError("no slot occupied at the swap")
+    eng.swap_weights(sd, weights_id="same-v2")
+    while eng.step():
+        pass
+    if [h.result() for h in hs] != want:
+        raise AssertionError("fp32 preempt swap of the same tensors "
+                             "changed the streams")
+    # drain swap to other weights: the request in flight finishes on the
+    # old ones; one submitted while the swap is pending runs on the new
+    sd2 = tl.init_params(cfg, seed=seed + 1, device="cpu")
+    eng = make("cuda")
+    h = eng.submit(wave[0], max_new_tokens=16)
+    eng.step()
+    eng.swap_weights(sd2, weights_id="other", mode="drain", wait=False)
+    h2 = eng.submit(wave[1], max_new_tokens=16)
+    while eng.step():
+        pass
+    fresh = serve(make("cuda", model=tl.build_model(cfg, sd2, "cuda")),
+                  [wave[1]])[0]
+    if (h.result(), h2.result()) != (want[0], fresh):
+        raise AssertionError("fp32 drain swap: the in-flight request left "
+                             "the old weights or the next one missed the "
+                             "new ones")
+    if eng.load_report()["weight_generation"] != 1:
+        raise AssertionError("drain swap did not advance the fence")
+    res["swap_preempt_identical"] = res["swap_drain_identical"] = True
+    return res
+
+
+def phase_kv_pull_swap(tl, pa, seed: int, smi: str) -> dict:
+    """Phase 4e: cross-replica KV pull between two TinyLlama-1.1B
+    engines on the card (fp and int8 pools), then the hot weight swap
+    on the requester, then the fp32 checks at a reduced width."""
+    from ray_tpu_torch.serve import kv_migration as km
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.fleet import transport as fleet_transport
+    from ray_tpu_torch.serve.prefix_cache import path_hashes
+    cfg = tl.tinyllama_1_1b()
+    n_new, Pg = 64, 64
+    params = tl.init_params(cfg, seed=seed, device="cuda")
+    model = tl.build_model(cfg, params, "cuda")
+    del params
+    warm, system, _aligned, wave1, _wave2 = _chat_traffic(cfg.vocab_size,
+                                                          seed)
+    g = np.random.default_rng(seed + 6)
+    prompts = [system + g.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in g.integers(16, 513, 8)]
+    background = [g.integers(0, cfg.vocab_size, n).tolist()
+                  for n in (300, 600, 900, 1200)]
+    hashes = path_hashes(system, Pg)
+    res = {"card": smi}
+    for kv_dtype in ("fp", "int8"):
+        def make(kv_dtype=kv_dtype):
+            return LLMEngine(model, max_slots=16, page_size=Pg,
+                             n_pages=513, chunk=8, prefix_cache=True,
+                             kv_dtype=kv_dtype, device="cuda")
+
+        donor_eng = make().start()
+        donor_eng.submit(warm, n_new).result()
+        for h in [donor_eng.submit(p, n_new) for p in wave1]:
+            if len(h.result()) != n_new:
+                raise AssertionError("donor request came back short")
+        donor = km.KVDonor(donor_eng)
+        donor_bytes = _pinned_pages(donor_eng, hashes)
+        if len(donor_bytes) != len(hashes):
+            raise AssertionError(f"donor holds {len(donor_bytes)} of the "
+                                 f"system prompt's {len(hashes)} pages")
+        # the clean pull, with background traffic and 7 followers
+        run = _pull_run(make, donor, hashes, prompts[0], n_new,
+                        background=background, followers=prompts[1:])
+        req = run["req"]
+        pulled, bg_out, fol_out = run["streams"]
+        st = dict(req.kv_migration_stats)
+        launches = run["launches"]
+        k = 0 if kv_dtype == "fp" else 1
+        want_launches = [0, 0]
+        want_launches[k] = cfg.n_layers * run["decode_steps"]
+        checks = {
+            "16 pages landed": st["pulled_pages"] == 16
+            and req.stats["kv_pull_landed"] == 1,
+            "landed bytes == donor's": _pinned_pages(req, hashes)
+            == donor_bytes,
+            "no abort, fallback or second pull": (st["pulls"], st[
+                "aborts"], st["fallbacks"]) == (1, 0, 0),
+            "followers hit locally": run["follower_hit_tokens"]
+            >= 7 * 1024,
+            "every stream complete": all(len(o) == n_new for o in
+                                         [pulled] + bg_out + fol_out),
+            f"K{k + 1} once per layer per decode step": run[
+                "decode_steps"] > 0 and list(launches) == want_launches,
+        }
+        bad = [c for c, ok in checks.items() if not ok]
+        if bad:
+            raise AssertionError(f"phase 4e {kv_dtype}: failed {bad}; "
+                                 f"stats {st}, launches {launches}, "
+                                 f"steps {run['decode_steps']}")
+        # the pulled request's tokens, teacher-forced: the bf16 model
+        # over a fresh pool of this dtype, and the bf16 weights in fp32
+        # over an fp pool (int8: + one int8 step, as phase 4b)
+        gaps16 = _teacher_forced_gaps(model, prompts[0], pulled, kv_dtype)
+        ref32 = tl.build_model(
+            dataclasses.replace(cfg, dtype=torch.float32),
+            {n: v.float() for n, v in model.state_dict().items()}, "cuda")
+        gaps32 = _teacher_forced_gaps(ref32, prompts[0], pulled)
+        del ref32
+        lim32 = LOGIT_SLACK if kv_dtype == "fp" else INT8_LOGIT_SLACK
+        if max(gaps16) > LOGIT_SLACK or max(gaps32) > lim32:
+            raise AssertionError(f"phase 4e {kv_dtype} teacher-forced: max "
+                                 f"gaps {max(gaps16)} bf16, {max(gaps32)} "
+                                 f"fp32")
+        cold, cold_ttft, cold_bg_ttft = _cold_run(make, prompts[0], n_new,
+                                                  background)
+        _, cold_alone_ttft, _ = _cold_run(make, prompts[0], 16)
+        enc_ms, dec_ms = _wire_pieces_ms(run["payload"])
+        fetch_ms = run["fetch_s"] * 1e3
+        export_ms = sum(run["export"]) * 1e3
+        arm = {
+            "pull_ms": fetch_ms + sum(run["land"]) * 1e3,
+            "fetch_ms": fetch_ms, "export_ms": export_ms,
+            "encode_ms": enc_ms, "decode_ms": dec_ms,
+            "wire_rest_ms": fetch_ms - export_ms - enc_ms - dec_ms,
+            "landing_ms": sum(run["land"]) * 1e3,
+            "wire_bytes": st["wire_bytes"],
+            "wire_MB_s": st["wire_bytes"] / run["fetch_s"] / 1e6,
+            "page_bytes": req.page_bytes,
+            "ttft_pulled_ms": run["ttft_s"] * 1e3,
+            "ttft_cold_ms": cold_ttft * 1e3,
+            "ttft_cold_alone_ms": cold_alone_ttft * 1e3,
+            "bg_ttft_ms_during_pull": [t * 1e3 for t in run["bg_ttft_s"]],
+            "bg_ttft_ms_during_cold": [t * 1e3 for t in cold_bg_ttft],
+            "follower_hit_tokens": run["follower_hit_tokens"],
+            "decode_steps": run["decode_steps"],
+            "k1_launches": launches[0], "k2_launches": launches[1],
+            "teacher_forced_max_gap_bf16": max(gaps16),
+            "teacher_forced_max_gap_fp32": max(gaps32),
+            "pulled_equals_cold": pulled == cold, "stats": st}
+        print(f"phase 4e: {kv_dtype} pool, TinyLlama-1.1B bf16, 16-page "
+              f"(1024-token) prefix pulled over the loopback wire on {smi}:"
+              f" pull {arm['pull_ms']:.1f} ms = export {export_ms:.1f} + "
+              f"encode {enc_ms:.1f} + decode {dec_ms:.1f} + rest of the "
+              f"wire {arm['wire_rest_ms']:.1f} + landing "
+              f"{arm['landing_ms']:.1f}; {st['wire_bytes']} wire bytes, "
+              f"{arm['wire_MB_s']:.1f} MB/s; TTFT pulled "
+              f"{arm['ttft_pulled_ms']:.1f} ms vs cold "
+              f"{arm['ttft_cold_ms']:.1f} ms (4 background requests "
+              f"each); background TTFT during the pull "
+              f"{[round(t, 1) for t in arm['bg_ttft_ms_during_pull']]} "
+              f"ms, during the cold prefill "
+              f"{[round(t, 1) for t in arm['bg_ttft_ms_during_cold']]} "
+              f"ms; 7 followers hit {run['follower_hit_tokens']} tokens; "
+              f"K{k + 1} {launches[k]} = {cfg.n_layers} x "
+              f"{run['decode_steps']} steps; teacher-forced max gap "
+              f"{max(gaps16):.4f} bf16, {max(gaps32):.4f} fp32")
+        if kv_dtype == "fp":
+            arm["swap"] = _swap_bf16(tl, req, model, cfg, g)
+        req.shutdown()
+        # the pulled request alone on fresh requesters: with the default
+        # chunks, in 4 chunks, then one page a chunk through a faulty
+        # transport under 4 seeds (18+ calls each: a dropped begin falls
+        # back, dropped and duplicated chunks must land the same bytes)
+        arms = [("alone", {}, None),
+                ("4_chunks", {"max_chunk_bytes": 4 * donor_eng.page_bytes},
+                 None)] + [
+            (f"faulty_seed{seed + k}", {
+                "max_chunk_bytes": donor_eng.page_bytes,
+                "time_fn": lambda: 0.0}, seed + k) for k in range(4)]
+        faults = collections.Counter()
+        for name, kw, fault_seed in arms:
+            arm_donor = km.KVDonor(donor_eng, **kw)
+            calls = collections.Counter()
+            lb = fleet_transport.LoopbackTransport(
+                lambda m, a, _t, d=arm_donor: d.handle(m, a))
+            inner = (lb if fault_seed is None else
+                     fleet_transport.FaultyTransport(
+                         lb, seed=fault_seed, drop_p=0.15, dup_p=0.3))
+
+            def call(m, a, inner=inner, calls=calls):
+                calls[m] += 1
+                return inner.call(m, a)
+
+            r = _pull_run(make, arm_donor, hashes, prompts[0], 16,
+                          call=call)
+            rst = r["req"].kv_migration_stats
+            landed = rst["pulled_pages"] == 16 and _pinned_pages(
+                r["req"], hashes) == donor_bytes
+            fell_back = (rst["fallbacks"] == 1
+                         and r["req"].stats["kv_pull_fallbacks"] == 1)
+            want_chunks = {"alone": -(-16 // (
+                (fleet_transport.max_frame_bytes() // 2)
+                // donor_eng.page_bytes)), "4_chunks": 4}.get(name)
+            if want_chunks and not (landed and calls["kv_pull_chunk"]
+                                    == want_chunks and rst["fallbacks"] == 0):
+                raise AssertionError(f"{name} pull: {dict(calls)} {rst}")
+            if fault_seed is not None and landed == fell_back:
+                raise AssertionError(f"{name} pull neither landed the "
+                                     f"donor's bytes nor fell back: {rst}")
+            if len(r["streams"][0]) != 16:
+                raise AssertionError(f"{name} pull: the stream came back "
+                                     f"short")
+            if fault_seed is not None:
+                faults.update(inner.stats)
+                # a duplicated begin leaves a transfer the requester never
+                # ends: the pin deadline's GC reclaims it
+                arm_donor._time = lambda: float("inf")
+            if arm_donor.open_transfers():
+                raise AssertionError(f"{name}: transfers left open")
+            arm[f"pull_{name}"] = {
+                "calls": dict(calls), "landed": landed,
+                "fell_back": fell_back, "fetch_ms": r["fetch_s"] * 1e3,
+                "export_ms": sum(r["export"]) * 1e3,
+                "landing_ms": sum(r["land"]) * 1e3,
+                "ttft_ms": r["ttft_s"] * 1e3, "stats": dict(rst),
+                **({"faults": dict(inner.stats)} if fault_seed is not None
+                   else {})}
+            r["req"].shutdown()
+            print(f"phase 4e: {kv_dtype} pull {name}: calls {dict(calls)}"
+                  f", {'landed the donor bytes' if landed else 'fell back'}"
+                  f", fetch {r['fetch_s'] * 1e3:.1f} ms (export "
+                  f"{sum(r['export']) * 1e3:.1f}), landing "
+                  f"{sum(r['land']) * 1e3:.1f} ms, TTFT "
+                  f"{r['ttft_s'] * 1e3:.1f} ms (cold alone "
+                  f"{cold_alone_ttft * 1e3:.1f} ms)" + (
+                      f"; faults {dict(inner.stats)}"
+                      if fault_seed is not None else ""))
+        if not (faults["dropped"] and faults["duplicated"]):
+            raise AssertionError(f"the faulty pulls saw no drop or no "
+                                 f"duplicate: {dict(faults)}")
+        arm["export_ab_ms"] = _export_ab(donor_eng, hashes)
+        print(f"phase 4e: {kv_dtype} export of the 16 pages on an idle "
+              f"card, per page column vs batched (p/b/b/p, ms): "
+              f"{[round(t, 2) for t in arm['export_ab_ms']]}")
+        if donor.open_transfers() or donor_eng.prefix_cache.evictable_pages() \
+                != donor_eng.prefix_cache.cached_pages or \
+                donor_eng.alloc.occupancy() != \
+                donor_eng.prefix_cache.cached_pages:
+            raise AssertionError("the donor kept a transfer or a pin")
+        donor_eng.shutdown()
+        res[kv_dtype] = arm
+        torch.cuda.empty_cache()
+    res["fp32_reduced"] = _swap_fp32_reduced(tl, seed)
+    print("phase 4e: fp32 at phase 3's width: pulled streams == a cold "
+          "recompute on the card and on the CPU (fp pool; int8 pool near-"
+          "tie partings (card, CPU): "
+          f"{res['fp32_reduced']['pull_int8']['near_tie_partings']}); a "
+          "preempt swap of the same tensors leaves the streams as they "
+          "were; after a drain swap the request in flight ends on the old "
+          "weights and the next runs on the new")
+    return res
+
+
+def _swap_bf16(tl, req, model, cfg, g) -> dict:
+    """A preempt-mode swap on phase 4e's fp requester, in the middle of
+    4 streams, to the same tensors staged from the host under a new
+    ``weights_id``: staging and flip timed, peak device memory read."""
+    n_swap = 256                      # long enough to straddle the flip
+    prompts = [g.integers(0, cfg.vocab_size, n).tolist()
+               for n in (200, 400, 800, 1000)]
+    host_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    stage, flip = [], []
+    _timed(req, "_stage_weights", stage)
+    _timed(req, "_apply_swap_locked", flip)
+    hs = [req.submit(p, n_swap) for p in prompts]
+    its = [h.stream() for h in hs]
+    heads = [[next(it)] for it in its]          # every stream is live
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gen = req.swap_weights(host_sd, weights_id="same-bytes-v2")
+    peak = torch.cuda.max_memory_allocated()
+    outs = [head + list(it) for head, it in zip(heads, its)]
+    del req._stage_weights, req._apply_swap_locked
+    ev = [e[5] for e in req.events.snapshot() if e[2] == "weight_swap"]
+    rpt = req.load_report()
+    gaps = [x for p, o in zip(prompts[:2], outs[:2])
+            for x in _teacher_forced_gaps(req.model, p, o)]
+    if (gen, rpt["weight_generation"], rpt["weights_id"]) != (
+            1, 1, "same-bytes-v2") or any(len(o) != n_swap for o in outs) \
+            or ev[-1]["prefix_pages_evicted"] < 16 or ev[-1]["preempted"] \
+            < 1 or max(gaps) > LOGIT_SLACK:
+        raise AssertionError(f"phase 4e swap: gen {gen}, report "
+                             f"{rpt['weight_generation']}, event {ev}, "
+                             f"lengths {[len(o) for o in outs]}, max gap "
+                             f"{max(gaps)}")
+    res = {"staging_ms": stage[0] * 1e3, "flip_pause_ms": flip[0] * 1e3,
+           "device_memory_before_gb": mem0 / 1e9,
+           "peak_device_memory_gb": peak / 1e9, "event": ev[-1],
+           "teacher_forced_max_gap_bf16": max(gaps)}
+    print(f"phase 4e: preempt swap of TinyLlama-1.1B's weights (the same "
+          f"tensors from the host, new weights_id) mid 4 streams: staging "
+          f"{res['staging_ms']:.1f} ms, flip pause {res['flip_pause_ms']:.2f}"
+          f" ms (engine lock held), device memory {mem0 / 1e9:.2f} GB "
+          f"before, peak {peak / 1e9:.2f} GB; preempted "
+          f"{ev[-1]['preempted']}, evicted {ev[-1]['prefix_pages_evicted']}"
+          f" pages; streams complete, teacher-forced max gap "
+          f"{max(gaps):.4f}")
+    return res
+
 
 def _flash_inputs(seed, B, T, H, D, dtype, pad_to=None, Tk=None):
     g = np.random.default_rng(seed)
@@ -2162,12 +2724,17 @@ def main(argv=None) -> int:
     default_loop = phase_default_loop_path(tl, pa, args.seed, smi)
     print(f"phase 4d done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
+    kv_pull = phase_kv_pull_swap(tl, pa, args.seed, smi)
+    print(f"phase 4e done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
     k1["launches"] = main_path["k1_launches"]
     k1["launches_default_loop"] = sum(
         arm["k1_launches"] for arm in default_loop["arms"].values())
     k2["launches"] = int8_path["k2_launches"]
+    k1["launches_kv_pull"] = kv_pull["fp"]["k1_launches"]
+    k2["launches_kv_pull"] = kv_pull["int8"]["k2_launches"]
     # which split pass the served pools' decode steps run: the
     # tensor-core pass over bf16 pages on the fp pool (K1) and over int8
     # pages on the int8 pool (K2), in every layer
@@ -2212,6 +2779,7 @@ def main(argv=None) -> int:
                        "static_path": static_path,
                        "engine_modes": engine_modes,
                        "default_loop_path": default_loop,
+                       "kv_pull_swap": kv_pull,
                        "train_main_path": train,
                        "llama_train_main_path": llama_train,
                        "total_s": time.monotonic() - t0}, f, indent=1)

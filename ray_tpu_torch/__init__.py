@@ -12,7 +12,8 @@ Slices landed so far, each on one card:
   ``LLMEngine`` (with ``serve.prefix_cache``) -> the paged branch of
   ``models.llama`` -> ``models.kv_cache`` (fp or int8 pages) ->
   ``ops.paged_attention`` (hand-written CUDA paged-decode kernels for
-  fp and int8 pages);
+  fp and int8 pages); the engine's cross-replica KV pull
+  (``serve.kv_migration`` over ``serve.fleet``) and hot weight swap;
 - GPT-2 training: ``train.spmd`` ``make_train_step`` -> ``models.gpt2``
   -> ``ops.attention`` -> ``ops.flash_attention`` (hand-written CUDA
   flash-attention forward and backward kernels).

@@ -137,6 +137,29 @@ def export_page_bytes(layers, page: int) -> List[List[bytes]]:
             for layer in layers]
 
 
+def export_pages_bytes(layers, pages: Sequence[int]
+                       ) -> List[List[List[bytes]]]:
+    """``export_page_bytes`` of each page in ``pages``, batched: one
+    ``index_select`` of the pages per layer tensor, all of them
+    gathered into one byte buffer and copied to the host once (one
+    wait for the device instead of one per page column). The bytes are
+    ``export_page_bytes``'s, page by page."""
+    idx = torch.as_tensor(list(pages), dtype=torch.long,
+                          device=layers[0][0].device)
+    sel = [t.index_select(1, idx) for layer in layers for t in layer]
+    flat = torch.cat([s.view(torch.uint8).reshape(-1) for s in sel]).cpu()
+    cols, off = [], 0
+    for s in sel:
+        n = s.numel() * s.element_size()
+        cols.append(flat[off:off + n].reshape(s.shape[0], len(idx), -1))
+        off += n
+    per = len(layers[0])
+    return [[[cols[li * per + ti][:, j].contiguous().numpy().tobytes()
+              for ti in range(per)]
+             for li in range(len(layers))]
+            for j in range(len(idx))]
+
+
 def page_cols_from_bytes(cfg, page_size: int, kv_dtype: str,
                          blobs: Sequence[Sequence[bytes]]):
     """Inverse of ``export_page_bytes``: one page's per-layer column

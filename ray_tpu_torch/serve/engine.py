@@ -55,11 +55,26 @@ device (``"cuda"`` by default, ``"cpu"`` when the caller asks).
 - Logprob capture (``capture_logprobs``): the chosen token's logprob
   under the sampling distribution rides each readback beside the
   tokens (``RequestHandle.logprobs``).
+- Cross-replica KV pull (serve/kv_migration.py). Requester: a request
+  submitted with a ``pull`` hint admits in the PULLING phase (a slot
+  with no pages that rides nothing) while a thread runs the injected
+  ``kv_fetcher``; landed pages enter the prefix cache and the request
+  requeues at the front to admit as a local hit, or as plain prefill
+  when the pull failed (``kv_pull_fallbacks``). Donor: the
+  ``kv_pin_prefix``/``kv_export_pages``/``kv_release_pages`` trio a
+  ``KVDonor`` drives, each under the engine lock.
+- Hot weight swap (``swap_weights``): the new weights are staged as a
+  second model off the lock, and the flip lands between rounds behind
+  a strictly monotonic generation fence (``weight_generation``,
+  ``weights_id``), preempting every slot (``mode="preempt"``) or once
+  the engine has settled (``mode="drain"``, admission paused). The
+  prefix cache is fenced at the flip (``PrefixCache.fence``).
+- ``events`` (serve/obs.py ``EventLog``) records the pull and swap
+  events under the reference's kinds.
 
-Not ported yet (ROADMAP.md, queue 1): KV pull
-(``kv_pin_prefix``/``kv_export_pages``/``kv_release_pages``),
-``swap_weights``, fault injection, priority lanes and replica roles,
-tensor parallelism, deadlines, the metrics registry and the event log.
+Not ported yet (ROADMAP.md, queue 1): fault injection, priority lanes
+and replica roles, tensor parallelism, deadlines, the other metrics
+and event sites.
 """
 from __future__ import annotations
 
@@ -76,19 +91,50 @@ import numpy as np
 import torch
 
 from ray_tpu_torch._device import resolve_device
-from ray_tpu_torch.models.kv_cache import (BlockAllocator, init_kv_pool,
-                                           kv_layer_view,
-                                           kv_pool_page_bytes)
-from ray_tpu_torch.models.llama import _pick_token
+from ray_tpu_torch.models.kv_cache import (BlockAllocator,
+                                           export_pages_bytes,
+                                           init_kv_pool, kv_layer_view,
+                                           kv_pool_page_bytes,
+                                           page_cols_from_bytes)
+from ray_tpu_torch.models.llama import _pick_token, build_model
+from ray_tpu_torch.serve import kv_migration
 from ray_tpu_torch.serve.errors import (EngineDraining, EngineOverloaded,
                                         EngineShutdown, RequestCancelled,
                                         RequestError)
+from ray_tpu_torch.serve.obs import EventLog
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
 from ray_tpu_torch.serve.scheduler import SlotView, StepPlan, plan_step
 from ray_tpu_torch.serve.spec_decode import NGramIndex
+from ray_tpu_torch.util import metrics
 from ray_tpu_torch.util.envknobs import resolve_kv_dtype
 
 _DONE = object()
+
+WEIGHT_SWAP_TOTAL = "serve_weight_swap_total"
+WEIGHT_GENERATION_GAUGE = "serve_weight_generation"
+
+_METRICS: Optional[dict] = None
+
+
+def _metrics() -> dict:
+    """Lazy metric singletons of the weight swap (the reference's
+    names), re-created if a ``clear_registry()`` dropped them."""
+    global _METRICS
+    if (_METRICS is None or metrics.registry().get(WEIGHT_SWAP_TOTAL)
+            is not _METRICS["weight_swaps"]):
+        _METRICS = {
+            "weight_swaps": metrics.Counter(
+                WEIGHT_SWAP_TOTAL, "In-place hot weight swaps applied "
+                "(monotonic generation-fence flips between scheduler "
+                "rounds)"),
+            "weight_generation": metrics.Gauge(
+                WEIGHT_GENERATION_GAUGE,
+                "Weight generation currently serving on each replica "
+                "(the monotonic swap fence; rollback still advances it "
+                "— weights_id names the payload)",
+                tag_keys=("replica",)),
+        }
+    return _METRICS
 
 
 @dataclasses.dataclass
@@ -110,6 +156,11 @@ class _Request:
                                  # unless ``capture_logprobs``);
                                  # appended by _emit_to in the loop that
                                  # appends the tokens
+    pull: Optional[Dict[str, Any]] = None
+                                 # cross-replica KV pull hint: {"hashes":
+                                 # [...], ...fetcher fields}; consumed
+                                 # exactly once at first admission, so a
+                                 # preemption requeue never re-pulls
 
     @property
     def remaining(self) -> int:
@@ -176,6 +227,16 @@ class RequestHandle:
         return list(self._req.generated)
 
     @property
+    def weights_tag(self) -> Optional[str]:
+        """``generation:weights_id`` of the serving engine at read
+        time: which weight payload a client mid-rollout was served
+        by."""
+        eng = self._engine
+        if eng is None:
+            return None
+        return f"{eng.weight_generation}:{eng.weights_id}"
+
+    @property
     def ttft_s(self) -> Optional[float]:
         """Submit-to-first-emission latency (the first token put on the
         request stream); None until it is out."""
@@ -219,6 +280,11 @@ class _Slot:
     spec_pending: List[int] = dataclasses.field(default_factory=list)
                                  # drafts proposed at plan time, used by
                                  # this round's verify
+    pulling: bool = False        # KV-pull phase: a thread is pulling
+                                 # this request's prefix from a peer;
+                                 # the slot holds no pages, rides no
+                                 # dispatch and gets no grant, and the
+                                 # pull's end requeues the request
 
     @property
     def prefill_remaining(self) -> int:
@@ -405,26 +471,54 @@ class LLMEngine:
         self._ttft_ewma: Optional[float] = None
         self._itl_ewma: Optional[float] = None
         self._ewma_alpha = 0.2
+        # Weight-generation fence: strictly monotonic — every
+        # ``swap_weights`` advances it, rollbacks included (the OLD
+        # payload under a NEW generation); ``weights_id`` names the
+        # payload. ``replica_tag`` labels the generation gauge.
+        self.weight_generation = 0
+        self.weights_id = "g0"
+        self.replica_tag = "0"
+        self._pending_swap: Optional[Dict[str, Any]] = None
+        # Cross-replica KV pull, requester side: ``kv_fetcher`` is a
+        # callable(pull hint) -> payload dict or None (e.g.
+        # kv_migration.pull_prefix over a donor's call seam), injected
+        # by the caller; the stats mirror the process counters.
+        self.kv_fetcher: Optional[Any] = None
+        self.kv_migration_stats = kv_migration.new_stats()
+        self.events = EventLog(name="engine")
 
-    def _h2d(self, x: np.ndarray) -> torch.Tensor:
+    def _h2d(self, x) -> torch.Tensor:
         """Host->device for dispatch operands (page tables, token
-        chunks, positions): staged through pinned memory so the copy
-        is enqueued without waiting for the device."""
-        t = torch.from_numpy(np.ascontiguousarray(x))
+        chunks, positions; a numpy array or a CPU tensor) and landed KV
+        pages: staged through pinned memory so the copy is enqueued
+        without waiting for the device. The caching host allocator
+        keeps each pinned block from reuse until its copy is done."""
+        t = (x if isinstance(x, torch.Tensor)
+             else torch.from_numpy(np.ascontiguousarray(x)))
         if self.device.type == "cuda":
-            return t.pin_memory().to(self.device, non_blocking=True)
+            return t.contiguous().pin_memory().to(self.device,
+                                                  non_blocking=True)
         return t
 
     # ---------------------------------------------------------- public
 
     def submit(self, prompt_ids: List[int],
-               max_new_tokens: int = 64) -> RequestHandle:
+               max_new_tokens: int = 64,
+               pull: Optional[Dict[str, Any]] = None) -> RequestHandle:
         """Queue one request. Raises ``RequestError`` for an empty
         prompt, a non-positive budget, token ids outside the
         vocabulary, or a request the pool or the model cannot hold;
         ``EngineOverloaded`` when ``max_queued`` requests already
         wait; ``EngineShutdown``/``EngineDraining`` when stopped or
-        draining."""
+        draining.
+
+        ``pull`` is a cross-replica KV pull hint (serve/kv_migration.py):
+        a dict with at least ``hashes`` (the prompt's leading rolling
+        path hashes a peer holds) plus whatever fields the injected
+        ``kv_fetcher`` needs to reach the donor. Admission then enters
+        the PULLING phase instead of recomputing the prefix
+        (``_try_pull_admit_locked``). Ignored without a fetcher or a
+        prefix cache."""
         prompt_ids = [int(t) for t in prompt_ids]
         if not prompt_ids:
             raise RequestError("empty prompt")
@@ -450,7 +544,8 @@ class LLMEngine:
                 f"max_seq_len {self.cfg.max_seq_len}")
         req = _Request(next(self._rid), prompt_ids, max_new_tokens,
                        t_submit=time.monotonic(),
-                       logprobs=[] if self.capture_logprobs else None)
+                       logprobs=[] if self.capture_logprobs else None,
+                       pull=pull)
         with self._work:
             if self._stopped:
                 raise EngineShutdown("engine stopped")
@@ -513,6 +608,151 @@ class LLMEngine:
             time.sleep(0.005)
         return True
 
+    # ------------------------------------------------ hot weight swap
+
+    def swap_weights(self, params: Dict[str, torch.Tensor], *,
+                     generation: Optional[int] = None,
+                     weights_id: Optional[str] = None,
+                     mode: str = "preempt", wait: bool = True,
+                     timeout_s: float = 120.0) -> int:
+        """In-place hot weight swap under traffic. ``params`` is a state
+        dict of ``models.llama.Llama`` (as ``build_model`` takes it;
+        JAX-package weights through ``flax_state_dict``).
+
+        The new weights are staged as a second model on the engine's
+        device OFF the engine lock, and their copies finish before the
+        flip (the double buffer: the old model keeps serving meanwhile;
+        the serving model's tensors are never written, since a queued
+        dispatch may still read them). The flip lands between
+        scheduler rounds — ``step()`` holds the lock for a whole round,
+        so taking it here is the round boundary.
+
+        ``mode="preempt"`` (default) flips now: trailing readbacks are
+        drained so every victim's generated-so-far is complete, every
+        slot is preempted through the token-identical recompute path (a
+        pull in flight included: its payload is dropped when it
+        returns), the prefix cache is fenced (no KV computed under the
+        old weights is ever matched against the new), and the fence
+        advances. ``mode="drain"`` pauses admission and applies the
+        same flip once every slot, readback and in-flight prefill has
+        settled: requests in flight finish wholly on the old weights.
+
+        The fence is strictly monotonic: a ``generation`` at or below
+        the current one raises ``ValueError``; roll back by installing
+        the old payload under a NEW generation. Returns the generation
+        serving after the swap (with ``wait=False`` in drain mode, the
+        one that will serve once the drain settles)."""
+        if mode not in ("preempt", "drain"):
+            raise ValueError(f"unknown swap mode {mode!r}; expected "
+                             f"'preempt' or 'drain'")
+        staged = self._stage_weights(params)
+        with self._work:
+            if self._stopped:
+                raise EngineShutdown(
+                    "cannot swap weights: engine stopped")
+            gen = (self.weight_generation + 1 if generation is None
+                   else int(generation))
+            if gen <= self.weight_generation:
+                raise ValueError(
+                    f"weight-generation fence is monotonic: requested "
+                    f"generation {gen} <= current "
+                    f"{self.weight_generation} (install the old "
+                    f"payload under a NEW generation to roll back)")
+            wid = weights_id if weights_id is not None else f"g{gen}"
+            if mode == "preempt":
+                self._apply_swap_locked(staged, gen, wid, mode)
+                self._work.notify_all()
+                return gen
+            if self._pending_swap is not None:
+                raise RuntimeError(
+                    "a drain-mode weight swap is already pending "
+                    f"(generation {self._pending_swap['generation']})")
+            pend = {"model": staged, "generation": gen,
+                    "weights_id": wid, "applied": False,
+                    "event": threading.Event()}
+            self._pending_swap = pend
+            self.events.append("weight_swap_pending",
+                               data={"generation": gen,
+                                     "weights_id": wid})
+            self._work.notify_all()
+        if not wait:
+            return gen
+        deadline = time.monotonic() + max(0.0, timeout_s)
+        while not pend["event"].wait(timeout=0.05):
+            if self._stopped:
+                raise EngineShutdown(
+                    "engine stopped with a weight swap pending")
+            if time.monotonic() >= deadline:
+                with self._work:
+                    if self._pending_swap is pend:
+                        self._pending_swap = None
+                raise TimeoutError(
+                    f"drain-mode weight swap to generation {gen} did "
+                    f"not apply within {timeout_s}s")
+        if not pend["applied"]:
+            raise EngineShutdown(
+                "engine stopped with a weight swap pending")
+        return gen
+
+    def _stage_weights(self, params: Dict[str, torch.Tensor]):
+        """The swap's staging half, off the lock: a new model on the
+        engine's device from ``params``, its host-to-device copies
+        finished before it is returned."""
+        staged = build_model(self.cfg, params, self.device)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return staged
+
+    def _maybe_apply_pending_swap_locked(self) -> None:
+        """Apply a pending drain-mode swap iff the engine has fully
+        settled (no slots, no trailing readbacks, no in-flight
+        prefills). Called between rounds by ``step()``."""
+        pend = self._pending_swap
+        if pend is None:
+            return
+        if (any(s is not None for s in self.slots) or self._fetchq
+                or self._pending_prefill):
+            return
+        self._pending_swap = None
+        self._apply_swap_locked(pend["model"], pend["generation"],
+                                pend["weights_id"], "drain")
+        pend["applied"] = True
+        pend["event"].set()
+
+    def _apply_swap_locked(self, staged, gen: int, wid: str,
+                           mode: str) -> None:
+        """The inter-round flip. The caller holds the engine lock and
+        has validated the fence."""
+        # settle trailing readbacks first so every victim's
+        # generated-so-far is complete before its recompute prompt
+        # freezes (token identity across the swap)
+        self._drain_fetches_locked()
+        preempted = 0
+        for i in range(len(self.slots)):
+            victim = self.slots[i]
+            if victim is None:
+                continue
+            self._preempt_locked(i)
+            if victim.preempted:
+                preempted += 1
+        # the fence's cache half: every slot was preempted, so only
+        # donor pins hold pages; fence() evicts the rest and detaches
+        # the pinned ones, which leave when their last pin drops
+        evicted = 0
+        if self.prefix_cache is not None:
+            evicted = self.prefix_cache.fence()
+        self.model = staged
+        self.weight_generation = gen
+        self.weights_id = wid
+        self.stats["weight_swaps"] += 1
+        m = _metrics()
+        m["weight_swaps"].inc()
+        m["weight_generation"].set(float(gen),
+                                   tags={"replica": str(self.replica_tag)})
+        self.events.append("weight_swap", data={
+            "generation": gen, "weights_id": wid, "mode": mode,
+            "preempted": preempted, "prefix_pages_evicted": evicted})
+
     def load_report(self) -> Dict[str, Any]:
         """Compact load snapshot: free capacity, queue pressure,
         outstanding token work, latency EWMAs, the readback pipeline
@@ -549,6 +789,8 @@ class LLMEngine:
             "fetchq_depth": len(self._fetchq),
             "pending_prefills": len(self._pending_prefill),
             "overlap": self.overlap,
+            "weight_generation": self.weight_generation,
+            "weights_id": self.weights_id,
             "prefix_digest": (self.prefix_cache.digest(
                 self.prefix_digest_max)
                 if self.prefix_cache is not None else frozenset()),
@@ -583,6 +825,9 @@ class LLMEngine:
             self._pending_prefill.clear()
             while self._wait:
                 self._fail_req_locked(self._wait.popleft(), err)
+            pend, self._pending_swap = self._pending_swap, None
+            if pend is not None:
+                pend["event"].set()    # the waiter raises EngineShutdown
 
     def _cancel(self, req: _Request,
                 error: Optional[BaseException] = None) -> bool:
@@ -663,12 +908,25 @@ class LLMEngine:
                 self._drain_fetches_locked(ready_only=True)
             else:
                 self._drain_fetches_locked()
+            if self._pending_swap is not None:
+                # drain-mode weight swap: admission is paused; flip
+                # here, between rounds, once everything settled
+                self._maybe_apply_pending_swap_locked()
             self._admit_locked()
             if not any(self.slots):
                 if self._fetchq or self._pending_prefill:
                     self._drain_fetches_locked(limit=1)
                     return True
                 return bool(self._wait)
+            if all(s is None or s.pulling for s in self.slots):
+                # only PULLING slots: nothing is dispatchable until a
+                # transfer lands or aborts; park on the condition (the
+                # pull thread notifies) while older readbacks drain
+                if self._fetchq or self._pending_prefill:
+                    self._drain_fetches_locked(limit=1)
+                else:
+                    self._work.wait(timeout=0.01)
+                return True
             plan = self._plan_steps_locked()
             if plan.prefill:
                 self._dispatch_prefill_locked(plan.prefill)
@@ -701,7 +959,7 @@ class LLMEngine:
                           if s.cur is not None else 0,
                           seeded=s.cur is not None,
                           spec_drafts=len(s.spec_pending),
-                          stale=stale[i])
+                          stale=stale[i], pulling=s.pulling)
                  for i, s in enumerate(self.slots) if s is not None]
         return plan_step(views, total_slots=self.S,
                          prefill_budget=self.PC,
@@ -757,7 +1015,10 @@ class LLMEngine:
                 while (not self._stopped and not self._wait
                        and not any(self.slots)
                        and not self._fetchq
-                       and not self._pending_prefill):
+                       and not self._pending_prefill
+                       and self._pending_swap is None):
+                    # a pending drain-mode swap is work: the settled
+                    # engine runs one more round so the flip lands
                     self._work.wait()
                 if self._stopped:
                     # deliver every token already computed; shutdown()
@@ -792,9 +1053,10 @@ class LLMEngine:
 
     def _victim_locked(self, exclude_sid: int) -> Optional[int]:
         """Preemption victim: the youngest occupied slot other than the
-        one whose growth is hunting."""
+        one whose growth is hunting. PULLING slots are never victims
+        (no pages to reclaim, and their thread owns them)."""
         cands = (j for j, s in enumerate(self.slots)
-                 if s is not None and j != exclude_sid)
+                 if s is not None and not s.pulling and j != exclude_sid)
         return max(cands, key=lambda j: self.slots[j].admit_seq,
                    default=None)
 
@@ -811,7 +1073,16 @@ class LLMEngine:
         (COW: the model still needs the last position's logits, and
         that one-token re-prefill must not write into a shared page).
         When the pool is dry, refcount-0 cached pages are evicted
-        LRU-first before admission gives up."""
+        LRU-first before admission gives up.
+
+        A request carrying a pull hint (``req.pull``) whose prefix is
+        not cached here admits in the PULLING phase instead
+        (``_try_pull_admit_locked``); the pull's end requeues it at the
+        front, to admit through this path as a local hit or as plain
+        prefill. While a drain-mode weight swap is pending, admission
+        pauses so the engine settles and the flip can land."""
+        if self._pending_swap is not None:
+            return
         while self._wait:
             while self._wait and self._wait[0].closed:
                 self._wait.popleft()
@@ -822,6 +1093,9 @@ class LLMEngine:
                 return
             req = self._wait[0]
             prompt = req.recompute_prompt
+            if req.pull is not None and self._try_pull_admit_locked(
+                    free[0], req, prompt):
+                continue       # PULLING slot seated; admit the rest
             shared_pages: List[int] = []
             matched = 0
             copy_src: Optional[int] = None
@@ -918,6 +1192,185 @@ class LLMEngine:
             return None
         with self._lock:
             return self.prefix_cache.stats()
+
+    # -------------------------------------------- KV migration (pull)
+
+    def _try_pull_admit_locked(self, sid: int, req: _Request,
+                               prompt: List[int]) -> bool:
+        """PULLING admission: seat ``req`` in slot ``sid`` with no pages
+        and start the background pull its hint names. The hint is
+        consumed exactly once (cleared before any check can bail), so
+        no requeue ever re-pulls. Declines, falling through to normal
+        admission, when no fetcher or cache is wired, the hint is empty
+        or malformed, or the local tree already covers it."""
+        pull = req.pull
+        req.pull = None          # consumed exactly once
+        if (self.kv_fetcher is None or self.prefix_cache is None
+                or req.generated or self._stopped or self._draining):
+            return False
+        try:
+            hashes = [int(h) for h in (pull.get("hashes") or ())]
+        except (AttributeError, TypeError, ValueError):
+            return False         # malformed hint: plain admission
+        if not hashes:
+            return False
+        have, _ = self.prefix_cache.match_hashes(hashes)
+        if have:
+            self.prefix_cache.release(have)
+        if len(have) >= len(hashes):
+            return False         # the local cache already covers it
+        self._wait.popleft()
+        slot = _Slot(req=req, pages=[], pos=0, cur=None,
+                     admit_seq=next(self._admit_seq), prompt=prompt,
+                     prefilled=0, decoded=len(req.generated),
+                     pulling=True)
+        self.slots[sid] = slot
+        self.stats["kv_pull_admissions"] += 1
+        self.events.append("pull_start", rid=req.rid, sid=sid,
+                           data={"hashes": len(hashes),
+                                 "local": len(have)})
+        threading.Thread(target=self._run_pull, args=(sid, slot, pull),
+                         daemon=True, name=f"kv-pull-{req.rid}").start()
+        return True
+
+    def _run_pull(self, sid: int, slot: _Slot,
+                  pull: Dict[str, Any]) -> None:
+        """Background transfer of one PULLING slot with NO engine lock
+        held: the injected fetcher runs the chunked protocol
+        (kv_migration.pull_prefix). Landing and requeue happen back
+        under the lock; any exception from the fetcher is an abort,
+        never a wedge."""
+        payload = None
+        try:
+            payload = self.kv_fetcher(pull)
+        except Exception:
+            payload = None
+        with self._work:
+            self._finish_pull_locked(sid, slot, payload)
+            self._work.notify_all()
+
+    def _finish_pull_locked(self, sid: int, slot: _Slot,
+                            payload: Optional[Dict[str, Any]]) -> None:
+        """Land a finished pull and requeue its request at the FRONT of
+        the queue, to admit through the normal path: as a local hit on
+        the landed pages, or as plain prefill after a failed pull
+        (fallback counted). The slot must still be this one: cancel,
+        shutdown or a preemption (a preempt-mode weight swap) may have
+        torn it down meanwhile, and then the payload — KV of the old
+        weights, after a swap — is dropped."""
+        if (self.slots[sid] is not slot or slot.preempted
+                or not slot.pulling):
+            return
+        slot.pulling = False
+        self.slots[sid] = None
+        req = slot.req
+        if req.closed or self._stopped:
+            return
+        landed = 0
+        if payload is not None:
+            landed = self._land_pulled_pages_locked(slot.prompt, payload)
+        if landed:
+            self.stats["kv_pull_landed"] += 1
+            self.events.append("pull_land", rid=req.rid, sid=sid,
+                               data={"pages": landed,
+                                     "wire_bytes":
+                                         payload.get("wire_bytes", 0)})
+        else:
+            kv_migration.count_fallback(self.kv_migration_stats)
+            self.stats["kv_pull_fallbacks"] += 1
+            self.events.append("pull_fallback", rid=req.rid, sid=sid)
+        self._wait.appendleft(req)   # front: admit before new arrivals
+
+    def _land_pulled_pages_locked(self, prompt: List[int],
+                                  payload: Dict[str, Any]) -> int:
+        """Write pulled pages into freshly allocated pool pages and
+        INSERT them into the prefix cache, the insert retirement uses.
+        Returns the pages landed; 0 (a mismatched or truncated payload,
+        the pool dry) means fall back to plain prefill.
+
+        The payload is decoded and validated before any page is
+        allocated. Each layer tensor's columns of all landed pages go
+        up in one pinned host-to-device copy and are written into their
+        pages in place on the engine's stream (``index_copy_`` along the
+        page axis: the bytes of ``t[:, dst].copy_(col)`` per page),
+        enqueued before the insert makes the pages visible, so the next
+        dispatch reads them."""
+        if (payload.get("kv_dtype") != self.kv_dtype
+                or int(payload.get("page_size") or 0) != self.Pg
+                or int(payload.get("n_layers") or 0)
+                != self.cfg.n_layers):
+            return 0
+        n = min(int(payload.get("n_pages") or 0), len(prompt) // self.Pg)
+        if n <= 0:
+            return 0
+        try:
+            cols = [page_cols_from_bytes(self.cfg, self.Pg, self.kv_dtype,
+                                         blobs)
+                    for blobs in payload["pages"][:n]]
+        except (ValueError, KeyError, TypeError):
+            return 0
+        if len(cols) < n:
+            return 0
+        page_ids = self.alloc.alloc(n)
+        if page_ids is None and self.prefix_cache.evict(
+                n - self.alloc.n_free) > 0:
+            page_ids = self.alloc.alloc(n)
+        if page_ids is None:
+            return 0
+        dst = self._h2d(np.asarray(page_ids, np.int64))
+        for li, layer in enumerate(self.pages):
+            for ti, t in enumerate(layer):
+                src = torch.stack([page[li][ti] for page in cols], dim=1)
+                t.index_copy_(1, dst, self._h2d(src))
+        self.prefix_cache.insert(prompt[:n * self.Pg], page_ids, 0)
+        self.stats["kv_pulled_pages"] += n
+        return n
+
+    # ------------------------------------------- KV migration (donor)
+
+    def kv_pin_prefix(self, hashes: List[int]) -> List[int]:
+        """Donor side of a pull: resolve rolling path hashes to the
+        longest resident page run and PIN it (``match_hashes`` raises
+        each page's refcount), so eviction can never take a page
+        mid-transfer. The caller owes one ``kv_release_pages`` for the
+        run. Empty when the prefix is gone or the engine is stopped or
+        draining (a ``KVDonor`` turns that into ``KVPullAborted``)."""
+        with self._lock:
+            if (self.prefix_cache is None or self._stopped
+                    or self._draining):
+                return []
+            pages, _ = self.prefix_cache.match_hashes(hashes)
+            return pages
+
+    def kv_export_pages(self, pages: List[int]) -> List[Any]:
+        """Raw bytes of pinned pages, per page per layer (int8 scales
+        ride along, models/kv_cache.export_page_bytes), under the
+        engine lock. A stopped donor refuses with the typed abort, as a
+        dead peer process would; so does a page a weight swap fenced
+        while it was pinned (its KV belongs to the old weights — a
+        deliberate difference from the reference, which ships it).
+        The pages go to the host in one batched copy
+        (``export_pages_bytes``: ``export_page_bytes``'s bytes, page by
+        page), one wait for the device instead of one per page column."""
+        with self._lock:
+            if self._stopped:
+                raise kv_migration.KVPullAborted(
+                    "donor engine stopped mid-transfer")
+            if self.prefix_cache is not None and any(
+                    self.prefix_cache.is_fenced(int(p)) for p in pages):
+                raise kv_migration.KVPullAborted(
+                    "pages computed under an earlier weight generation")
+            if not pages:
+                return []
+            return export_pages_bytes(self.pages, [int(p) for p in pages])
+
+    def kv_release_pages(self, pages: List[int]) -> None:
+        """Unpin a transfer's pages (drop the ``match_hashes``
+        references); a page fenced by a swap meanwhile leaves the pool
+        with its last pin."""
+        with self._lock:
+            if self.prefix_cache is not None and pages:
+                self.prefix_cache.release(list(pages))
 
     def _grow_locked(self, ix: int, slot: _Slot, need: int) -> None:
         """Grow ``slot``'s pages to ``need`` while the pool is dry:

@@ -7,9 +7,13 @@ Wrap it with a serve deployment at the use site; here it is a plain
 class whose ``__call__``/``stream``/``generate_batch`` are the request
 entry points. The engine's int8 KV pool (``kv_dtype``) and prefix cache
 (``prefix_cache``), speculative decoding (``spec_len``, ``spec_ngram``)
-and the loop (``overlap``) pass through. The engine pool, fleet,
+and the loop (``overlap``) pass through. The engine's KV pull and hot
+weight swap are reached through ``engine()`` (``kv_fetcher``,
+``submit(pull=...)``, ``swap_weights``). The engine pool, fleet,
 autoscaler, watchdog and tensor parallelism of the reference are not
-ported yet (ROADMAP.md, queue 1).
+ported yet, nor the deployment's ``kv_pull_deadline_s`` and
+``kv_pull_backoff_s``, which feed the engine pool (ROADMAP.md, queue 1,
+item 6).
 """
 from __future__ import annotations
 

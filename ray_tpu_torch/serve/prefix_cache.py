@@ -27,8 +27,18 @@ id — the engine's COW copy duplicates the scale column with the page,
 and a freed page's stale scale is reset on first reuse by
 ``paged_append``'s reset-on-offset-0 rule.
 
-The reference's Prometheus metrics are not ported (the port has no
-metrics registry); ``stats()`` carries the same counts.
+The weight-swap fence (``fence``) differs from the reference on
+purpose. The reference's swap calls ``clear()``, which evicts only
+what is evictable: a page pinned by an open donor transfer
+(``match_hashes`` raised its refcount) survives the flip, and after
+its release it is matched by later requests as if computed under the
+new weights. Here ``fence`` detaches every page that survives the
+eviction from the tree at once — nothing can match it again — and a
+detached page goes back to the allocator when its last pin drops
+(``release``); ``is_fenced`` tells the donor's export to refuse it.
+
+The reference's Prometheus metrics are not wired here yet (ROADMAP.md,
+queue 1, item 5.4); ``stats()`` carries the same counts.
 """
 from __future__ import annotations
 
@@ -103,6 +113,8 @@ class PrefixCache:
         self._root = _Node((), 0, None, 0)
         self._nodes: Dict[int, _Node] = {}     # page id -> node
         self._ref: Dict[int, int] = {}         # page id -> live slots
+        # pages detached by ``fence`` while pinned: page id -> pins left
+        self._fenced: Dict[int, int] = {}
         self._tick = 0
         # per-engine counts (the reference mirrors them into process
         # metrics)
@@ -117,7 +129,12 @@ class PrefixCache:
         return len(self._nodes)
 
     def ref_of(self, page: int) -> int:
-        return self._ref.get(page, 0)
+        return self._ref.get(page, self._fenced.get(page, 0))
+
+    def is_fenced(self, page: int) -> bool:
+        """True for a page ``fence`` detached while it was pinned: its
+        KV was computed under an earlier weight generation."""
+        return page in self._fenced
 
     def evictable_pages(self) -> int:
         """Refcount-0 resident pages (the reclaimable pool)."""
@@ -236,8 +253,16 @@ class PrefixCache:
     def release(self, pages: Sequence[int]) -> None:
         """Drop one reference per page (slot retired or preempted).
         Pages reaching refcount 0 STAY resident — they just become
-        evictable. Never frees to the allocator."""
+        evictable. Never frees to the allocator, except a page ``fence``
+        detached: its last release frees it."""
         for p in pages:
+            if p in self._fenced:
+                left = self._fenced.pop(p) - 1
+                if left:
+                    self._fenced[p] = left
+                else:
+                    self.alloc.free([p])
+                continue
             if p not in self._nodes:
                 raise RuntimeError(
                     f"release of page {p} not held by the prefix "
@@ -319,6 +344,28 @@ class PrefixCache:
         """Evict everything evictable (tests/teardown)."""
         return self.evict(len(self._nodes))
 
+    def fence(self) -> int:
+        """The weight swap's cache half: after it nothing in the tree
+        can be matched. Evicts everything evictable, then detaches
+        every page that is left — each is pinned (by an open donor
+        transfer; the swap preempted every slot first) or an ancestor
+        of one — from the tree: an unpinned one is freed now, a pinned
+        one when its last pin drops (``release``). Returns the pages
+        evicted or freed now."""
+        freed = self.clear()
+        for page in self._nodes:
+            pins = self._ref.get(page, 0)
+            if pins:
+                self._fenced[page] = pins
+            else:
+                self.alloc.free([page])
+                freed += 1
+                self.evictions += 1
+        self._root.children.clear()
+        self._nodes.clear()
+        self._ref.clear()
+        return freed
+
     # ----------------------------------------------------- diagnostics
 
     def stats(self) -> dict:
@@ -345,6 +392,10 @@ class PrefixCache:
             assert self._ref.get(page, 0) >= 0
             assert page not in getattr(self.alloc, "_free_set", ()), \
                 f"cached page {page} is also on the free list"
+        for page, pins in self._fenced.items():
+            assert pins > 0 and page not in self._nodes, (page, pins)
+            assert page not in getattr(self.alloc, "_free_set", ()), \
+                f"fenced page {page} is also on the free list"
         stack = [self._root]
         seen = 0
         while stack:

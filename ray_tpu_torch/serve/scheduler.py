@@ -1,7 +1,7 @@
 """Own copy of the pure step planner of ``ray_tpu/serve/scheduler.py``
 (``SlotView``, ``PrefillGrant``, ``SpecGrant``, ``StepPlan``,
-``plan_step``), with its speculative-decoding lane and stale-frontier
-cap, without its priority lanes, replica roles, KV-pull phase and
+``plan_step``), with its speculative-decoding lane, stale-frontier
+cap and KV-pull phase, without its priority lanes, replica roles and
 scheduler profiles, which the port's engine does not have yet
 (ROADMAP.md, queue 1).
 
@@ -20,7 +20,10 @@ Policy, in order:
 
 - Prefill grants: mid-prefill slots in admission order (FIFO) each
   receive ``min(prompt_remaining, budget_left)`` tokens until the
-  round's token budget or the prefill batch width runs out.
+  round's token budget or the prefill batch width runs out. A PULLING
+  slot (``SlotView.pulling``: its prefix KV is crossing the wire from
+  a peer, serve/kv_migration.py) gets no grant and, unseeded, rides no
+  decode.
 - Spec lane (``spec_enabled``, serve/spec_decode.py): when any seeded
   slot carries draft tokens this round, ONE batched verify replaces the
   decode chunk — every seeded slot rides it (a slot with zero drafts
@@ -62,10 +65,16 @@ class SlotView:
     spec_drafts: int = 0     # draft tokens proposed this round
     stale: int = 0           # decode steps dispatched but not yet read
                              # back (overlapped loop; 0 in lockstep)
+    pulling: bool = False    # KV-pull phase: the slot holds its place
+                             # in admission order but receives NO
+                             # prefill grant — its prompt either lands
+                             # from the pull or requeues for plain
+                             # prefill; unseeded, so the quick cadence
+                             # treats it as pending admission work
 
     @property
     def prefilling(self) -> bool:
-        return self.prompt_remaining > 0
+        return self.prompt_remaining > 0 and not self.pulling
 
 
 @dataclasses.dataclass(frozen=True)

@@ -94,7 +94,12 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.train.spmd",
                  "ray_tpu_torch.util.envknobs",
                  "ray_tpu_torch.serve.prefix_cache",
-                 "ray_tpu_torch.serve.spec_decode"):
+                 "ray_tpu_torch.serve.spec_decode",
+                 "ray_tpu_torch.serve.kv_migration",
+                 "ray_tpu_torch.serve.obs",
+                 "ray_tpu_torch.serve.fleet.wire",
+                 "ray_tpu_torch.serve.fleet.transport",
+                 "ray_tpu_torch.util.metrics"):
         assert name in res["modules"]
 
 

@@ -663,6 +663,101 @@ def test_captured_logprobs_on_card_match_cpu(dev):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
 
 
+def _pull(make, kv_dtype, prompt, n_prefix):
+    """A donor engine serves ``prompt``'s first ``n_prefix`` tokens plus
+    a tail; a requester (both from ``make``) pulls that prefix over the
+    JSON + base64 loopback wire and serves ``prompt``. Returns its
+    stream, its re-export of the landed pages, the donor's export of
+    them and the requester."""
+    from ray_tpu_torch.serve import kv_migration as km
+    from ray_tpu_torch.serve.prefix_cache import path_hashes
+    donor_eng = make(kv_dtype=kv_dtype, prefix_cache=True)
+    h = donor_eng.submit(prompt[:n_prefix] + [7, 7, 7], max_new_tokens=4)
+    while donor_eng.step():
+        pass
+    h.result()
+    donor = km.KVDonor(donor_eng)
+    req = make(kv_dtype=kv_dtype, prefix_cache=True)
+    req.kv_fetcher = lambda pull: km.pull_prefix(
+        km.loopback_call(donor), pull["hashes"],
+        stats=req.kv_migration_stats)
+    hashes = path_hashes(prompt[:n_prefix], req.Pg)
+    h = req.submit(prompt, max_new_tokens=8, pull={"hashes": hashes})
+    while req.step():
+        pass
+    out = h.result()
+    from ray_tpu_torch.models.kv_cache import export_page_bytes
+    exports = []
+    for eng in (req, donor_eng):
+        pages = eng.kv_pin_prefix(hashes)
+        exports.append(eng.kv_export_pages(pages))
+        # the engine's batched export gives the per-page export's bytes
+        assert exports[-1] == [export_page_bytes(eng.pages, p)
+                               for p in pages]
+        eng.kv_release_pages(pages)
+    assert donor.open_transfers() == 0
+    assert donor_eng.prefix_cache.evictable_pages() \
+        == donor_eng.prefix_cache.cached_pages
+    return out, exports[0], exports[1], req
+
+
+@pytest.mark.parametrize("kv_dtype,dtype", [
+    ("fp", torch.float32), ("fp", torch.bfloat16), ("int8", torch.float32)],
+    ids=["fp32", "bf16", "int8"])
+def test_pull_between_card_engines_lands_donor_bytes(dev, kv_dtype, dtype):
+    """A pull between two small engines on the card: the landed pages
+    hold the donor's bytes exactly (re-exported from the requester),
+    the pull is counted with no fallback, and the stream equals a cold
+    recompute on the card (fp32 and int8: the same device, the same
+    prefill shape)."""
+    from ray_tpu_torch.models.llama import build_model, init_params, \
+        llama_tiny
+    from ray_tpu_torch.serve.engine import LLMEngine
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama_tiny(dtype=dtype, dim=128, n_heads=2, n_kv_heads=1)
+    model = build_model(cfg, init_params(cfg, seed=0, device="cpu"), dev)
+
+    def make(**kw):
+        return LLMEngine(model, max_slots=4, page_size=8, n_pages=64,
+                         chunk=4, device=dev, **kw)
+
+    prompt = list(range(1, 33)) + [40, 41, 42]
+    out, landed, donor_bytes, req = _pull(make, kv_dtype, prompt, 32)
+    assert len(landed) == 4 and landed == donor_bytes
+    st = req.kv_migration_stats
+    assert (st["pulled_pages"], st["fallbacks"], st["aborts"]) == (4, 0, 0)
+    assert req.stats["cache_hit_tokens"] == 32 and len(out) == 8
+    if dtype == torch.float32:
+        cold = make(kv_dtype=kv_dtype)
+        h = cold.submit(prompt, max_new_tokens=8)
+        while cold.step():
+            pass
+        assert out == h.result()
+
+
+def test_fp32_swap_on_card_is_token_identical(dev):
+    """A preempt-mode swap on the card, mid-request, to the same fp32
+    weights staged from the host under a new id: the stream equals an
+    unswapped run, the fence reads 1, and the staged model is a new
+    module (the serving one is never written)."""
+    make = _engine_case(dev)
+    want, _ = _wave(make())
+    eng = make(prefix_cache=True)
+    old_model = eng.model
+    sd = {k: v.detach().cpu() for k, v in old_model.state_dict().items()}
+    hs = [eng.submit(p, max_new_tokens=16) for p in _WAVE]
+    eng.step()                 # prefills and a first decode chunk
+    assert any(s is not None for s in eng.slots)
+    assert eng.swap_weights(sd, weights_id="same-v2") == 1
+    while eng.step():
+        pass
+    assert [h.result() for h in hs] == want
+    assert eng.load_report()["weight_generation"] == 1
+    assert eng.model is not old_model
+    assert eng.stats["preemptions"] >= 1
+    assert eng.alloc.occupancy() == eng.prefix_cache.cached_pages
+
+
 # --------------------------------------------------------------------
 # Flash attention: K3, K4, K5
 # --------------------------------------------------------------------
