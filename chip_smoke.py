@@ -178,10 +178,12 @@ kernels at a higher host cost for the rest of its life.
    column against the engine's one batched copy (the bytes equal). On
    the fp requester, a preempt-mode swap to the same tensors staged
    from the host under a new ``weights_id`` in the middle of 4 streams
-   of 256 tokens: streams complete, ``weight_generation`` 1, >= 16
-   pages evicted, bf16 tokens teacher-forced within 0.05; prints the
-   staging ms, the flip's pause (engine lock held) and peak device
-   memory. Last, at phase 3's reduced fp32 width: a pull's streams
+   of 512 tokens: streams complete, ``weight_generation`` 1, >= 16
+   pages evicted, every stream's bf16 tokens teacher-forced within
+   0.05; the same 4 streams run unswapped on a fresh requester, teacher-
+   forced too. Prints the staging ms, the flip's pause (engine lock
+   held), peak device memory, both runs' gaps per stream and where
+   each swapped stream first parts from its unswapped twin. Last, at phase 3's reduced fp32 width: a pull's streams
    equal a cold recompute on the card and on the CPU (int8: or part at
    a near-tie, as phase 3), a preempt swap of the same tensors leaves
    the streams unchanged, and after a drain swap to other weights the
@@ -1930,7 +1932,7 @@ def phase_kv_pull_swap(tl, pa, seed: int, smi: str) -> dict:
               f"{run['decode_steps']} steps; teacher-forced max gap "
               f"{max(gaps16):.4f} bf16, {max(gaps32):.4f} fp32")
         if kv_dtype == "fp":
-            arm["swap"] = _swap_bf16(tl, req, model, cfg, g)
+            arm["swap"] = _swap_bf16(tl, make, req, model, cfg, g)
         req.shutdown()
         # the pulled request alone on fresh requesters: with the default
         # chunks, in 4 chunks, then one page a chunk through a faulty
@@ -2026,14 +2028,22 @@ def phase_kv_pull_swap(tl, pa, seed: int, smi: str) -> dict:
     return res
 
 
-def _swap_bf16(tl, req, model, cfg, g) -> dict:
+def _swap_bf16(tl, make, req, model, cfg, g) -> dict:
     """A preempt-mode swap on phase 4e's fp requester, in the middle of
     4 streams, to the same tensors staged from the host under a new
-    ``weights_id``: staging and flip timed, peak device memory read."""
-    n_swap = 256                      # long enough to straddle the flip
+    ``weights_id``: staging and flip timed, peak device memory read.
+    The same 4 streams run unswapped on a fresh requester from
+    ``make``; every stream of both runs is teacher-forced, and where
+    each swapped stream first parts from its unswapped twin is
+    recorded."""
+    n_swap = 512                      # long enough to straddle the flip
     prompts = [g.integers(0, cfg.vocab_size, n).tolist()
                for n in (200, 400, 800, 1000)]
     host_sd = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    plain_eng = make().start()
+    plain = [h.result() for h in [plain_eng.submit(p, n_swap)
+                                  for p in prompts]]
+    plain_eng.shutdown()
     stage, flip = [], []
     _timed(req, "_stage_weights", stage)
     _timed(req, "_apply_swap_locked", flip)
@@ -2049,28 +2059,41 @@ def _swap_bf16(tl, req, model, cfg, g) -> dict:
     del req._stage_weights, req._apply_swap_locked
     ev = [e[5] for e in req.events.snapshot() if e[2] == "weight_swap"]
     rpt = req.load_report()
-    gaps = [x for p, o in zip(prompts[:2], outs[:2])
-            for x in _teacher_forced_gaps(req.model, p, o)]
+    gaps = [max(_teacher_forced_gaps(req.model, p, o))
+            for p, o in zip(prompts, outs)]
+    gaps_plain = [max(_teacher_forced_gaps(model, p, o))
+                  for p, o in zip(prompts, plain)]
+    parted = [next((i for i, (a, b) in enumerate(zip(o, q)) if a != b),
+                   None) for o, q in zip(outs, plain)]
     if (gen, rpt["weight_generation"], rpt["weights_id"]) != (
             1, 1, "same-bytes-v2") or any(len(o) != n_swap for o in outs) \
             or ev[-1]["prefix_pages_evicted"] < 16 or ev[-1]["preempted"] \
             < 1 or max(gaps) > LOGIT_SLACK:
         raise AssertionError(f"phase 4e swap: gen {gen}, report "
                              f"{rpt['weight_generation']}, event {ev}, "
-                             f"lengths {[len(o) for o in outs]}, max gap "
-                             f"{max(gaps)}")
+                             f"lengths {[len(o) for o in outs]}, max gaps "
+                             f"{gaps} swapped, {gaps_plain} unswapped, "
+                             f"parted at {parted}")
     res = {"staging_ms": stage[0] * 1e3, "flip_pause_ms": flip[0] * 1e3,
            "device_memory_before_gb": mem0 / 1e9,
            "peak_device_memory_gb": peak / 1e9, "event": ev[-1],
-           "teacher_forced_max_gap_bf16": max(gaps)}
+           "new_tokens": n_swap,
+           "teacher_forced_max_gap_bf16": max(gaps),
+           "teacher_forced_max_gaps_swapped": gaps,
+           "teacher_forced_max_gaps_unswapped": gaps_plain,
+           "parted_from_unswapped_at": parted}
     print(f"phase 4e: preempt swap of TinyLlama-1.1B's weights (the same "
-          f"tensors from the host, new weights_id) mid 4 streams: staging "
-          f"{res['staging_ms']:.1f} ms, flip pause {res['flip_pause_ms']:.2f}"
-          f" ms (engine lock held), device memory {mem0 / 1e9:.2f} GB "
-          f"before, peak {peak / 1e9:.2f} GB; preempted "
-          f"{ev[-1]['preempted']}, evicted {ev[-1]['prefix_pages_evicted']}"
-          f" pages; streams complete, teacher-forced max gap "
-          f"{max(gaps):.4f}")
+          f"tensors from the host, new weights_id) mid 4 streams of "
+          f"{n_swap} tokens: staging {res['staging_ms']:.1f} ms, flip pause "
+          f"{res['flip_pause_ms']:.2f} ms (engine lock held), device "
+          f"memory {mem0 / 1e9:.2f} GB before, peak {peak / 1e9:.2f} GB; "
+          f"preempted {ev[-1]['preempted']}, evicted "
+          f"{ev[-1]['prefix_pages_evicted']} pages; streams complete, "
+          f"teacher-forced max gap per stream "
+          f"{[round(x, 4) for x in gaps]} swapped, "
+          f"{[round(x, 4) for x in gaps_plain]} unswapped (a fresh "
+          f"requester); swapped streams part from the unswapped at "
+          f"{parted}")
     return res
 
 

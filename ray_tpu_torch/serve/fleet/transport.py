@@ -149,13 +149,8 @@ class SocketServer:
     the bound ``(host, port)`` — pass port 0 to let the OS pick."""
 
     def __init__(self, handler: Handler, host: str = "127.0.0.1",
-                 port: int = 0,
-                 gate: Optional[Callable[[], bool]] = None):
+                 port: int = 0):
         self._handler = handler
-        # gate() -> False drops the connection WITHOUT responding —
-        # the server-side half of a network partition (the client
-        # sees a TransportError, never a typed refusal)
-        self._gate = gate
         self._sock = socket.socket(socket.AF_INET,
                                    socket.SOCK_STREAM)
         self._sock.setsockopt(socket.SOL_SOCKET,
@@ -186,8 +181,6 @@ class SocketServer:
                         payload = recv_frame(conn)
                     except TransportError:
                         return      # peer hung up
-                    if self._gate is not None and not self._gate():
-                        return      # partitioned: drop, no response
                     resp = _dispatch(self._handler,
                                      wire.decode(payload))
                     send_frame(conn, wire.encode(resp))

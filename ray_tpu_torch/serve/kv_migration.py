@@ -113,14 +113,10 @@ class KVDonor:
 
     def __init__(self, engine, *, pin_ttl_s: float = 30.0,
                  max_chunk_bytes: Optional[int] = None,
-                 chunk_delay_s: float = 0.0,
                  time_fn: Callable[[], float] = time.monotonic):
         self._engine = engine
         self._pin_ttl_s = float(pin_ttl_s)
         self._max_chunk_bytes = max_chunk_bytes
-        # chaos seam: stretch each chunk export so a harness can kill
-        # the donor process deterministically MID-pull
-        self.chunk_delay_s = float(chunk_delay_s)
         self._time = time_fn
         self._lock = threading.Lock()
         self._seq = 0
@@ -192,8 +188,6 @@ class KVDonor:
                     f"chunk {chunk_idx} out of range for {xfer_id!r}")
             lo = int(chunk_idx) * xfer["per_chunk"]
             pages = xfer["pages"][lo:lo + xfer["per_chunk"]]
-        if self.chunk_delay_s > 0:
-            time.sleep(self.chunk_delay_s)
         blobs = self._engine.kv_export_pages(pages)
         return {"chunk_idx": int(chunk_idx),
                 "pages": [[[base64.b64encode(b).decode("ascii")
