@@ -69,12 +69,40 @@ device (``"cuda"`` by default, ``"cpu"`` when the caller asks).
   ``weights_id``), preempting every slot (``mode="preempt"``) or once
   the engine has settled (``mode="drain"``, admission paused). The
   prefix cache is fenced at the flip (``PrefixCache.fence``).
+- Request lifecycle: ``deadline_s`` fails a request with
+  ``DeadlineExceeded`` at whatever phase it is in, checked at the top
+  of every round; ``max_queued`` (online) and ``max_queued_batch``
+  shed with ``EngineOverloaded(retry_after_s=shed_retry_after_s)``;
+  with ``admit_timeout_s`` a submit that cannot take the engine lock
+  in time (a wedged scheduler holds it) sheds the same way.
+- Per-slot containment (serve/faults.py): an ``EngineFault`` out of
+  the prefill lane or the decode/spec lane fails only its culprit; the
+  lane's other participants requeue at the tail under ``max_retries``
+  with exponential backoff (``retry_backoff_s``); a fault while one
+  rider's tokens are emitted fails that rider alone. A lone slot that
+  cannot grow is such a fault. Containment catches ``EngineFault`` and
+  nothing else: any other error (a CUDA error, a kernel's launch
+  failure) escapes to ``_fail_all`` and stops the engine. The
+  ``FaultInjector`` seam (``fault_injector``) fires at the reference's
+  six sites.
+- ``force_kill`` fails every consumer without the lock (a wedged
+  scheduler thread holds it) and fences the zombie thread: it emits no
+  token, dispatches nothing and publishes no page to the prefix cache;
+  a second ``shutdown()`` finishes the cleanup. ``load_report`` falls
+  back to a lock-free read after 20 ms and carries the progress
+  heartbeat's age (``heartbeat_age_s``).
+- Priority lanes (``submit(priority="batch")``,
+  ``submit_rollout_batch``): batch requests admit behind every waiting
+  online one, are the first preemption victims (an online head evicts
+  a batch slot to admit), take the prefill budget after online slots,
+  and stay out of the TTFT and inter-token signals. ``role`` (unified,
+  prefill, decode) clamps the planner's knobs each round
+  (``role_plan_caps``).
 - ``events`` (serve/obs.py ``EventLog``) records the pull and swap
   events under the reference's kinds.
 
-Not ported yet (ROADMAP.md, queue 1): fault injection, priority lanes
-and replica roles, tensor parallelism, deadlines, the other metrics
-and event sites.
+Not ported yet (ROADMAP.md, queue 1): tensor parallelism (item 8),
+the other event sites and the phase metrics (item 5.4).
 """
 from __future__ import annotations
 
@@ -98,18 +126,29 @@ from ray_tpu_torch.models.kv_cache import (BlockAllocator,
                                            page_cols_from_bytes)
 from ray_tpu_torch.models.llama import _pick_token, build_model
 from ray_tpu_torch.serve import kv_migration
-from ray_tpu_torch.serve.errors import (EngineDraining, EngineOverloaded,
-                                        EngineShutdown, RequestCancelled,
-                                        RequestError)
+from ray_tpu_torch.serve.errors import (DeadlineExceeded, EngineDraining,
+                                        EngineOverloaded, EngineShutdown,
+                                        RequestCancelled, RequestError)
+from ray_tpu_torch.serve.faults import EngineFault
 from ray_tpu_torch.serve.obs import EventLog
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
-from ray_tpu_torch.serve.scheduler import SlotView, StepPlan, plan_step
+from ray_tpu_torch.serve.scheduler import (LANE_BATCH, LANE_ONLINE,
+                                           REPLICA_ROLES, ROLE_UNIFIED,
+                                           SlotView, StepPlan, plan_step,
+                                           role_plan_caps)
 from ray_tpu_torch.serve.spec_decode import NGramIndex
 from ray_tpu_torch.util import metrics
 from ray_tpu_torch.util.envknobs import resolve_kv_dtype
 
 _DONE = object()
 
+SHED_TOTAL = "serve_engine_shed_total"
+CANCELLED_TOTAL = "serve_engine_cancelled_total"
+DEADLINE_TOTAL = "serve_engine_deadline_exceeded_total"
+CONTAINED_TOTAL = "serve_engine_contained_faults_total"
+RETRIES_TOTAL = "serve_engine_retries_total"
+BATCH_TOKENS_TOTAL = "serve_batch_tokens_total"
+BATCH_PREEMPTED_TOTAL = "serve_batch_preempted_total"
 WEIGHT_SWAP_TOTAL = "serve_weight_swap_total"
 WEIGHT_GENERATION_GAUGE = "serve_weight_generation"
 
@@ -117,12 +156,35 @@ _METRICS: Optional[dict] = None
 
 
 def _metrics() -> dict:
-    """Lazy metric singletons of the weight swap (the reference's
-    names), re-created if a ``clear_registry()`` dropped them."""
+    """Lazy metric singletons of the lifecycle, the lanes and the
+    weight swap (the reference's names), re-created if a
+    ``clear_registry()`` dropped them."""
     global _METRICS
-    if (_METRICS is None or metrics.registry().get(WEIGHT_SWAP_TOTAL)
-            is not _METRICS["weight_swaps"]):
+    if (_METRICS is None or metrics.registry().get(SHED_TOTAL)
+            is not _METRICS["shed"]):
         _METRICS = {
+            "shed": metrics.Counter(
+                SHED_TOTAL, "Requests rejected at submit because the "
+                "admission queue was at max_queued"),
+            "cancelled": metrics.Counter(
+                CANCELLED_TOTAL,
+                "Requests aborted by the client (cancel/disconnect)"),
+            "deadline_exceeded": metrics.Counter(
+                DEADLINE_TOTAL,
+                "Requests expired by their per-request deadline"),
+            "contained_faults": metrics.Counter(
+                CONTAINED_TOTAL, "Dispatch/readback faults contained "
+                "to one request instead of failing the engine"),
+            "retries": metrics.Counter(
+                RETRIES_TOTAL, "Innocent requests requeued after a "
+                "contained fault (bounded retry policy)"),
+            "batch_tokens": metrics.Counter(
+                BATCH_TOKENS_TOTAL, "Tokens emitted to BATCH-lane "
+                "requests (the capacity the batch tier absorbed)"),
+            "batch_preempted": metrics.Counter(
+                BATCH_PREEMPTED_TOTAL, "BATCH-lane slots preempted "
+                "— yielded to online traffic or page pressure; the "
+                "request requeues and recomputes/prefix-resumes"),
             "weight_swaps": metrics.Counter(
                 WEIGHT_SWAP_TOTAL, "In-place hot weight swaps applied "
                 "(monotonic generation-fence flips between scheduler "
@@ -161,6 +223,16 @@ class _Request:
                                  # [...], ...fetcher fields}; consumed
                                  # exactly once at first admission, so a
                                  # preemption requeue never re-pulls
+    deadline: Optional[float] = None  # absolute monotonic deadline
+    attempts: int = 0            # requeues after contained faults
+    t_earliest: float = 0.0      # retry backoff: no re-admission
+                                 # before this monotonic instant
+    preemptions: int = 0
+    trace_id: Optional[str] = None    # request-scope trace id (rides
+                                      # the request; events: item 5.4)
+    batch: bool = False          # BATCH lane: admits behind online
+                                 # requests, first preemption victim,
+                                 # outside the TTFT and ITL signals
 
     @property
     def remaining(self) -> int:
@@ -346,9 +418,25 @@ class LLMEngine:
     temperature: 0 = greedy; otherwise sampling from a
         ``torch.Generator`` seeded by ``seed``.
     eos_id: token that ends a request early (None = budget only).
-    max_queued: bounded admission — with this many requests already
-        waiting, ``submit`` sheds with ``EngineOverloaded``. None
-        (default) keeps the queue unbounded.
+    max_queued: bounded admission — with this many ONLINE requests
+        already waiting, ``submit`` sheds with ``EngineOverloaded``.
+        None (default) keeps the queue unbounded.
+    max_queued_batch: the BATCH lane's own bound (None, default:
+        unbounded).
+    max_retries: an innocent participant of a faulted dispatch is
+        requeued (recompute, like preemption) at most this many times
+        before it fails too (default 2).
+    retry_backoff_s: base of the re-admission backoff after a contained
+        fault, ``retry_backoff_s * 2**(attempt - 1)`` (default 0.02).
+    shed_retry_after_s: the ``retry_after_s`` that ``EngineOverloaded``
+        carries (default 1.0).
+    admit_timeout_s: how long ``submit`` may wait for the engine lock
+        before it sheds ``EngineOverloaded`` (a wedged scheduler holds
+        the lock); None (default) waits.
+    fault_injector: a ``serve.faults.FaultInjector`` (tests and drills;
+        None: every site is a no-op).
+    role: ``"unified"`` (default), ``"prefill"`` or ``"decode"``; the
+        planner's knobs are clamped per round by ``role_plan_caps``.
     prefix_cache: share the KV pages of identical page-aligned prompt
         prefixes across requests (radix tree + refcounts + LRU
         eviction, serve/prefix_cache.py). Off by default.
@@ -394,6 +482,11 @@ class LLMEngine:
                  spec_proposer=None,
                  overlap: Optional[bool] = None,
                  capture_logprobs: bool = False,
+                 max_queued_batch: Optional[int] = None,
+                 max_retries: int = 2, retry_backoff_s: float = 0.02,
+                 shed_retry_after_s: float = 1.0,
+                 admit_timeout_s: Optional[float] = None,
+                 fault_injector=None, role: str = ROLE_UNIFIED,
                  device=None):
         self.device = resolve_device(device)
         for p in model.parameters():
@@ -402,6 +495,14 @@ class LLMEngine:
                                  f"engine runs on {self.device}")
         if max_queued is not None and max_queued < 0:
             raise ValueError("max_queued must be >= 0 or None")
+        if max_queued_batch is not None and max_queued_batch < 0:
+            raise ValueError("max_queued_batch must be >= 0 or None")
+        if admit_timeout_s is not None and admit_timeout_s <= 0:
+            raise ValueError("admit_timeout_s must be > 0 or None")
+        if role not in REPLICA_ROLES:
+            raise ValueError(
+                f"unknown replica role {role!r}; expected one of "
+                f"{sorted(REPLICA_ROLES)}")
         if spec_len < 0:
             raise ValueError("spec_len must be >= 0")
         if spec_len and spec_ngram < 1:
@@ -437,6 +538,15 @@ class LLMEngine:
                              if prefix_cache else None)
         self.prefix_digest_max = max(0, int(prefix_digest_max))
         self.max_queued = max_queued
+        self.max_queued_batch = max_queued_batch
+        self.max_retries = max(0, int(max_retries))
+        self.retry_backoff_s = max(0.0, float(retry_backoff_s))
+        self.shed_retry_after_s = float(shed_retry_after_s)
+        self.admit_timeout_s = admit_timeout_s
+        # mutable: a pool may re-role a replica between requests
+        self.role = role
+        self._injector = fault_injector
+        self._round = 0          # scheduling rounds: the fault seam's clock
         self.slots: List[Optional[_Slot]] = [None] * max_slots
         self._wait: "collections.deque[_Request]" = collections.deque()
         self._lock = threading.Lock()
@@ -463,6 +573,14 @@ class LLMEngine:
                         else overlap is None or bool(overlap))
         self._stopped = False
         self._draining = False
+        # progress heartbeat, touched lock-free at the top of each
+        # round, when each dispatch completes and at each readback: a
+        # wedged dispatch lets it go stale (load_report's
+        # heartbeat_age_s)
+        self._hb = time.monotonic()
+        # zombie fence, set by force_kill(): a wedged step thread that
+        # wakes later commits no token and publishes no page
+        self._force_killed = False
         self._thread: Optional[threading.Thread] = None
         self.stats: Dict[str, int] = collections.Counter()
         self._max_prefill_batch = 4
@@ -504,13 +622,24 @@ class LLMEngine:
 
     def submit(self, prompt_ids: List[int],
                max_new_tokens: int = 64,
-               pull: Optional[Dict[str, Any]] = None) -> RequestHandle:
+               deadline_s: Optional[float] = None,
+               trace_id: Optional[str] = None,
+               pull: Optional[Dict[str, Any]] = None,
+               priority: str = LANE_ONLINE) -> RequestHandle:
         """Queue one request. Raises ``RequestError`` for an empty
-        prompt, a non-positive budget, token ids outside the
-        vocabulary, or a request the pool or the model cannot hold;
-        ``EngineOverloaded`` when ``max_queued`` requests already
-        wait; ``EngineShutdown``/``EngineDraining`` when stopped or
-        draining.
+        prompt, a non-positive budget or deadline, an unknown priority,
+        token ids outside the vocabulary, or a request the pool or the
+        model cannot hold; ``EngineOverloaded`` when the request's lane
+        already holds its bound of waiting requests, or the engine lock
+        stayed taken for ``admit_timeout_s``;
+        ``EngineShutdown``/``EngineDraining`` when stopped or draining.
+
+        ``deadline_s`` (relative, seconds): the request fails with
+        ``DeadlineExceeded`` in the first round after it passes,
+        whatever its phase, and its resources free at once.
+        ``priority``: ``"online"`` (default) or ``"batch"``, preemptible
+        offline work bounded by ``max_queued_batch``. ``trace_id`` rides
+        the request.
 
         ``pull`` is a cross-replica KV pull hint (serve/kv_migration.py):
         a dict with at least ``hashes`` (the prompt's leading rolling
@@ -524,6 +653,12 @@ class LLMEngine:
             raise RequestError("empty prompt")
         if max_new_tokens < 1:
             raise RequestError("max_new_tokens must be >= 1")
+        if deadline_s is not None and deadline_s <= 0:
+            raise RequestError("deadline_s must be > 0")
+        if priority not in (LANE_ONLINE, LANE_BATCH):
+            raise RequestError(
+                f"unknown priority {priority!r}; expected "
+                f"'{LANE_ONLINE}' or '{LANE_BATCH}'")
         # an out-of-vocabulary id would fault the embedding gather on
         # the device (the reference's XLA gather clamps it silently)
         bad = [t for t in prompt_ids
@@ -545,24 +680,64 @@ class LLMEngine:
         req = _Request(next(self._rid), prompt_ids, max_new_tokens,
                        t_submit=time.monotonic(),
                        logprobs=[] if self.capture_logprobs else None,
-                       pull=pull)
-        with self._work:
+                       pull=pull, trace_id=trace_id,
+                       batch=priority == LANE_BATCH)
+        if deadline_s is not None:
+            req.deadline = req.t_submit + deadline_s
+        # bounded acquire: a wedged scheduler holds the lock for good,
+        # and a caller must shed and reroute rather than park on it
+        if not self._work.acquire(timeout=-1 if self.admit_timeout_s is None
+                                  else self.admit_timeout_s):
+            self.stats["admit_timeouts"] += 1
+            raise EngineOverloaded(
+                f"admission lock unavailable for {self.admit_timeout_s}s "
+                f"(scheduler stalled); request shed",
+                retry_after_s=self.shed_retry_after_s)
+        try:
             if self._stopped:
                 raise EngineShutdown("engine stopped")
             if self._draining:
                 raise EngineDraining(
                     "engine draining: finishing in-flight work, "
                     "admitting nothing new")
-            if (self.max_queued is not None
-                    and len(self._wait) >= self.max_queued):
-                self.stats["shed"] += 1
-                raise EngineOverloaded(
-                    f"admission queue full ({len(self._wait)} waiting "
-                    f">= max_queued={self.max_queued}); request shed")
+            # each lane sheds against its own bound: a deep batch
+            # backlog never sheds online traffic
+            bound = self.max_queued_batch if req.batch else self.max_queued
+            if bound is not None:
+                depth = sum(1 for r in self._wait if r.batch == req.batch)
+                if depth >= bound:
+                    self.stats["shed"] += 1
+                    _metrics()["shed"].inc()
+                    raise EngineOverloaded(
+                        f"admission queue full ({depth} {priority} "
+                        f"waiting >= max_queued"
+                        f"{'_batch' if req.batch else ''}={bound}); "
+                        f"request shed",
+                        retry_after_s=self.shed_retry_after_s)
             self._wait.append(req)
             self.stats["submitted"] += 1
             self._work.notify()
+        finally:
+            self._work.release()
         return RequestHandle(req, self)
+
+    def submit_rollout_batch(self, prompts: List[List[int]],
+                             max_new_tokens: int = 64,
+                             deadline_s: Optional[float] = None,
+                             trace_id: Optional[str] = None
+                             ) -> List[RequestHandle]:
+        """Queue one BATCH-lane request per prompt, in order, and return
+        the handles (RL rollouts, the batch tier): they admit behind
+        online traffic, are the first preemption victims and stay out of
+        the TTFT signals. ``trace_id`` stamps request i as
+        ``{trace_id}:{i}``; logprobs ride the handles under
+        ``capture_logprobs``."""
+        return [self.submit(list(p), max_new_tokens=max_new_tokens,
+                            deadline_s=deadline_s,
+                            trace_id=(f"{trace_id}:{i}" if trace_id
+                                      else None),
+                            priority=LANE_BATCH)
+                for i, p in enumerate(prompts)]
 
     def start(self) -> "LLMEngine":
         """Run the scheduler loop in a daemon thread."""
@@ -754,36 +929,61 @@ class LLMEngine:
             "preempted": preempted, "prefix_pages_evicted": evicted})
 
     def load_report(self) -> Dict[str, Any]:
-        """Compact load snapshot: free capacity, queue pressure,
-        outstanding token work, latency EWMAs, the readback pipeline
-        (the fields of the reference's report that this engine has)."""
-        with self._lock:
-            return self._report_locked()
+        """Compact load snapshot: free capacity, per-lane queue
+        pressure, outstanding token work, latency EWMAs, the readback
+        pipeline, the heartbeat's age (the fields of the reference's
+        report that this engine has). Tries the engine lock for 20 ms,
+        then reads lock-free: a wedged scheduler holds the lock, and a
+        probe must still answer. The scheduler mutates these fields
+        under the GIL, so a lock-free read is at worst torn across
+        fields; it is retried if a container changed size under it."""
+        if self._lock.acquire(timeout=0.02):
+            try:
+                return self._report_locked()
+            finally:
+                self._lock.release()
+        for _ in range(3):
+            try:
+                return self._report_locked()
+            except RuntimeError:     # a deque mutated mid-iteration
+                continue
+        return self._report_locked(digest=False)
 
-    def _report_locked(self) -> Dict[str, Any]:
+    def _report_locked(self, digest: bool = True) -> Dict[str, Any]:
         outstanding = 0
-        for slot in self.slots:
+        slots = list(self.slots)
+        for slot in slots:
             if slot is not None:
                 outstanding += max(0, slot.prefill_remaining)
                 outstanding += max(0, slot.req.remaining)
-        for req in self._wait:
+        waiting = list(self._wait)
+        for req in waiting:
             outstanding += len(req.prompt) + req.max_new_tokens
+        q_batch = sum(1 for r in waiting if r.batch)
         return {
-            "free_slots": sum(1 for s in self.slots if s is None),
+            "free_slots": sum(1 for s in slots if s is None),
             "total_slots": self.S,
             "free_pages": self.alloc.n_free,
             "kv_dtype": self.kv_dtype,
             "kv_page_bytes": self.page_bytes,
             "kv_bytes_in_use": self.alloc.bytes_in_use(),
             "kv_bytes_total": self.alloc.bytes_total(),
-            "queue_depth": len(self._wait),
+            # queue_depth is the ONLINE lane: preemptible batch backlog
+            # is its own number
+            "queue_depth": len(waiting) - q_batch,
+            "queue_depth_online": len(waiting) - q_batch,
+            "queue_depth_batch": q_batch,
             "outstanding_tokens": outstanding,
             "max_queued": self.max_queued,
+            "max_queued_batch": self.max_queued_batch,
+            "shed_retry_after_s": self.shed_retry_after_s,
             "shed_total": self.stats.get("shed", 0),
             "ttft_ewma_s": self._ttft_ewma,
             "itl_ewma_s": self._itl_ewma,
+            "role": self.role,
             "draining": self._draining,
             "stopped": self._stopped,
+            "heartbeat_age_s": time.monotonic() - self._hb,
             # dispatches whose tokens are still in flight: the
             # overlapped loop holds this at <= 2
             "fetchq_depth": len(self._fetchq),
@@ -793,23 +993,78 @@ class LLMEngine:
             "weights_id": self.weights_id,
             "prefix_digest": (self.prefix_cache.digest(
                 self.prefix_digest_max)
-                if self.prefix_cache is not None else frozenset()),
-            "has_work": bool(self._wait or any(self.slots)
+                if self.prefix_cache is not None and digest
+                else frozenset()),
+            "has_work": bool(waiting or any(slots)
                              or self._fetchq
                              or self._pending_prefill),
             "device": str(self.device),
         }
 
+    def force_kill(self, err: Optional[BaseException] = None) -> None:
+        """Out-of-band kill of a WEDGED engine (a watchdog's
+        escalation). The wedged scheduler thread is parked inside
+        ``step()`` holding the engine lock, so this takes no lock: it
+        sets the zombie fence and the stop flag (single assignments)
+        and fails every consumer, so blocked ``stream()`` readers
+        unblock at once. The slots' pages are freed once the wedge
+        releases and the thread unwinds: call ``shutdown()`` again then.
+
+        The fence: a thread that wakes afterwards commits no token (the
+        requests are closed, ``_emit_to`` drops), dispatches nothing
+        (the ``_stopped`` checks after each fire site abandon the round)
+        and publishes no page (retire-path inserts become plain
+        frees)."""
+        err = err or EngineShutdown(
+            "engine force-killed: wedged (no scheduler progress)")
+        self._force_killed = True
+        self._stopped = True
+
+        def fail(req):
+            if not req.closed:
+                req.closed = True
+                req.error = err
+                req.out_q.put(_DONE)
+
+        for slot in list(self.slots):
+            if slot is not None:
+                fail(slot.req)
+        for _rb, riders, _steps in list(self._fetchq):
+            for _i, slot, _t in riders:
+                fail(slot.req)
+        for _rb, placements in list(self._pending_prefill):
+            for _ix, slot, _row in placements:
+                fail(slot.req)
+        for req in list(self._wait):
+            fail(req)
+        pend, self._pending_swap = self._pending_swap, None
+        if pend is not None:
+            pend["event"].set()    # the waiter raises EngineShutdown
+        self.stats["force_killed"] += 1
+
     def shutdown(self):
         """Stop the engine and FAIL everything still queued or in
         flight with ``EngineShutdown`` — no consumer is left blocked.
-        Tokens already computed are delivered first. Idempotent."""
+        Tokens already computed are delivered first. Idempotent.
+
+        After ``force_kill`` the scheduler thread may still be wedged
+        inside ``step()`` holding the lock: the join is then short, and
+        while the thread lives the cleanup waits for a later
+        ``shutdown()`` (after the wedge releases)."""
         err = EngineShutdown("engine stopped")
-        with self._work:
-            self._stopped = True
-            self._work.notify_all()
-        if self._thread is not None:
-            self._thread.join(timeout=30)
+        if self._force_killed:
+            # consumers already failed lock-free; the lock may be held
+            # by the wedged thread
+            if self._thread is not None:
+                self._thread.join(timeout=1.0)
+                if self._thread.is_alive():
+                    return
+        else:
+            with self._work:
+                self._stopped = True
+                self._work.notify_all()
+            if self._thread is not None:
+                self._thread.join(timeout=30)
         with self._work:
             self._drain_fetches_locked()
             for i, slot in enumerate(self.slots):
@@ -866,6 +1121,9 @@ class LLMEngine:
         req.out_q.put(_DONE)
         if count:
             self.stats[count] += 1
+            m = _metrics().get(count)
+            if m is not None:
+                m.inc()
 
     def _teardown_slot_locked(self, ix: int, err: BaseException,
                               count: Optional[str] = None) -> None:
@@ -877,6 +1135,58 @@ class LLMEngine:
         slot.preempted = True
         self._free_slot_pages_locked(slot, retire=False)
         self._fail_req_locked(slot.req, err, count)
+
+    def _reap_deadlines_locked(self) -> None:
+        """Fail every request whose deadline passed, queued or slotted
+        alike, with ``DeadlineExceeded``; runs at the top of every
+        round, so a deadline is kept to one round."""
+        now = time.monotonic()
+        for req in [r for r in self._wait
+                    if r.deadline is not None and now >= r.deadline]:
+            self._wait.remove(req)
+            self._fail_req_locked(req, DeadlineExceeded(
+                f"request {req.rid} missed its deadline while queued"),
+                "deadline_exceeded")
+        for i, slot in enumerate(self.slots):
+            if (slot is not None and not slot.req.closed
+                    and slot.req.deadline is not None
+                    and now >= slot.req.deadline):
+                self._teardown_slot_locked(i, DeadlineExceeded(
+                    f"request {slot.req.rid} missed its deadline after "
+                    f"{len(slot.req.generated)} tokens"),
+                    "deadline_exceeded")
+
+    def _fire(self, site: str, sid: Optional[int] = None,
+              rid: Optional[int] = None) -> None:
+        """Fault-injection site (a no-op without an injector)."""
+        if self._injector is not None:
+            self._injector.fire(site, self._round, sid, rid)
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """``BlockAllocator.alloc`` behind the fault seam: an injected
+        exhaustion makes the pool look dry for this one call, which
+        steers the caller into its evict, preempt or wait path."""
+        if (self._injector is not None
+                and self._injector.exhausted(self._round)):
+            return None
+        return self.alloc.alloc(n)
+
+    def lifecycle_stats(self) -> Dict[str, Any]:
+        """The lifecycle knobs and counters (the reference's keys)."""
+        with self._lock:
+            s = self.stats
+            return {
+                "max_queued": self.max_queued,
+                "max_retries": self.max_retries,
+                "retry_backoff_s": self.retry_backoff_s,
+                "shed": s["shed"],
+                "cancelled": s["cancelled"],
+                "deadline_exceeded": s["deadline_exceeded"],
+                "contained_faults": s["contained_faults"],
+                "retries": s["retries"],
+                "retry_exhausted": s["retry_exhausted"],
+                "fault_failed": s["fault_failed"],
+            }
 
     def step(self) -> bool:
         """One scheduler iteration:
@@ -900,10 +1210,25 @@ class LLMEngine:
 
         The trailing drain blocks only on a dispatch OLDER than the one
         just queued, so at most two are in flight. Returns False when
-        idle."""
+        idle.
+
+        Containment: an ``EngineFault`` out of the prefill lane or the
+        decode/spec lane is handled here (``_contain_fault_locked``)
+        with the lane's participants added to its ``sids``, and the
+        engine keeps serving. Any other error escapes to the caller
+        (``_loop``'s ``_fail_all``)."""
         with self._lock:
             if self._stopped:
                 return False
+            self._round += 1
+            self._hb = time.monotonic()
+            self._fire("step")     # global site: escapes, like a
+                                   # device loss
+            if self._stopped:
+                # force-killed while wedged at the step site: the
+                # fence forbids any further work this round
+                return False
+            self._reap_deadlines_locked()
             if self.overlap or (self._deferred and not self.spec_len):
                 self._drain_fetches_locked(ready_only=True)
             else:
@@ -928,17 +1253,76 @@ class LLMEngine:
                     self._work.wait(timeout=0.01)
                 return True
             plan = self._plan_steps_locked()
-            if plan.prefill:
-                self._dispatch_prefill_locked(plan.prefill)
-            if plan.spec:
-                self._dispatch_spec_locked(plan.spec)
-            elif plan.decode_steps:
-                self._grow_or_preempt_locked(plan.decode_steps)
-                self._dispatch_chunk_locked(plan.decode_steps)
-                if self._deferred:
-                    self._retire_planned_locked()
+            try:
+                if plan.prefill:
+                    self._dispatch_prefill_locked(plan.prefill)
+            except EngineFault as e:
+                e.sids = sorted({g.sid for g in plan.prefill}
+                                | set(e.sids))
+                self._contain_fault_locked(e)
+                return True
+            riders = [i for i, s in enumerate(self.slots)
+                      if s is not None and s.cur is not None]
+            try:
+                if plan.spec:
+                    self._dispatch_spec_locked(plan.spec)
+                elif plan.decode_steps:
+                    self._grow_or_preempt_locked(plan.decode_steps)
+                    self._dispatch_chunk_locked(plan.decode_steps)
+                    if self._deferred:
+                        self._retire_planned_locked()
+            except EngineFault as e:
+                part = ({g.sid for g in plan.spec} if plan.spec
+                        else set(riders))
+                e.sids = sorted(part | set(e.sids))
+                self._contain_fault_locked(e)
+                return True
             self._drain_fetches_locked(limit=1, keep=1)
             return True
+
+    def _contain_fault_locked(self, e: EngineFault) -> None:
+        """Per-slot containment: fail ONLY the culprit with the
+        underlying error; every other slot of the faulted dispatch
+        requeues at the tail under the bounded retry policy. A fault
+        with no culprit requeues every participant. Trailing readbacks
+        are settled first: a requeued request recomputes from prompt +
+        generated, which must be complete."""
+        self.stats["contained_faults"] += 1
+        _metrics()["contained_faults"].inc()
+        self._drain_fetches_locked()
+        for sid in sorted(set(e.sids)):
+            slot = self.slots[sid] if 0 <= sid < self.S else None
+            if slot is None:
+                continue       # the drain closed it, or already gone
+            if sid == e.culprit_sid:
+                self._teardown_slot_locked(sid, e.original,
+                                           "fault_failed")
+            else:
+                self._requeue_after_fault_locked(sid, e)
+
+    def _requeue_after_fault_locked(self, sid: int,
+                                    e: EngineFault) -> None:
+        """Requeue an innocent participant of a faulted dispatch at the
+        TAIL (a faulting batch must not starve fresh arrivals), behind
+        an exponential backoff; past ``max_retries`` attempts it fails
+        too, so a poisoned batch never retries forever."""
+        slot = self.slots[sid]
+        req = slot.req
+        req.attempts += 1
+        if req.attempts > self.max_retries:
+            self._teardown_slot_locked(sid, RequestError(
+                f"request {req.rid} failed after {req.attempts - 1} "
+                f"retries (last fault: {e.original!r})"),
+                "retry_exhausted")
+            return
+        self.slots[sid] = None
+        slot.preempted = True     # in-flight rows are recomputed
+        self._free_slot_pages_locked(slot, retire=False)
+        req.t_earliest = (time.monotonic() + self.retry_backoff_s
+                          * (2 ** (req.attempts - 1)))
+        self._wait.append(req)
+        self.stats["retries"] += 1
+        _metrics()["retries"].inc()
 
     def _plan_steps_locked(self) -> StepPlan:
         """Plan this round with the pure planner (serve/scheduler.py),
@@ -959,12 +1343,18 @@ class LLMEngine:
                           if s.cur is not None else 0,
                           seeded=s.cur is not None,
                           spec_drafts=len(s.spec_pending),
-                          stale=stale[i], pulling=s.pulling)
+                          stale=stale[i], pulling=s.pulling,
+                          batch=s.req.batch)
                  for i, s in enumerate(self.slots) if s is not None]
+        # the role's clamps, read each round: a pool may re-role a
+        # replica between requests
+        caps = role_plan_caps(self.role, page_size=self.Pg,
+                              decode_chunk=self.K, prefill_budget=self.PC,
+                              max_run_ahead=self.KMAX)
         return plan_step(views, total_slots=self.S,
-                         prefill_budget=self.PC,
+                         prefill_budget=caps["prefill_budget"],
                          decode_chunk=self.K,
-                         max_run_ahead=self.KMAX,
+                         max_run_ahead=caps["max_run_ahead"],
                          prefill_batch=self._max_prefill_batch,
                          eos_bounded=self.eos_id is not None,
                          spec_enabled=bool(self.spec_len))
@@ -1027,6 +1417,11 @@ class LLMEngine:
                     return
             try:
                 self.step()
+            except EngineFault as e:
+                # attributable, outside a dispatch section (step()
+                # contains the ones inside)
+                with self._lock:
+                    self._contain_fault_locked(e)
             except BaseException as e:   # global: fail every request
                 self._fail_all(e)
                 return
@@ -1051,13 +1446,41 @@ class LLMEngine:
                 self._fail_req_locked(self._wait.popleft(), e)
             self._stopped = True
 
-    def _victim_locked(self, exclude_sid: int) -> Optional[int]:
-        """Preemption victim: the youngest occupied slot other than the
-        one whose growth is hunting. PULLING slots are never victims
-        (no pages to reclaim, and their thread owns them)."""
+    def _next_admit_locked(self) -> Optional[_Request]:
+        """The request admission takes next: closed requests at the head
+        are dropped, then the first ONLINE request anywhere in the queue
+        (FIFO within each lane), else the batch head. The chosen request
+        is rotated to the front, so the ``popleft`` of every admission
+        path takes it."""
+        while self._wait and self._wait[0].closed:
+            self._wait.popleft()
+        if not self._wait:
+            return None
+        head = self._wait[0]
+        if not head.batch:
+            return head
+        for k in range(1, len(self._wait)):
+            r = self._wait[k]
+            if r.closed or r.batch:
+                continue
+            del self._wait[k]
+            self._wait.appendleft(r)
+            return r
+        return head
+
+    def _victim_locked(self, exclude_sid: Optional[int] = None, *,
+                       batch_only: bool = False) -> Optional[int]:
+        """Preemption victim: the youngest occupied slot, batch slots
+        strictly before online ones (``max`` over ``(batch,
+        admit_seq)``), never ``exclude_sid`` (the slot whose growth is
+        hunting) and never a PULLING slot (no pages to reclaim, and its
+        thread owns it). ``batch_only`` restricts the hunt to batch
+        slots: an online head evicts nothing else to admit."""
         cands = (j for j, s in enumerate(self.slots)
-                 if s is not None and not s.pulling and j != exclude_sid)
-        return max(cands, key=lambda j: self.slots[j].admit_seq,
+                 if s is not None and not s.pulling and j != exclude_sid
+                 and (s.req.batch or not batch_only))
+        return max(cands, key=lambda j: (self.slots[j].req.batch,
+                                         self.slots[j].admit_seq),
                    default=None)
 
     def _admit_locked(self):
@@ -1080,18 +1503,30 @@ class LLMEngine:
         (``_try_pull_admit_locked``); the pull's end requeues it at the
         front, to admit through this path as a local hit or as plain
         prefill. While a drain-mode weight swap is pending, admission
-        pauses so the engine settles and the flip can land."""
+        pauses so the engine settles and the flip can land.
+
+        Lanes: the admitted request is the first ONLINE one in the
+        queue; batch requests admit only when none waits. An online
+        head facing a full engine preempts the youngest BATCH slot and
+        retries (online slots are never evicted to admit). A request
+        backing off after a contained fault holds the queue until its
+        ``t_earliest``."""
         if self._pending_swap is not None:
             return
         while self._wait:
-            while self._wait and self._wait[0].closed:
-                self._wait.popleft()
-            if not self._wait:
+            req = self._next_admit_locked()
+            if req is None:
                 return
             free = [i for i, s in enumerate(self.slots) if s is None]
             if not free:
+                if not req.batch:
+                    victim = self._victim_locked(None, batch_only=True)
+                    if victim is not None:
+                        self._preempt_locked(victim)
+                        continue
                 return
-            req = self._wait[0]
+            if req.t_earliest and time.monotonic() < req.t_earliest:
+                return
             prompt = req.recompute_prompt
             if req.pull is not None and self._try_pull_admit_locked(
                     free[0], req, prompt):
@@ -1109,11 +1544,11 @@ class LLMEngine:
             start = matched
             first = max(1, min(len(prompt) - start, self.PC))
             need = -(-(start + first) // self.Pg) - len(shared_pages)
-            page_ids = self.alloc.alloc(need)
+            page_ids = self._alloc(need)
             if page_ids is None and self.prefix_cache is not None:
                 # reclaim LRU refcount-0 cached pages before failing
                 if self.prefix_cache.evict(need - self.alloc.n_free) > 0:
-                    page_ids = self.alloc.alloc(need)
+                    page_ids = self._alloc(need)
             if page_ids is None:
                 # pool dry: hand the matched references back and wait
                 if self.prefix_cache is not None:
@@ -1175,6 +1610,10 @@ class LLMEngine:
         if self.prefix_cache is None:
             self.alloc.free(slot.pages)
             return
+        if retire and self._force_killed:
+            # the zombie fence: a force-killed engine's late retirement
+            # publishes nothing into the prefix cache
+            retire = False
         if retire:
             n_full = min(len(slot.prompt) // self.Pg, len(slot.pages))
             self.prefix_cache.insert(slot.prompt, slot.pages[:n_full],
@@ -1311,10 +1750,10 @@ class LLMEngine:
             return 0
         if len(cols) < n:
             return 0
-        page_ids = self.alloc.alloc(n)
+        page_ids = self._alloc(n)
         if page_ids is None and self.prefix_cache.evict(
                 n - self.alloc.n_free) > 0:
-            page_ids = self.alloc.alloc(n)
+            page_ids = self._alloc(n)
         if page_ids is None:
             return 0
         dst = self._h2d(np.asarray(page_ids, np.int64))
@@ -1375,13 +1814,15 @@ class LLMEngine:
     def _grow_locked(self, ix: int, slot: _Slot, need: int) -> None:
         """Grow ``slot``'s pages to ``need`` while the pool is dry:
         first evict refcount-0 prefix-cache pages, then preempt the
-        youngest OTHER slot. Stops early if a preemption's drain closed
-        this slot. A lone slot always fits: ``submit`` rejects requests
-        larger than the pool."""
+        youngest OTHER slot (batch first). Stops early if a preemption's
+        drain closed this slot. A lone slot that still cannot grow (a
+        donor's pin, a page fenced while a transfer holds it, an injected
+        exhaustion) raises an ``EngineFault`` naming it, which ``step``
+        contains: that request fails, the engine keeps serving."""
         while len(slot.pages) < need:
             if self.slots[ix] is not slot:
                 return
-            got = self.alloc.alloc(need - len(slot.pages))
+            got = self._alloc(need - len(slot.pages))
             if got is not None:
                 slot.pages.extend(got)
                 return
@@ -1391,10 +1832,9 @@ class LLMEngine:
                 continue        # reclaimed cached pages; retry alloc
             victim = self._victim_locked(ix)
             if victim is None:
-                raise RuntimeError(
+                raise EngineFault(RequestError(
                     f"request {slot.req.rid}: page pool exhausted by "
-                    f"one slot ({len(slot.pages)} pages held, {need} "
-                    f"needed)")
+                    f"one slot"), culprit_sid=ix, culprit_rid=slot.req.rid)
             self._preempt_locked(victim)
 
     def _dispatch_prefill_locked(self, grants):
@@ -1409,6 +1849,7 @@ class LLMEngine:
             take = min(g.tokens, slot.prefill_remaining)
             if take <= 0:
                 continue
+            self._fire("dispatch_prefill", sid=g.sid, rid=slot.req.rid)
             self._check_cow_locked(slot, slot.prefilled)
             self._grow_locked(g.sid, slot,
                               -(-(slot.prefilled + take) // self.Pg))
@@ -1417,13 +1858,16 @@ class LLMEngine:
         # a LATER grant's growth can evict an EARLIER grant's slot
         rows = [(ix, slot, take) for ix, slot, take in rows
                 if self.slots[ix] is slot]
+        if self._stopped:
+            return     # force-killed mid-loop: the zombie dispatches
+                       # nothing
         if rows:
             self._prefill_batch(rows)
 
     def _grow_or_preempt_locked(self, steps: int):
         """Ensure every riding slot's pages cover this dispatch's
-        writes, eldest first; evict the youngest slots if the pool runs
-        dry."""
+        writes, eldest first; evict the youngest slots (batch first) if
+        the pool runs dry."""
         for i in sorted((i for i, s in enumerate(self.slots)
                          if s is not None),
                         key=lambda i: self.slots[i].admit_seq):
@@ -1447,7 +1891,11 @@ class LLMEngine:
         # never frees shared pages: other slots' page tables may point
         # at them; the references drop and the tree keeps the KV
         self._free_slot_pages_locked(victim, retire=False)
+        victim.req.preemptions += 1
         self.stats["preemptions"] += 1
+        if victim.req.batch:
+            self.stats["batch_preemptions"] += 1
+            _metrics()["batch_preempted"].inc()
         self._wait.appendleft(victim.req)
 
     def _dispatch_chunk_locked(self, steps: int):
@@ -1459,14 +1907,17 @@ class LLMEngine:
         for i, slot in enumerate(self.slots):
             if slot is None or slot.cur is None:
                 continue
+            self._fire("dispatch_decode", sid=i, rid=slot.req.rid)
             self._check_cow_locked(slot, slot.pos)
             pt[i, :len(slot.pages)] = slot.pages
             # tokens this slot still owes from THIS dispatch (the tail
             # of an overshooting window is junk)
             take = min(steps, max(0, self._owed(slot)))
             riders.append((i, slot, take))
-        if not riders:
-            return     # every planned rider was preempted meanwhile
+        if not riders or self._stopped:
+            # every planned rider was preempted meanwhile, or the
+            # engine was force-killed mid-loop (the zombie fence)
+            return
         toks, lps = self._decode_step(pt, steps,
                                       [i for i, _s, _t in riders])
         for _i, slot, _t in riders:
@@ -1475,6 +1926,7 @@ class LLMEngine:
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += steps
         self._fetchq.append((_Readback(toks, lps), riders, steps))
+        self._hb = time.monotonic()
 
     def _dispatch_spec_locked(self, grants):
         """One batched draft-and-verify dispatch. Each granted slot's
@@ -1505,6 +1957,7 @@ class LLMEngine:
                     or not slot.req.generated):
                 continue       # closed by the drain, or seeded since
             drafts = slot.spec_pending[:max(0, g.drafts)]
+            self._fire("dispatch_spec", sid=g.sid, rid=slot.req.rid)
             self._check_cow_locked(slot, slot.pos)
             # cover every verify write (cur + drafts): prefix-cache
             # eviction first, then youngest-other preemption
@@ -1515,8 +1968,8 @@ class LLMEngine:
         # a later grant's growth can evict an earlier grant's slot
         rows = [(ix, slot, d) for ix, slot, d in rows
                 if self.slots[ix] is slot]
-        if not rows:
-            return
+        if not rows or self._stopped:
+            return     # nothing to verify, or force-killed mid-loop
         ids = np.zeros((self.S, T), np.int32)
         start = np.zeros((self.S,), np.int32)
         pt = np.zeros((self.S, self.max_pages), np.int32)
@@ -1526,6 +1979,7 @@ class LLMEngine:
             start[i] = slot.pos
             pt[i, :len(slot.pages)] = slot.pages
         out = self._verify_step(ids, start, pt)
+        self._hb = time.monotonic()
         self.stats["spec_rounds"] += 1
         seeds = []
         for i, slot, drafts in rows:
@@ -1602,22 +2056,47 @@ class LLMEngine:
             pend_pre = []
             if pre_ready:
                 pend_pre, self._pending_prefill = self._pending_prefill, []
+            # the heartbeat before each blocking get as well as after: a
+            # drain through several buffers is progress at each one
+            self._hb = time.monotonic()
+            got_pre = [(rb.get(), rb.logprobs()) for rb, _ in pend_pre]
+            got = [(rb.get(), rb.logprobs()) for rb, _r, _s in batch]
+            self._hb = time.monotonic()
             # prefill firsts FIRST: a slot's seeding prefill precedes
             # its first decode ride, and both can land in one drain
-            for rb, placements in pend_pre:
-                firsts, f_lps = rb.get(), rb.logprobs()
+            for (_rb, placements), (firsts, f_lps) in zip(pend_pre,
+                                                          got_pre):
                 for ix, slot, row in placements:
-                    if not slot.preempted:
+                    if self._readback_ok_locked(ix, slot):
                         self._emit_to(slot.req, [int(firsts[row])], ix,
                                       None if f_lps is None
                                       else [float(f_lps[row])])
-            for rb, riders, _steps in batch:
-                toks, lps = rb.get(), rb.logprobs()
+            for (_rb, riders, _steps), (toks, lps) in zip(batch, got):
                 for i, slot, take in riders:
-                    if not slot.preempted:
+                    if self._readback_ok_locked(i, slot):
                         self._emit_to(slot.req, toks[:take, i].tolist(), i,
                                       None if lps is None
                                       else lps[:take, i].tolist())
+
+    def _readback_ok_locked(self, ix: int, slot: _Slot) -> bool:
+        """Whether a rider's read-back tokens are to be emitted: not when
+        its slot was preempted (it recomputes), nor when the readback
+        site's fault hits it, which fails that rider alone: its slot, if
+        still live (no-eos mode retires slots at dispatch), is torn
+        down, and every other rider's emission proceeds."""
+        if slot.preempted:
+            return False
+        try:
+            self._fire("readback", sid=ix, rid=slot.req.rid)
+        except EngineFault as e:
+            self.stats["contained_faults"] += 1
+            _metrics()["contained_faults"].inc()
+            if self.slots[ix] is slot:
+                self._teardown_slot_locked(ix, e.original, "fault_failed")
+            else:
+                self._fail_req_locked(slot.req, e.original, "fault_failed")
+            return False
+        return True
 
     def _emit_to(self, req: _Request, tokens: List[int], ix: int,
                  lps: Optional[List[float]] = None):
@@ -1635,11 +2114,14 @@ class LLMEngine:
             t = int(t)
             if req.t_first is None:
                 req.t_first = time.monotonic()
-                ttft = req.t_first - req.t_submit
-                self.ttfts_s.append(ttft)
-                a = self._ewma_alpha
-                self._ttft_ewma = ttft if self._ttft_ewma is None \
-                    else a * ttft + (1 - a) * self._ttft_ewma
+                if not req.batch:
+                    # online SLO signals only: a batch request may wait
+                    # queued by design
+                    ttft = req.t_first - req.t_submit
+                    self.ttfts_s.append(ttft)
+                    a = self._ewma_alpha
+                    self._ttft_ewma = ttft if self._ttft_ewma is None \
+                        else a * ttft + (1 - a) * self._ttft_ewma
             req.generated.append(t)
             req.out_q.put(t)
             n_put += 1
@@ -1651,7 +2133,10 @@ class LLMEngine:
             req.logprobs.extend(float(x) for x in lps[:n_put])
         if n_put:
             now = time.monotonic()
-            if req.t_last_emit is not None:
+            if req.batch:
+                self.stats["batch_tokens"] += n_put
+                _metrics()["batch_tokens"].inc(n_put)
+            elif req.t_last_emit is not None:
                 gap = max(0.0, now - req.t_last_emit) / n_put
                 a = self._ewma_alpha
                 self._itl_ewma = gap if self._itl_ewma is None \
@@ -1709,6 +2194,7 @@ class LLMEngine:
         self._pending_prefill.append((_Readback(firsts, lps), placements))
         self.stats["prefills"] += 1
         self.stats["prefill_tokens"] += sum(t for _i, _s, t in rows)
+        self._hb = time.monotonic()
 
     def _prefill_step(self, ids, start, last_idx, pt):
         """Device half of ``_prefill_batch`` (the reference's jitted

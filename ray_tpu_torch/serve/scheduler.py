@@ -1,9 +1,9 @@
 """Own copy of the pure step planner of ``ray_tpu/serve/scheduler.py``
 (``SlotView``, ``PrefillGrant``, ``SpecGrant``, ``StepPlan``,
 ``plan_step``), with its speculative-decoding lane, stale-frontier
-cap and KV-pull phase, without its priority lanes, replica roles and
-scheduler profiles, which the port's engine does not have yet
-(ROADMAP.md, queue 1).
+cap, KV-pull phase, priority lanes and replica roles, without its
+named scheduler profiles, which wait for the batch tier (ROADMAP.md,
+queue 1, item 7).
 
 One scheduling round of the continuous-batching engine
 (serve/engine.py) is planned here, device-free: given a host-side
@@ -18,9 +18,12 @@ whole prompt.
 
 Policy, in order:
 
-- Prefill grants: mid-prefill slots in admission order (FIFO) each
+- Prefill grants: mid-prefill slots in lane-then-admission order
+  (online slots first, FIFO within each lane, ``SlotView.batch``) each
   receive ``min(prompt_remaining, budget_left)`` tokens until the
-  round's token budget or the prefill batch width runs out. A PULLING
+  round's token budget or the prefill batch width runs out, so a deep
+  batch backlog never takes the budget an online prompt needs. Decode
+  is lane-blind: a seeded batch slot rides every dispatch. A PULLING
   slot (``SlotView.pulling``: its prefix KV is crossing the wire from
   a peer, serve/kv_migration.py) gets no grant and, unseeded, rides no
   decode.
@@ -53,6 +56,48 @@ from typing import Sequence, Tuple
 # any engine identically (tests/test_torch_guard.py checks it).
 ALLOWED_IMPORTS = frozenset({"__future__", "dataclasses", "typing"})
 
+# Priority lanes: ONLINE is the latency-critical default; BATCH marks
+# preemptible offline work that admits behind every waiting online
+# request and is the first preemption victim.
+LANE_ONLINE = "online"
+LANE_BATCH = "batch"
+
+# Replica roles for prefill/decode disaggregation. The role changes
+# nothing in ``plan_step`` itself: it selects the knob clamps of
+# ``role_plan_caps``, which the engine applies to what it passes in.
+ROLE_PREFILL = "prefill"
+ROLE_DECODE = "decode"
+ROLE_UNIFIED = "unified"
+REPLICA_ROLES = frozenset({ROLE_PREFILL, ROLE_DECODE, ROLE_UNIFIED})
+
+
+def role_plan_caps(role, *, page_size, decode_chunk, prefill_budget,
+                   max_run_ahead):
+    """Role-adjusted planner knobs, pure data in and out.
+
+    - ``prefill``: run-ahead clamped to one decode chunk, so a prefill
+      replica never commits long decode dispatches ahead of the next
+      waiting prompt.
+    - ``decode``: the per-round prefill budget shrinks to one page plus
+      one token, enough for a handoff's residual tail, and enough to
+      crawl through a plain prefill when a fallback lands here.
+    - ``unified``: the knobs pass through.
+
+    An unknown role raises: a mistyped role planning as unified would
+    erase the split it was meant to configure."""
+    if role not in REPLICA_ROLES:
+        raise ValueError(
+            f"unknown replica role {role!r}; expected one of "
+            f"{sorted(REPLICA_ROLES)}")
+    caps = {"prefill_budget": prefill_budget,
+            "max_run_ahead": max_run_ahead}
+    if role == ROLE_PREFILL:
+        caps["max_run_ahead"] = max(1, min(max_run_ahead, decode_chunk))
+    elif role == ROLE_DECODE:
+        caps["prefill_budget"] = max(1, min(prefill_budget,
+                                            page_size + 1))
+    return caps
+
 
 @dataclasses.dataclass(frozen=True)
 class SlotView:
@@ -71,6 +116,8 @@ class SlotView:
                              # from the pull or requeues for plain
                              # prefill; unseeded, so the quick cadence
                              # treats it as pending admission work
+    batch: bool = False      # BATCH lane: prefill grants after every
+                             # online slot's
 
     @property
     def prefilling(self) -> bool:
@@ -111,7 +158,8 @@ def plan_step(slots: Sequence[SlotView], *, total_slots: int,
     engine state — everything it needs is in the arguments.
 
     slots: occupied slots only (free slots are ``total_slots`` minus
-    ``len(slots)``). Returns the prefill grants (FIFO, budget-packed)
+    ``len(slots)``). Returns the prefill grants (online lane first,
+    FIFO within a lane, budget-packed)
     and either the decode step count (0 = no decode dispatch) or, when
     ``spec_enabled`` and any seeded slot proposed drafts, the spec
     grants of one batched verify (the lanes are exclusive per round).
@@ -123,8 +171,9 @@ def plan_step(slots: Sequence[SlotView], *, total_slots: int,
 
     grants = []
     budget = prefill_budget
+    # bool sorts False < True: every online slot before every batch one
     for v in sorted((v for v in slots if v.prefilling),
-                    key=lambda v: v.admit_seq):
+                    key=lambda v: (v.batch, v.admit_seq)):
         if budget <= 0 or len(grants) >= prefill_batch:
             break
         take = min(v.prompt_remaining, budget)
