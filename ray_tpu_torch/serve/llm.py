@@ -5,20 +5,25 @@ with ``use_engine=False``, behind the static-cache ``generate`` and
 
 Wrap it with a serve deployment at the use site; here it is a plain
 class whose ``__call__``/``stream``/``generate_batch`` are the request
-entry points. The engine's int8 KV pool (``kv_dtype``) and prefix cache
-(``prefix_cache``), speculative decoding (``spec_len``, ``spec_ngram``)
-and the loop (``overlap``) pass through. The engine's KV pull and hot
-weight swap are reached through ``engine()`` (``kv_fetcher``,
-``submit(pull=...)``, ``swap_weights``). The engine pool, fleet,
-autoscaler, watchdog and tensor parallelism of the reference are not
-ported yet, nor the deployment's ``kv_pull_deadline_s`` and
-``kv_pull_backoff_s``, which feed the engine pool (ROADMAP.md, queue 1,
-item 6).
+entry points. A request is a token-id list or a dict payload
+(``prompt_ids`` or ``prompt``, ``max_new_tokens``, ``deadline_s``,
+``session_id``, ``trace_id``). The engine's int8 KV pool
+(``kv_dtype``) and prefix cache (``prefix_cache``), speculative
+decoding (``spec_len``, ``spec_ngram``), the loop (``overlap``) and
+the request lifecycle (``deadline_s``, ``max_queued``,
+``max_retries``, ``retry_backoff_s``, ``engine_stall_deadline_s``)
+pass through. The engine's KV pull and hot weight swap are reached
+through ``engine()`` (``kv_fetcher``, ``submit(pull=...)``,
+``swap_weights``). The engine pool, fleet, autoscaler, watchdog and
+tensor parallelism of the reference are not ported yet, nor the
+deployment's ``kv_pull_deadline_s`` and ``kv_pull_backoff_s``, which
+feed the engine pool, nor the pool and fleet branches of
+``serve_stats`` and ``load_report`` (ROADMAP.md, queue 1, item 6).
 """
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -61,6 +66,16 @@ class LlamaDeployment:
         n-gram order ``spec_ngram``; 0 = off, the default; greedy only).
     overlap: the engine's overlapped loop; None (default) defers to the
         engine's default (on) and ``RAY_TPU_OVERLAP``.
+    deadline_s: the per-request deadline (a dict payload's
+        ``deadline_s`` overrides it); None: none.
+    max_queued: the engine's online admission bound (sheds with
+        ``EngineOverloaded``); None: unbounded.
+    max_retries, retry_backoff_s: the engine's retry policy after a
+        contained fault.
+    engine_stall_deadline_s: becomes the engine's ``admit_timeout_s``:
+        a submit that cannot take a stalled engine's lock this long
+        sheds instead of parking (the reference's watchdog also reads
+        it, which is not ported yet); None: off.
     device: ``None``/``"cuda"`` (the card; raises without one) or
         ``"cpu"``.
     """
@@ -77,7 +92,15 @@ class LlamaDeployment:
                  kv_dtype: Optional[str] = None,
                  prefix_cache: bool = False, spec_len: int = 0,
                  spec_ngram: int = 3, overlap: Optional[bool] = None,
+                 deadline_s: Optional[float] = None,
+                 max_queued: Optional[int] = None,
+                 max_retries: int = 2, retry_backoff_s: float = 0.02,
+                 engine_stall_deadline_s: Optional[float] = None,
                  device=None):
+        if (engine_stall_deadline_s is not None
+                and engine_stall_deadline_s <= 0):
+            raise ValueError(
+                "engine_stall_deadline_s must be > 0 (or None)")
         self.device = resolve_device(device)
         self.cfg = config or llama_tiny()
         if params is None:
@@ -87,6 +110,8 @@ class LlamaDeployment:
         self.temperature = temperature
         self.stream_chunk = stream_chunk
         self.use_engine = use_engine
+        self.deadline_s = deadline_s
+        self.engine_stall_deadline_s = engine_stall_deadline_s
         if n_pages is None:
             per_seq = -(-self.cfg.max_seq_len // page_size)
             n_pages = max_slots * per_seq + 1
@@ -94,7 +119,10 @@ class LlamaDeployment:
             max_slots=max_slots, page_size=page_size, n_pages=n_pages,
             chunk=decode_chunk or stream_chunk, prefill_chunk=prefill_chunk,
             eos_id=eos_id, kv_dtype=kv_dtype, prefix_cache=prefix_cache,
-            spec_len=spec_len, spec_ngram=spec_ngram, overlap=overlap)
+            spec_len=spec_len, spec_ngram=spec_ngram, overlap=overlap,
+            max_queued=max_queued, max_retries=max_retries,
+            retry_backoff_s=retry_backoff_s,
+            admit_timeout_s=engine_stall_deadline_s)
         self._engine = None
         self._engine_lock = threading.Lock()
 
@@ -115,48 +143,114 @@ class LlamaDeployment:
             if self._engine is not None:
                 self._engine.shutdown()
 
-    def __call__(self, prompt_ids: List[int]) -> List[int]:
-        """One request: token ids in, prompt + generated ids out."""
-        if not self.use_engine:
-            out = generate(self.model, [list(prompt_ids)],
-                           self.max_new_tokens, self.temperature)
-            return out[0].tolist()
-        h = self.engine().submit(list(prompt_ids),
-                                 max_new_tokens=self.max_new_tokens)
-        return list(prompt_ids) + h.result()
+    def serve_stats(self) -> dict:
+        """Replica metrics: the engine's counters plus live slot and
+        page occupancy, without building a lazy engine (``{"engine":
+        None}`` before the first request or without the engine). The
+        lock is tried for 50 ms; ``consistent`` says whether it was
+        taken, else the fields were read lock-free and may be torn."""
+        if not self.use_engine or self._engine is None:
+            return {"engine": None}
+        eng = self._engine
+        locked = eng._lock.acquire(timeout=0.05)
+        try:
+            live = sum(1 for s in eng.slots if s is not None)
+            out = dict(eng.stats)
+            free, total = eng.alloc.n_free, eng.alloc.n_pages - 1
+            prefix = (eng.prefix_cache.stats()
+                      if eng.prefix_cache is not None else None)
+        finally:
+            if locked:
+                eng._lock.release()
+        out.update(slots_live=live, slots_total=eng.S, pages_free=free,
+                   pages_total=total, consistent=locked,
+                   max_queued=eng.max_queued,
+                   max_retries=eng.max_retries,
+                   retry_backoff_s=eng.retry_backoff_s)
+        if prefix is not None:
+            out["prefix_cache"] = prefix
+        return {"engine": out}
 
-    def stream(self, prompt_ids: List[int]):
+    def load_report(self) -> Optional[dict]:
+        """The engine's ``load_report`` without its prefix digest (an
+        affinity signal within a pool); None before the lazy engine
+        exists or without the engine."""
+        if not self.use_engine or self._engine is None:
+            return None
+        rpt = dict(self._engine.load_report())
+        rpt.pop("prefix_digest", None)
+        return rpt
+
+    def _request_args(self, payload):
+        """(prompt_ids, max_new_tokens, deadline_s, session_id,
+        trace_id) of a request: a token-id list, or a dict with
+        ``prompt_ids`` (or ``prompt``) and optional ``max_new_tokens``,
+        ``deadline_s``, ``session_id`` and ``trace_id``. One engine
+        ignores ``session_id`` (it steers a pool's stickiness);
+        ``trace_id`` rides the request."""
+        if isinstance(payload, dict):
+            prompt_ids = payload.get("prompt_ids", payload.get("prompt"))
+            if prompt_ids is None:
+                raise ValueError("request dict needs a 'prompt_ids' key")
+            mnt = int(payload.get("max_new_tokens", self.max_new_tokens))
+            dl = payload.get("deadline_s", self.deadline_s)
+            sid = payload.get("session_id")
+            tid = payload.get("trace_id")
+            return (list(prompt_ids), mnt,
+                    float(dl) if dl is not None else None,
+                    str(sid) if sid is not None else None,
+                    str(tid) if tid is not None else None)
+        return (list(payload), self.max_new_tokens, self.deadline_s,
+                None, None)
+
+    def _submit(self, payload):
+        ids, mnt, dl, _sid, tid = self._request_args(payload)
+        kw: Dict[str, Any] = dict(max_new_tokens=mnt, deadline_s=dl)
+        if tid is not None:
+            kw["trace_id"] = tid
+        return ids, self.engine().submit(ids, **kw)
+
+    def __call__(self, prompt_ids) -> List[int]:
+        """One request (a token-id list or a dict payload): prompt +
+        generated ids out."""
+        if not self.use_engine:
+            ids, mnt = self._request_args(prompt_ids)[:2]
+            out = generate(self.model, [ids], mnt, self.temperature)
+            return out[0].tolist()
+        ids, h = self._submit(prompt_ids)
+        return list(ids) + h.result()
+
+    def stream(self, prompt_ids):
         """Streaming request: yields each generated token id as it is
         emitted. Closing the generator early cancels the request, so
         its slot and pages free at once. Without the engine, tokens
         arrive in bursts of ``stream_chunk``, one device read each."""
         if not self.use_engine:
-            for tok in generate_stream(self.model, [list(prompt_ids)],
-                                       self.max_new_tokens,
+            ids, mnt = self._request_args(prompt_ids)[:2]
+            for tok in generate_stream(self.model, [ids], mnt,
                                        self.temperature,
                                        chunk_size=self.stream_chunk):
                 yield int(tok[0])
             return
-        h = self.engine().submit(list(prompt_ids),
-                                 max_new_tokens=self.max_new_tokens)
+        _ids, h = self._submit(prompt_ids)
         try:
             yield from h.stream()
         except GeneratorExit:
             h.cancel()
             raise
 
-    def generate_batch(self, prompts: List[List[int]]) -> List[List[int]]:
-        """Batched generation: every prompt is submitted at once and the
-        engine batches them at token granularity (any mix of lengths).
-        Without the engine, prompts are bucketed by length and each
-        bucket is one ``generate`` batch: the model masks only
-        causally, so padding would change a completion. Returns the
-        generated ids per prompt."""
+    def generate_batch(self, prompts) -> List[List[int]]:
+        """Batched generation: every request (a token-id list or a dict
+        payload) is submitted at once and the engine batches them at
+        token granularity (any mix of lengths). Without the engine,
+        prompts are bucketed by length and each bucket is one
+        ``generate`` batch: the model masks only causally, so padding
+        would change a completion. Returns the generated ids per
+        prompt."""
         if not self.use_engine:
-            return self._generate_buckets(prompts)
-        eng = self.engine()
-        hs = [eng.submit(list(p), max_new_tokens=self.max_new_tokens)
-              for p in prompts]
+            return self._generate_buckets(
+                [self._request_args(p)[0] for p in prompts])
+        hs = [self._submit(p)[1] for p in prompts]
         return [h.result() for h in hs]
 
     def _generate_buckets(self, prompts: List[List[int]]
