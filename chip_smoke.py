@@ -6,8 +6,8 @@ sm_90a).
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
-which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 2, 5,
-6, 6b, 7, 7b, then 4d's profile: the host-timed serving phases come before
+which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 4f, 2,
+5, 6, 6b, 7, 7b, then 4d's profile: the host-timed serving phases come before
 any torch.profiler session, since a process that has run one launches
 kernels at a higher host cost for the rest of its life.
 
@@ -67,7 +67,14 @@ kernels at a higher host cost for the rest of its life.
    decode chunk 2), spec_len 0 and 4: ``fetchq_depth`` reaches 2 (at most 2 with
    speculation) and the streams equal the CPU's lockstep ones. And
    ``capture_logprobs=True``: the same streams, logprobs within 1e-4
-   and as many as tokens. Then the
+   and as many as tokens. Then the same ``FaultInjector`` plans on both
+   devices: a fault at the prefill, the decode and the spec (spec_len
+   4) dispatch, a readback fault, 2 rounds of allocator exhaustion, a
+   plan that exhausts ``max_retries``, a lone slot a donor pin starves,
+   and batch rollouts an online burst preempts (fp and int8 pools):
+   the same failed requests and error types, the same survivor streams
+   (int8: or a near-tie parting), the same ``lifecycle_stats()``, both
+   engines quiesced (``check_quiesced``). Then the
    same model and prompts through the static-cache loops: greedy
    ``generate`` (16 new tokens) identical on the card and on the CPU,
    and ``generate_stream`` (chunk 8) identical to ``generate``.
@@ -189,6 +196,37 @@ kernels at a higher host cost for the rest of its life.
    the streams unchanged, and after a drain swap to other weights the
    request in flight ends on the old weights and the next equals a
    fresh engine on the new ones.
+4f. The engine's fault containment, lanes and wedge handling at full
+   width: TinyLlama-1.1B bf16 (random weights from ``--seed``), 16
+   slots, 64-token pages, 513 pages, one warm-up request each engine.
+   (a) fp pool, default loop: phase 4's 16 prompts, 64 new tokens,
+   unfaulted, then with a prefill fault on slot 8, a decode fault on
+   slot 5, a readback fault on slot 11, 2 rounds of allocator
+   exhaustion, a slow step that blows slot 0's 1 s deadline mid-decode
+   and a client cancel of slot 1 mid-decode (both at round boundaries,
+   on the scheduler thread). Checks: exactly those 5 fail, each typed;
+   the 11 others get 64 tokens; retries >= 1; 2 requeued streams
+   teacher-forced within 0.05 (bf16, and the weights in fp32); K1 22 x
+   the decode steps, K2 never; quiesced. Prints where each survivor
+   first parts from its unfaulted twin, tok/s and survivor TTFT p50 of
+   both waves, each faulted round's wall against the median round, and
+   ``lifecycle_stats()``. Then a ``kill_replica`` plan: every request
+   fails with ``ReplicaKilled``, the engine stops, leak-free. (b) int8
+   pool + prefix cache: 8 online requests (16-1024 tokens, 64 new)
+   alone, then on a cold cache 24 rollouts (``submit_rollout_batch``,
+   512-token prompts, 128 new) and the same 8 once 16 rollouts stream.
+   Checks: batch preemptions, every request complete, no rollout
+   admitted between the burst and an online request's admission, 2
+   preempted rollouts teacher-forced within 0.1 (bf16 over an int8
+   pool, and fp32), K2 22 x the decode steps, K1 never, quiesced.
+   Prints online TTFT p50 with the backlog and idle, batch tok/s,
+   ``batch_tokens``, batch preemptions. (c) A ``hang`` at the decode
+   dispatch of (b)'s engine with 4 streams reading: ``load_report``
+   within 50 ms with a growing ``heartbeat_age_s``, a submit shed
+   (``admit_timeout_s`` 0.2) in < 0.5 s, ``force_kill`` unblocking
+   every reader with ``EngineShutdown`` in < 1 s, the released zombie
+   committing no token and leaving the prefix cache as it was, and a
+   second ``shutdown()`` leak-free; prints those times.
 5. The flash-attention kernels against their plain versions on the
    card, each on the same inputs as its plain version: K3 (forward),
    K4 (dQ) and K5 (dK, dV) in fp32 (the scalar kernels) at T
@@ -248,9 +286,10 @@ kernels at a higher host cost for the rest of its life.
    limit.
 8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; K1's
    ``launches`` are phase 4's, ``launches_default_loop`` phase 4d's
-   three arms, ``launches_kv_pull`` phase 4e's fp requester; K2's
-   ``launches`` phase 4b's, ``launches_kv_pull`` phase 4e's int8
-   requester; the flash rows
+   three arms, ``launches_kv_pull`` phase 4e's fp requester,
+   ``launches_faults`` phase 4f (a)'s two waves; K2's ``launches``
+   phase 4b's, ``launches_kv_pull`` phase 4e's int8 requester,
+   ``launches_lanes`` phase 4f (b)'s backlog wave; the flash rows
    at the GPT-2 shape with phase 7's launches, and under
    ``"llama_1_1b"`` at the TinyLlama shape with phase 7b's), then the
    ``{"ok": true, ...}`` line.
@@ -794,6 +833,157 @@ def phase_generate_parity(tl, seed: int) -> None:
     print("phase 3: generate (static KV cache) on the card == on the CPU, "
           "and generate_stream (chunk 8) == generate, on the same 4 "
           "prompts, 16 greedy tokens each")
+
+
+def _outcome(h) -> tuple:
+    """A handle's end: ("ok", tokens) or ("err", type name, message)."""
+    try:
+        return ("ok", h.result())
+    except Exception as e:  # noqa: BLE001 - the record names the type
+        return ("err", type(e).__name__, str(e))
+
+
+def _fault_case(model, device, name, prompts, n) -> dict:
+    """One of phase 3's fault cases on ``model`` (on ``device``): the
+    named ``FaultInjector`` plan, the requests, ``step()`` driven to
+    quiescence. Returns every handle's outcome, ``lifecycle_stats()``
+    and the lane counters, after ``check_quiesced``."""
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.faults import FaultInjector, check_quiesced
+    from ray_tpu_torch.serve.prefix_cache import path_hashes
+    inj = FaultInjector()
+    kw = dict(max_slots=4, page_size=16, n_pages=64, chunk=4,
+              retry_backoff_s=0.005)
+    if name == "dispatch_prefill":
+        inj.inject("dispatch_prefill", sid=1, round=1,
+                   exc=ValueError("prefill fault"))
+    elif name == "dispatch_decode":
+        inj.inject("dispatch_decode", sid=2, round=2,
+                   exc=RuntimeError("decode fault"))
+    elif name == "dispatch_spec":
+        inj.inject("dispatch_spec", sid=1, round=4)
+        kw.update(spec_len=4, spec_ngram=1, overlap=False)
+    elif name == "readback":
+        inj.inject("readback", sid=3, exc=OSError("readback fault"))
+    elif name == "exhaust_alloc":
+        inj.exhaust_alloc(round=2, times=2)
+    elif name == "max_retries":
+        inj.inject("dispatch_decode", sid=1, round=2)
+        kw.update(max_retries=0)
+    elif name == "lone_slot":
+        kw.update(max_slots=2, n_pages=9, prefix_cache=True)
+    elif name.startswith("lanes"):
+        kw.update(kv_dtype=name.split("_")[1], prefix_cache=True)
+    eng = LLMEngine(model, device=device, fault_injector=inj, **kw)
+    pinned = []
+    if name == "lone_slot":
+        # a donor pin on a cached 4-page prefix leaves 4 of 8 pages; a
+        # 112-token request cannot grow past them and has no victim
+        prefix = prompts[3][:32] * 2
+        eng.submit(prefix, max_new_tokens=1)
+        while eng.step():
+            pass
+        pinned = eng.kv_pin_prefix(path_hashes(prefix, 16))
+        hs = [eng.submit(prompts[4], max_new_tokens=80),
+              eng.submit(prompts[1][:3], max_new_tokens=2)]
+    elif name.startswith("lanes"):
+        # rollouts fill every slot, then an online burst preempts them
+        hs = eng.submit_rollout_batch(prompts[:4], max_new_tokens=3 * n)
+        eng.step()       # prefilled, and decoding
+        hs += [eng.submit(p, max_new_tokens=n) for p in prompts[3:]]
+    else:
+        hs = [eng.submit(p, max_new_tokens=n) for p in prompts]
+    while eng.step():
+        pass
+    if name in ("lone_slot", "max_retries"):
+        hs.append(eng.submit(prompts[2], max_new_tokens=n))  # still serves
+        while eng.step():
+            pass
+    if pinned:
+        eng.kv_release_pages(pinned)
+    if inj.plans and not inj.log:
+        raise AssertionError(f"{device} {name}: the plan never fired")
+    check_quiesced(eng)
+    return {"out": [_outcome(h) for h in hs],
+            "lifecycle": eng.lifecycle_stats(),
+            "lanes": {k: eng.stats[k] for k in (
+                "preemptions", "batch_preemptions", "batch_tokens")},
+            "stopped": eng.load_report()["stopped"]}
+
+
+def phase_engine_faults(tl, seed: int, card_device: str = "cuda") -> dict:
+    """Phase 3's reduced fp32 model through the same ``FaultInjector``
+    plans on the card and on the CPU: a fault at each dispatch site
+    (prefill, decode, spec with spec_len 4), a readback fault, 2 rounds
+    of allocator exhaustion, a plan that exhausts ``max_retries``, the
+    lone slot a donor pin starves, and batch rollouts preempted by an
+    online burst on the fp and the int8 pool (with the prefix cache).
+    The same streams (int8: or a parting at a near-tie), failed requests,
+    error types and ``lifecycle_stats()`` on both; both quiesced.
+    (``card_device="cpu"`` rehearses the phase without a card.)"""
+    cfg = tl.LlamaConfig(vocab_size=32000, max_seq_len=256, dim=512,
+                         n_layers=2, n_heads=8, n_kv_heads=2,
+                         hidden_dim=1024, dtype=torch.float32)
+    sd = tl.init_params(cfg, seed=seed, device="cpu")
+    g = np.random.default_rng(seed)
+    prompts = [g.integers(0, cfg.vocab_size, n).tolist()
+               for n in (1, 16, 17, 45)]
+    prompts.append(g.integers(0, cfg.vocab_size, 8).tolist() * 4)
+    models = {d: tl.build_model(cfg, sd, d) for d in ("cpu", card_device)}
+    # per case: the requests that fail and their error types, and the
+    # faults contained
+    want = {
+        "dispatch_prefill": ({1: "ValueError"}, 1),
+        "dispatch_decode": ({2: "RuntimeError"}, 1),
+        "dispatch_spec": ({1: "RuntimeError"}, 1),
+        "readback": ({3: "OSError"}, 1),
+        "exhaust_alloc": ({}, 0),
+        "max_retries": ({0: "RequestError", 1: "RuntimeError",
+                         2: "RequestError", 3: "RequestError"}, 1),
+        "lone_slot": ({0: "RequestError"}, 1),
+        "lanes_fp": ({}, 0), "lanes_int8": ({}, 0)}
+    res = {}
+    for name, (want_failed, want_contained) in want.items():
+        cpu = _fault_case(models["cpu"], "cpu", name, prompts, 16)
+        card = _fault_case(models[card_device], card_device, name,
+                           prompts, 16)
+        failed = {i: o[1] for i, o in enumerate(card["out"])
+                  if o[0] == "err"}
+        gaps = []
+        if name == "lanes_int8":
+            # int8 bytes differ across devices by one step here and
+            # there: a stream may part at a near-tie (as above)
+            gaps = _int8_parting_gaps(
+                models["cpu"], prompts[:4] + prompts[3:],
+                [o[1] for o in cpu["out"]], [o[1] for o in card["out"]])
+            same = (all(o[0] == "ok" for o in cpu["out"] + card["out"])
+                    and all(x <= INT8_LOGIT_SLACK for x in gaps)
+                    and {k: v for k, v in cpu.items() if k != "out"}
+                    == {k: v for k, v in card.items() if k != "out"})
+        else:
+            same = cpu == card
+        if not same:
+            raise AssertionError(f"phase 3 {name}: card and CPU differ:\n"
+                                 f"{card}\n{cpu}")
+        lanes = card["lanes"]
+        if (failed != want_failed or card["stopped"]
+                or card["lifecycle"]["contained_faults"] != want_contained
+                or (name.startswith("lanes")
+                    and not lanes["preemptions"]
+                    == lanes["batch_preemptions"] >= 1)):
+            raise AssertionError(f"phase 3 {name}: failed {failed}, "
+                                 f"{card['lifecycle']}, {lanes}")
+        res[name] = {"failed": failed, "lifecycle": card["lifecycle"],
+                     "lanes": card["lanes"], "int8_parting_gaps": gaps}
+    print(f"phase 3: fault plans card == CPU (fp32, phase 3's model): "
+          f"{', '.join(f'{k} failed {v['failed']}' for k, v in res.items())}"
+          f"; every survivor's stream, error type and lifecycle_stats() "
+          f"equal, both engines quiesced; lanes: batch preemptions "
+          f"{res['lanes_fp']['lanes']['batch_preemptions']} (fp) / "
+          f"{res['lanes_int8']['lanes']['batch_preemptions']} (int8, "
+          f"{len(res['lanes_int8']['int8_parting_gaps'])} streams parted "
+          f"at near-ties)")
+    return res
 
 
 def _teacher_forced_logits(model, prompt, completion,
@@ -2097,6 +2287,474 @@ def _swap_bf16(tl, make, req, model, cfg, g) -> dict:
     return res
 
 
+def _gaps(model, prompt, completion, kv_dtype: str, device: str) -> list:
+    """``_teacher_forced_gaps`` on ``device``."""
+    rows = _teacher_forced_logits(model, prompt, completion, kv_dtype,
+                                  device)
+    tok = torch.tensor(completion, device=device)
+    return (rows.max(dim=-1).values
+            - rows[torch.arange(len(completion)), tok]).tolist()
+
+
+def _fp32_copy(tl, model, device):
+    """The same (bf16) weights evaluated in fp32."""
+    return tl.build_model(
+        dataclasses.replace(model.cfg, dtype=torch.float32),
+        {k: v.float() for k, v in model.state_dict().items()}, device)
+
+
+def _timed_rounds(eng, before=None) -> list:
+    """Record ``(round, t_start, t_end, seated rids)`` after every
+    ``step()`` of ``eng``'s scheduler thread, and call ``before()`` on
+    that thread ahead of each (a client acting at a round boundary: a
+    thread of its own would race the scheduler for the engine lock,
+    which Python does not hand over in order). ``del eng.step``
+    restores it."""
+    rounds = []
+    step = eng.step
+
+    def timed():
+        if before is not None:
+            before()
+        t0 = time.monotonic()
+        busy = step()
+        rounds.append((eng._round, t0, time.monotonic(),
+                       {s.req.rid for s in eng.slots if s is not None}))
+        return busy
+
+    eng.step = timed
+    return rounds
+
+
+def _wait_done(hs, timeout_s: float) -> None:
+    """Wait until every handle is done."""
+    deadline = time.monotonic() + timeout_s
+    while not all(h.done for h in hs):
+        if time.monotonic() > deadline:
+            raise AssertionError("a request did not finish in time")
+        time.sleep(0.005)
+
+
+def _containment_wave(tl, pa, model, prompts, device: str) -> dict:
+    """Phase 4f (a): the 16 prompts twice through one engine on the fp
+    pool under the default overlapped loop, unfaulted and then under
+    faults on three slots, allocator exhaustion, a deadline blown by a
+    slow step and a cancel; then a replica kill."""
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.errors import EngineShutdown
+    from ray_tpu_torch.serve.faults import FaultInjector, check_quiesced
+    n_new = 64
+    inj = FaultInjector()
+    eng = LLMEngine(model, max_slots=16, page_size=64, n_pages=513, chunk=8,
+                    fault_injector=inj, device=device).start()
+    eng.submit(prompts[0][:100], n_new).result()        # warm-up
+    eng.reset_latency_stats()
+    # slot k serves order[k]: the deadline (slot 0) and the cancel (slot
+    # 1) take the two shortest prompts, prefilled before the others
+    by_len = sorted(range(len(prompts)), key=lambda i: len(prompts[i]))
+    order = by_len[:2] + [i for i in range(len(prompts))
+                          if i not in by_len[:2]]
+    state = {"hs": [], "slow": None, "cancel": True}
+
+    def before():
+        # once slot 0 streams, the next round sleeps past its 1 s
+        # deadline; once slot 1 streams, its client cancels
+        hs = state["hs"]
+        if state["slow"] is not None and hs[0]._req.generated:
+            state["slow"].round = 0
+            state["slow"] = None
+        if not state["cancel"] and hs[1]._req.generated:
+            hs[1].cancel()
+            state["cancel"] = True
+
+    rounds = _timed_rounds(eng, before)
+    waves = {}
+    for faulted in (False, True):
+        r0 = eng._round
+        if faulted:
+            inj.inject("dispatch_prefill", sid=8,
+                       exc=ValueError("prefill fault"))
+            inj.inject("dispatch_decode", sid=5,
+                       exc=RuntimeError("decode fault"))
+            inj.inject("readback", sid=11, exc=OSError("readback fault"))
+            inj.exhaust_alloc(round=r0 + 3, times=2)
+            # dormant until ``before`` wakes it
+            slow = inj.slow("step", 1.2, round=1 << 40)
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_attention.launches_int8 = 0
+        steps0 = eng.stats["decode_steps"]
+        t0 = time.monotonic()
+        hs = []
+        state.update(hs=hs, slow=slow if faulted else None,
+                     cancel=not faulted)
+        for k, i in enumerate(order):
+            hs.append(eng.submit(prompts[i], n_new, deadline_s=(
+                1.0 if faulted and k == 0 else None)))
+        _wait_done(hs, 600)
+        wall = time.monotonic() - t0
+        if not eng.wait_idle(60):
+            raise AssertionError("phase 4f (a): the engine did not settle")
+        launches = (pa.paged_decode_attention.launches,
+                    pa.paged_decode_attention.launches_int8)
+        steps = eng.stats["decode_steps"] - steps0
+        check_quiesced(eng)
+        waves[faulted] = {
+            "hs": hs, "wall": wall, "launches": launches, "steps": steps,
+            "rounds": [r for r in rounds if r[0] > r0],
+            "tokens": sum(len(h._req.generated) for h in hs)}
+    del eng.step
+    life = eng.lifecycle_stats()
+    clean, bad = waves[False], waves[True]
+    outs = [_outcome(h) for h in bad["hs"]]
+    failed = {k: o[1] for k, o in enumerate(outs) if o[0] == "err"}
+    survivors = [k for k, o in enumerate(outs) if o[0] == "ok"]
+    want_types = {"DeadlineExceeded", "RequestCancelled", "RuntimeError",
+                  "ValueError", "OSError"}
+    n_layers = model.cfg.n_layers
+    checks = {
+        "unfaulted wave complete": all(
+            len(_outcome(h)[1]) == n_new for h in clean["hs"]),
+        "5 requests failed, one of each type":
+            sorted(failed.values()) == sorted(want_types),
+        "the deadline blew mid-decode": failed.get(0) == "DeadlineExceeded"
+            and 0 < len(bad["hs"][0]._req.generated) < n_new,
+        "the cancel landed mid-decode": failed.get(1) == "RequestCancelled"
+            and 0 < len(bad["hs"][1]._req.generated) < n_new,
+        "11 survivors with 64 tokens": len(survivors) == 11 and all(
+            len(outs[k][1]) == n_new for k in survivors),
+        "retries >= 1": life["retries"] >= 1,
+        "3 faults contained": life["contained_faults"] == 3,
+        "the allocator ran dry twice": sum(
+            1 for e in inj.log if e[0] == "alloc") == 2,
+    }
+    if device == "cuda":
+        checks["K1 22 x decode steps, K2 never"] = all(
+            w["steps"] > 0 and w["launches"] == (n_layers * w["steps"], 0)
+            for w in waves.values())
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4f (a): {checks}; failed {failed}, "
+                             f"{life}")
+    # teacher-forced: 2 survivors that requeued (recomputed), in bf16
+    # and with the bf16 weights in fp32
+    requeued = sorted((k for k in survivors
+                       if bad["hs"][k]._req.attempts),
+                      key=lambda k: -bad["hs"][k]._req.attempts)[:2]
+    if len(requeued) < 2:
+        raise AssertionError(f"phase 4f (a): {len(requeued)} requeued "
+                             f"survivors, want 2")
+    checked = [(prompts[order[k]], outs[k][1]) for k in requeued]
+    gaps_bf16 = [x for p, o in checked
+                 for x in _gaps(model, p, o, "fp", device)]
+    ref32 = _fp32_copy(tl, model, device)
+    gaps32 = [x for p, o in checked
+              for x in _gaps(ref32, p, o, "fp", device)]
+    del ref32
+    if max(gaps_bf16 + gaps32) > LOGIT_SLACK:
+        raise AssertionError(f"phase 4f (a): a requeued token sits "
+                             f"{max(gaps_bf16)} (bf16) / {max(gaps32)} "
+                             f"(fp32) below the top logit")
+    # where each survivor first parts from its unfaulted twin (a
+    # recompute runs the gather path: a bf16 near-tie may part them)
+    parts = {}
+    for k in survivors:
+        a, b = outs[k][1], clean["hs"][k].result()
+        parts[order[k]] = next((j for j, (x, y) in enumerate(zip(a, b))
+                                if x != y), None)
+    # each faulted round's wall against the median round of the wave
+    walls = {r: t1 - t0 for r, t0, t1, _seated in bad["rounds"]}
+    median = float(np.median(list(walls.values())))
+    fault_rounds = {}
+    for site, rnd, sid, kind in inj.log:
+        fault_rounds.setdefault(rnd, []).append(f"{site}:{kind}")
+
+    def ttft_p50(w, ks):
+        return float(np.median([w["hs"][k].ttft_s for k in ks]))
+
+    res = {
+        "failed": {int(order[k]): t for k, t in failed.items()},
+        "lifecycle": life, "tok_s_faulted": bad["tokens"] / bad["wall"],
+        "tok_s_unfaulted": clean["tokens"] / clean["wall"],
+        "survivor_ttft_p50_s_faulted": ttft_p50(bad, survivors),
+        "survivor_ttft_p50_s_unfaulted": ttft_p50(clean, survivors),
+        "median_round_s": median,
+        "fault_rounds": {int(r): {"kinds": v, "wall_s": walls.get(r)}
+                         for r, v in fault_rounds.items()},
+        "rounds_faulted": len(walls),
+        "k1_launches": bad["launches"][0] + clean["launches"][0],
+        "decode_steps": bad["steps"] + clean["steps"],
+        "requeued_checked": [int(order[k]) for k in requeued],
+        "teacher_forced_max_gap_bf16": max(gaps_bf16),
+        "teacher_forced_max_gap_fp32": max(gaps32),
+        "survivor_parts_from_unfaulted_at": parts}
+    # a replica kill: every request fails with ReplicaKilled and the
+    # engine stops, leak-free
+    inj.kill_replica(round=eng._round + 2)
+    hs = [eng.submit(prompts[i], n_new) for i in order[2:6]]
+    _wait_done(hs, 120)
+    eng._thread.join(timeout=30)
+    killed = [_outcome(h)[1] for h in hs]
+    if (killed != ["ReplicaKilled"] * 4 or not eng.load_report()["stopped"]
+            or eng.stats["failed_all"] != 1):
+        raise AssertionError(f"phase 4f (a): replica kill: {killed}")
+    check_quiesced(eng)
+    try:
+        eng.submit(prompts[0], 4)
+        raise AssertionError("a killed engine admitted a request")
+    except EngineShutdown:
+        pass
+    res["kill_replica"] = killed
+    return res
+
+
+def _lanes_wave(tl, pa, model, rollouts, online, device: str) -> tuple:
+    """Phase 4f (b): 24 rollouts through ``submit_rollout_batch`` on the
+    int8 pool with the prefix cache, an online burst of 8 once they
+    decode; the same 8 first alone on the idle engine. Returns the
+    results and the engine (for (c))."""
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.faults import FaultInjector, check_quiesced
+    inj = FaultInjector()
+    eng = LLMEngine(model, max_slots=16, page_size=64, n_pages=513, chunk=8,
+                    kv_dtype="int8", prefix_cache=True, fault_injector=inj,
+                    device=device).start()
+    eng.submit(online[0][:100], 64).result()             # warm-up
+    # the 8 online requests alone on the idle engine, then a cold cache
+    hs = [eng.submit(p, 64) for p in online]
+    _wait_done(hs, 300)
+    idle_ttft = float(np.median([h.ttft_s for h in hs]))
+    eng.wait_idle(60)
+    with eng._lock:
+        eng.prefix_cache.clear()
+    eng.reset_latency_stats()
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
+    steps0 = eng.stats["decode_steps"]
+    pre0 = eng.stats["batch_preemptions"]
+    tok0 = eng.stats["batch_tokens"]
+    rb, ho = [], []
+    burst = {}
+
+    def before():
+        # the online burst, at the round boundary after the 16th rollout
+        # streams: every slot busy, batch still waiting
+        if not ho and sum(1 for h in rb if h._req.generated) >= 16:
+            burst["t"] = time.monotonic()
+            ho.extend(eng.submit(p, 64) for p in online)
+
+    rounds = _timed_rounds(eng, before)
+    t0 = time.monotonic()
+    rb.extend(eng.submit_rollout_batch(rollouts, max_new_tokens=128,
+                                       trace_id="4f"))
+    _wait_done(rb, 600)
+    _wait_done(ho, 600)
+    t_online = burst["t"]
+    wall = time.monotonic() - t0
+    eng.wait_idle(60)
+    del eng.step
+    launches = (pa.paged_decode_attention.launches,
+                pa.paged_decode_attention.launches_int8)
+    steps = eng.stats["decode_steps"] - steps0
+    check_quiesced(eng)
+    # no online request waited behind a batch admission: no rollout was
+    # seated in a round that started after the burst and before that
+    # online request's own admission
+    online_rids = {h._req.rid for h in ho}
+    seated, admitted = set(), []
+    for _r, ts, _te, now in rounds:
+        admitted.append((ts, now - seated))
+        seated = now
+    behind = 0
+    for h in ho:
+        first = next(i for i, (_ts, new) in enumerate(admitted)
+                     if h._req.rid in new)
+        behind += sum(1 for ts, new in admitted[:first]
+                      if ts > t_online and new - online_rids)
+    outs = [_outcome(h) for h in rb + ho]
+    preempted = [i for i, h in enumerate(rb) if h._req.preemptions]
+    checks = {
+        "batch_preempted >= 1":
+            eng.stats["batch_preemptions"] - pre0 >= 1,
+        "every request complete": all(
+            o[0] == "ok" and len(o[1]) == (128 if i < len(rb) else 64)
+            for i, o in enumerate(outs)),
+        "no online request behind a batch admission": behind == 0,
+        "2 preempted rollouts": len(preempted) >= 2,
+    }
+    if device == "cuda":
+        checks["K2 22 x decode steps, K1 never"] = (
+            steps > 0 and launches == (0, model.cfg.n_layers * steps))
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4f (b): {checks}")
+    checked = [(rollouts[i], outs[i][1]) for i in preempted[:2]]
+    gaps_int8 = [x for p, o in checked
+                 for x in _gaps(model, p, o, "int8", device)]
+    ref32 = _fp32_copy(tl, model, device)
+    gaps32 = [x for p, o in checked
+              for x in _gaps(ref32, p, o, "fp", device)]
+    del ref32
+    if max(gaps_int8 + gaps32) > INT8_LOGIT_SLACK:
+        raise AssertionError(f"phase 4f (b): a preempted rollout's token "
+                             f"sits {max(gaps_int8)} (bf16, int8 pool) / "
+                             f"{max(gaps32)} (fp32) below the top logit")
+    batch_tokens = eng.stats["batch_tokens"] - tok0
+    res = {
+        "online_ttft_p50_s_backlog": float(np.median(
+            [h.ttft_s for h in ho])),
+        "online_ttft_p50_s_idle": idle_ttft,
+        "batch_tok_s": batch_tokens / wall, "batch_tokens": batch_tokens,
+        "batch_preempted": eng.stats["batch_preemptions"] - pre0,
+        "k2_launches": launches[1], "decode_steps": steps,
+        "teacher_forced_max_gap_int8": max(gaps_int8),
+        "teacher_forced_max_gap_fp32": max(gaps32),
+        "wall_s": wall}
+    return res, eng, inj
+
+
+def _wedge(eng, inj, prompts) -> dict:
+    """Phase 4f (c): a decode dispatch wedged (a hang plan) on a live
+    engine holding a prefix cache: the report, a shed, force_kill, the
+    released zombie, and a second shutdown()."""
+    from ray_tpu_torch.serve.errors import EngineOverloaded, EngineShutdown
+    from ray_tpu_torch.serve.faults import check_quiesced
+    cached = eng.prefix_cache.cached_pages
+    eng.admit_timeout_s = 0.2
+    inj.hang("dispatch_decode")
+    hs = [eng.submit(p, 64) for p in prompts]
+    errs = [None] * len(hs)
+
+    def read(i):
+        try:
+            for _ in hs[i].stream():
+                pass
+        except EngineShutdown as e:
+            errs[i] = e
+
+    readers = [threading.Thread(target=read, args=(i,))
+               for i in range(len(hs))]
+    for t in readers:
+        t.start()
+    deadline = time.monotonic() + 120
+    while not any(e[0] == "dispatch_decode" for e in inj.log):
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 4f (c): the hang never engaged")
+        time.sleep(0.001)
+    time.sleep(0.05)
+    t0 = time.monotonic()
+    r1 = eng.load_report()
+    report_s = time.monotonic() - t0
+    time.sleep(0.1)
+    r2 = eng.load_report()
+    t0 = time.monotonic()
+    try:
+        eng.submit(prompts[0], 8)
+        shed = None
+    except EngineOverloaded as e:
+        shed = e
+    shed_s = time.monotonic() - t0
+    t0 = time.monotonic()
+    eng.force_kill()
+    for t in readers:
+        t.join(timeout=5)
+    unblock_s = time.monotonic() - t0
+    eng.shutdown()         # the thread is still wedged: cleanup deferred
+    emitted = [len(h._req.generated) for h in hs]
+    inj.release_all()
+    eng._thread.join(timeout=30)
+    zombie_alive = eng._thread.is_alive()
+    committed = [len(h._req.generated) for h in hs]
+    cached_after = eng.prefix_cache.cached_pages
+    eng.shutdown()         # the second: the deferred cleanup
+    check_quiesced(eng, expect_cached_pages=cached)
+    checks = {
+        "load_report within 50 ms": report_s < 0.05,
+        "heartbeat_age_s growing": r2["heartbeat_age_s"]
+            > r1["heartbeat_age_s"] > 0,
+        "submit shed EngineOverloaded in < 0.5 s": shed is not None
+            and shed_s < 0.5,
+        "force_kill unblocked every reader in < 1 s": unblock_s < 1.0
+            and all(isinstance(e, EngineShutdown) for e in errs)
+            and not any(t.is_alive() for t in readers),
+        "the zombie exited and committed no token": not zombie_alive
+            and committed == emitted,
+        "the prefix cache as it was": cached_after == cached,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4f (c): {checks}")
+    return {"load_report_ms": report_s * 1e3,
+            "heartbeat_age_s": [r1["heartbeat_age_s"],
+                                r2["heartbeat_age_s"]],
+            "shed_ms": shed_s * 1e3, "unblock_ms": unblock_s * 1e3,
+            "readers": len(hs), "cached_pages": cached}
+
+
+def phase_faults_lanes_path(tl, pa, seed: int, smi: str, cfg=None,
+                            device: str = "cuda") -> dict:
+    """Phase 4f: the engine's fault containment, priority lanes and
+    wedge handling at full width (TinyLlama-1.1B bf16 unless ``cfg``;
+    ``device="cpu"`` with a small ``cfg`` rehearses it without a card)."""
+    cfg = cfg or tl.tinyllama_1_1b()
+    params = tl.init_params(cfg, seed=seed, device=device)
+    model = tl.build_model(cfg, params, device)
+    del params
+    # phase 4's 16 prompts (the same draws after its warm-up prompt)
+    g = np.random.default_rng(seed)
+    g.integers(0, cfg.vocab_size, 100)
+    prompts = [g.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in g.integers(16, 1537, size=16)]
+    g = np.random.default_rng(seed + 7)
+    rollouts = [g.integers(0, cfg.vocab_size, 512).tolist()
+                for _ in range(24)]
+    online = [g.integers(0, cfg.vocab_size, int(n)).tolist()
+              for n in g.integers(16, 1025, size=8)]
+    res = {"card": smi}
+    res["containment"] = _containment_wave(tl, pa, model, prompts, device)
+    a = res["containment"]
+    print(f"phase 4f (a): TinyLlama-1.1B bf16, fp pool, 16 requests x 64 "
+          f"on {smi}: failed {a['failed']} (prompt index: type), "
+          f"lifecycle_stats {a['lifecycle']}; tok/s faulted "
+          f"{a['tok_s_faulted']:.1f} / unfaulted {a['tok_s_unfaulted']:.1f};"
+          f" survivor TTFT p50 faulted "
+          f"{a['survivor_ttft_p50_s_faulted'] * 1e3:.1f} ms / unfaulted "
+          f"{a['survivor_ttft_p50_s_unfaulted'] * 1e3:.1f} ms; median round "
+          f"{a['median_round_s'] * 1e3:.2f} ms, faulted rounds "
+          + ", ".join(f"{r}: {v['kinds']} "
+                      + (f"{v['wall_s'] * 1e3:.2f} ms"
+                         if v["wall_s"] is not None else "")
+                      for r, v in sorted(a["fault_rounds"].items()))
+          + f"; K1 {a['k1_launches']} = {cfg.n_layers} x "
+          f"{a['decode_steps']} decode steps; requeued {a['requeued_checked']}"
+          f" teacher-forced max gap {a['teacher_forced_max_gap_bf16']:.4f}"
+          f" (bf16) / {a['teacher_forced_max_gap_fp32']:.4f} (fp32); "
+          f"survivors part from the unfaulted run at "
+          f"{a['survivor_parts_from_unfaulted_at']}; replica kill: "
+          f"{len(a['kill_replica'])} x ReplicaKilled, engine stopped")
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    lanes, eng, inj = _lanes_wave(tl, pa, model, rollouts, online, device)
+    res["lanes"] = lanes
+    print(f"phase 4f (b): int8 pool + prefix cache, 24 rollouts x 128 "
+          f"(512-token prompts) then 8 online x 64 on {smi}: online TTFT "
+          f"p50 {lanes['online_ttft_p50_s_backlog'] * 1e3:.1f} ms with the "
+          f"batch backlog / {lanes['online_ttft_p50_s_idle'] * 1e3:.1f} ms "
+          f"idle; batch {lanes['batch_tok_s']:.1f} tok/s, batch_tokens "
+          f"{lanes['batch_tokens']}, batch_preempted "
+          f"{lanes['batch_preempted']}; K2 {lanes['k2_launches']} = "
+          f"{cfg.n_layers} x {lanes['decode_steps']} decode steps; "
+          f"preempted rollouts teacher-forced max gap "
+          f"{lanes['teacher_forced_max_gap_int8']:.4f} (bf16, int8 pool) / "
+          f"{lanes['teacher_forced_max_gap_fp32']:.4f} (fp32)")
+    res["wedge"] = _wedge(eng, inj, online[:4])
+    w = res["wedge"]
+    print(f"phase 4f (c): hang at dispatch_decode on {smi}: load_report "
+          f"{w['load_report_ms']:.2f} ms, heartbeat_age_s "
+          f"{w['heartbeat_age_s'][0]:.3f} -> {w['heartbeat_age_s'][1]:.3f};"
+          f" submit shed in {w['shed_ms']:.1f} ms; force_kill unblocked "
+          f"{w['readers']} readers in {w['unblock_ms']:.2f} ms; the "
+          f"released zombie committed nothing, {w['cached_pages']} cached "
+          f"pages as before; second shutdown leak-free")
+    return res
+
+
 def _flash_inputs(seed, B, T, H, D, dtype, pad_to=None, Tk=None):
     g = np.random.default_rng(seed)
     out = []
@@ -2733,6 +3391,7 @@ def main(argv=None) -> int:
     # cost for the rest of its life.
     phase_engine_parity(tl, args.seed)
     engine_modes = phase_engine_modes(tl, args.seed)
+    engine_faults = phase_engine_faults(tl, args.seed)
     phase_generate_parity(tl, args.seed)
     print(f"phase 3 done at {time.monotonic() - t0:.1f} s")
     main_path, steps_fp = phase_main_path(tl, pa, args.seed, smi)
@@ -2750,6 +3409,9 @@ def main(argv=None) -> int:
     kv_pull = phase_kv_pull_swap(tl, pa, args.seed, smi)
     print(f"phase 4e done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
+    faults_lanes = phase_faults_lanes_path(tl, pa, args.seed, smi)
+    print(f"phase 4f done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
     k1["launches"] = main_path["k1_launches"]
@@ -2758,6 +3420,8 @@ def main(argv=None) -> int:
     k2["launches"] = int8_path["k2_launches"]
     k1["launches_kv_pull"] = kv_pull["fp"]["k1_launches"]
     k2["launches_kv_pull"] = kv_pull["int8"]["k2_launches"]
+    k1["launches_faults"] = faults_lanes["containment"]["k1_launches"]
+    k2["launches_lanes"] = faults_lanes["lanes"]["k2_launches"]
     # which split pass the served pools' decode steps run: the
     # tensor-core pass over bf16 pages on the fp pool (K1) and over int8
     # pages on the int8 pool (K2), in every layer
@@ -2803,6 +3467,8 @@ def main(argv=None) -> int:
                        "engine_modes": engine_modes,
                        "default_loop_path": default_loop,
                        "kv_pull_swap": kv_pull,
+                       "engine_faults": engine_faults,
+                       "faults_lanes_path": faults_lanes,
                        "train_main_path": train,
                        "llama_train_main_path": llama_train,
                        "total_s": time.monotonic() - t0}, f, indent=1)

@@ -758,6 +758,72 @@ def test_fp32_swap_on_card_is_token_identical(dev):
     assert eng.alloc.occupancy() == eng.prefix_cache.cached_pages
 
 
+def _outcome(h):
+    try:
+        return ("ok", h.result())
+    except Exception as e:  # noqa: BLE001 - the record names the type
+        return ("err", type(e).__name__, str(e))
+
+
+def test_decode_dispatch_fault_on_card_matches_cpu(dev):
+    """A decode-dispatch fault on one rider, on the card and on the
+    CPU: the culprit fails typed, its co-rider requeues once and its
+    stream, the counters and the quiesced pool are the same on both."""
+    from ray_tpu_torch.serve.faults import FaultInjector, check_quiesced
+    rec = []
+    for d in ("cpu", dev):
+        inj = FaultInjector()
+        inj.inject("dispatch_decode", sid=1, round=3)
+        eng = _engine_case(d)(chunk=2, fault_injector=inj,
+                              retry_backoff_s=0.005)
+        hs = [eng.submit(p, max_new_tokens=16) for p in _WAVE[:2]]
+        while eng.step():
+            pass
+        check_quiesced(eng)
+        rec.append(([_outcome(h) for h in hs], eng.lifecycle_stats()))
+    assert rec[0] == rec[1]
+    outs, life = rec[1]
+    assert outs[1] == ("err", "RuntimeError",
+                       "injected fault at dispatch_decode")
+    assert outs[0][0] == "ok" and len(outs[0][1]) == 16
+    assert (life["contained_faults"], life["retries"],
+            life["fault_failed"]) == (1, 1, 1)
+
+
+def test_lone_slot_exhaustion_on_card_matches_cpu(dev):
+    """A donor pin leaves a lone slot unable to grow: on the card as on
+    the CPU only that request fails (the reference's error), the other
+    is served, the engine keeps serving, and the pool quiesces once the
+    pin drops."""
+    from ray_tpu_torch.serve.faults import check_quiesced
+    from ray_tpu_torch.serve.prefix_cache import path_hashes
+    rec = []
+    for d in ("cpu", dev):
+        eng = _engine_case(d)(max_slots=2, n_pages=9, prefix_cache=True)
+        prefix = list(range(1, 33))
+        eng.submit(prefix, max_new_tokens=1)
+        while eng.step():
+            pass
+        pinned = eng.kv_pin_prefix(path_hashes(prefix, 8))
+        hs = [eng.submit(list(range(40, 56)), max_new_tokens=40),
+              eng.submit([5, 9, 2], max_new_tokens=2)]
+        while eng.step():
+            pass
+        after = eng.submit([4, 4, 8], max_new_tokens=6)
+        while eng.step():
+            pass
+        eng.kv_release_pages(pinned)
+        check_quiesced(eng)
+        rec.append(([_outcome(h) for h in hs + [after]],
+                    eng.lifecycle_stats(), eng.load_report()["stopped"]))
+    assert rec[0] == rec[1]
+    outs, life, stopped = rec[1]
+    assert outs[0] == ("err", "RequestError",
+                       "request 1: page pool exhausted by one slot")
+    assert outs[1][0] == outs[2][0] == "ok" and not stopped
+    assert (life["contained_faults"], life["fault_failed"]) == (1, 1)
+
+
 # --------------------------------------------------------------------
 # Flash attention: K3, K4, K5
 # --------------------------------------------------------------------
