@@ -1425,6 +1425,11 @@ class LLMEngine:
             except BaseException as e:   # global: fail every request
                 self._fail_all(e)
                 return
+            # let a client waiting for the lock (cancel, submit, a swap,
+            # a donor's pin) take it: a released lock goes to whichever
+            # thread asks first, and without this yield the loop asks
+            # again at once, round after round
+            time.sleep(0)
 
     def _fail_all(self, e: BaseException):
         """Global failure (device error, scheduler bug): every queued

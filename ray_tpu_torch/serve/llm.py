@@ -211,23 +211,24 @@ class LlamaDeployment:
         return ids, self.engine().submit(ids, **kw)
 
     def __call__(self, prompt_ids) -> List[int]:
-        """One request (a token-id list or a dict payload): prompt +
-        generated ids out."""
+        """One request: token ids (or, through the engine, a dict
+        payload) in, prompt + generated ids out."""
         if not self.use_engine:
-            ids, mnt = self._request_args(prompt_ids)[:2]
-            out = generate(self.model, [ids], mnt, self.temperature)
+            out = generate(self.model, [list(prompt_ids)],
+                           self.max_new_tokens, self.temperature)
             return out[0].tolist()
         ids, h = self._submit(prompt_ids)
-        return list(ids) + h.result()
+        return ids + h.result()
 
     def stream(self, prompt_ids):
-        """Streaming request: yields each generated token id as it is
-        emitted. Closing the generator early cancels the request, so
-        its slot and pages free at once. Without the engine, tokens
-        arrive in bursts of ``stream_chunk``, one device read each."""
+        """Streaming request (token ids or, through the engine, a dict
+        payload): yields each generated token id as it is emitted.
+        Closing the generator early cancels the request, so its slot
+        and pages free at once. Without the engine, tokens arrive in
+        bursts of ``stream_chunk``, one device read each."""
         if not self.use_engine:
-            ids, mnt = self._request_args(prompt_ids)[:2]
-            for tok in generate_stream(self.model, [ids], mnt,
+            for tok in generate_stream(self.model, [list(prompt_ids)],
+                                       self.max_new_tokens,
                                        self.temperature,
                                        chunk_size=self.stream_chunk):
                 yield int(tok[0])
@@ -240,7 +241,7 @@ class LlamaDeployment:
             raise
 
     def generate_batch(self, prompts) -> List[List[int]]:
-        """Batched generation: every request (a token-id list or a dict
+        """Batched generation: every request (token ids or a dict
         payload) is submitted at once and the engine batches them at
         token granularity (any mix of lengths). Without the engine,
         prompts are bucketed by length and each bucket is one
@@ -248,8 +249,7 @@ class LlamaDeployment:
         would change a completion. Returns the generated ids per
         prompt."""
         if not self.use_engine:
-            return self._generate_buckets(
-                [self._request_args(p)[0] for p in prompts])
+            return self._generate_buckets(prompts)
         hs = [self._submit(p)[1] for p in prompts]
         return [h.result() for h in hs]
 

@@ -16,6 +16,8 @@ pass their package's ``check_quiesced``. Where the reference's case
 races a scheduler thread, only the properties the race cannot change
 are compared.
 """
+import importlib.util
+import pathlib
 import threading
 import time
 import types
@@ -732,9 +734,11 @@ def test_shutdown_fails_queued_requests_typed(tiny):
 
 def test_stream_disconnect_cancels_engine_request(tiny):
     """A client abandoning a deployment stream closes the generator,
-    which cancels the engine request: its slot and pages free. (The
-    JAX half is the reference's own case: whether its first token
-    comes out before the rest were decoded depends on its compiles.)"""
+    which cancels the engine request: its slot and pages free. The
+    cancel must win the engine lock between two rounds of a busy
+    scheduler thread (the loop yields it). (The JAX half is the
+    reference's own case: whether its first token comes out before the
+    rest were decoded depends on its compiles.)"""
     # one decode step a round: the cancel lands long before the budget
     # could run out, however the threads are scheduled
     dep = tllm.LlamaDeployment(tl.llama_tiny(dtype=torch.float32), tiny.sd,
@@ -752,7 +756,7 @@ def test_stream_disconnect_cancels_engine_request(tiny):
         if settled and eng.stats["cancelled"] == 1:
             break
         time.sleep(0.01)
-    assert eng.stats["cancelled"] == 1
+    assert eng.stats["cancelled"] == 1, dict(eng.stats)
     tfaults.check_quiesced(eng)
     dep.shutdown()
 
@@ -985,3 +989,17 @@ def test_admission_knobs_are_validated_like_jax(tiny):
             with pytest.raises(ValueError):
                 getattr(tiny, pkg).engine(max_slots=1, page_size=8,
                                           n_pages=16, **kw)
+
+
+def test_chip_smoke_fault_plans_rehearse_on_the_cpu():
+    """chip_smoke phase 3's fault and lane plans with the CPU standing in
+    for the card: the phase's own checks (every expected failure and
+    error type, lifecycle_stats, quiescence, batch-only preemption)
+    hold, so a card run fails only where the card differs."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = smoke.phase_engine_faults(tl, 0, card_device="cpu")
+    assert res["lone_slot"]["failed"] == {0: "RequestError"}
+    assert res["lanes_int8"]["lanes"]["batch_preemptions"] >= 1
