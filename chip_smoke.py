@@ -2413,7 +2413,8 @@ def _containment_wave(tl, pa, model, prompts, device: str) -> dict:
     n_layers = model.cfg.n_layers
     checks = {
         "unfaulted wave complete": all(
-            len(_outcome(h)[1]) == n_new for h in clean["hs"]),
+            o[0] == "ok" and len(o[1]) == n_new
+            for o in map(_outcome, clean["hs"])),
         "5 requests failed, one of each type":
             sorted(failed.values()) == sorted(want_types),
         "the deadline blew mid-decode": failed.get(0) == "DeadlineExceeded"
