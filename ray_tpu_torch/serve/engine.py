@@ -98,11 +98,18 @@ device (``"cuda"`` by default, ``"cpu"`` when the caller asks).
   and stay out of the TTFT and inter-token signals. ``role`` (unified,
   prefill, decode) clamps the planner's knobs each round
   (``role_plan_caps``).
-- ``events`` (serve/obs.py ``EventLog``) records the pull and swap
-  events under the reference's kinds.
+- Observability (serve/obs.py): ``events`` is an ``EventLog`` that
+  records every request phase and scheduler action under the
+  reference's kinds and data fields (submit, admit, prefill, decode,
+  spec, readback, first_token, emit, retire, preempt, fault, requeue,
+  round, ... and the pull and swap events); ``sched_trace`` renders its
+  four legacy kinds. Unless ``events=False``, the ``serve_phase_*``
+  histograms observe queue wait, planning, dispatch, readback, round
+  wall, host gap, TTFT and inter-token gaps. With ``flight_dir`` a
+  contained ``EngineFault`` and ``_fail_all`` write a flight bundle
+  (``obs.dump_flight_bundle``).
 
-Not ported yet (ROADMAP.md, queue 1): tensor parallelism (item 8),
-the other event sites and the phase metrics (item 5.4).
+Not ported yet (ROADMAP.md, queue 1): tensor parallelism (item 8).
 """
 from __future__ import annotations
 
@@ -125,12 +132,11 @@ from ray_tpu_torch.models.kv_cache import (BlockAllocator,
                                            kv_pool_page_bytes,
                                            page_cols_from_bytes)
 from ray_tpu_torch.models.llama import _pick_token, build_model
-from ray_tpu_torch.serve import kv_migration
+from ray_tpu_torch.serve import kv_migration, obs
 from ray_tpu_torch.serve.errors import (DeadlineExceeded, EngineDraining,
                                         EngineOverloaded, EngineShutdown,
                                         RequestCancelled, RequestError)
 from ray_tpu_torch.serve.faults import EngineFault
-from ray_tpu_torch.serve.obs import EventLog
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
 from ray_tpu_torch.serve.scheduler import (LANE_BATCH, LANE_ONLINE,
                                            REPLICA_ROLES, ROLE_UNIFIED,
@@ -151,6 +157,7 @@ BATCH_TOKENS_TOTAL = "serve_batch_tokens_total"
 BATCH_PREEMPTED_TOTAL = "serve_batch_preempted_total"
 WEIGHT_SWAP_TOTAL = "serve_weight_swap_total"
 WEIGHT_GENERATION_GAUGE = "serve_weight_generation"
+KV_BYTES_TOTAL = "serve_kv_bytes_total"
 
 _METRICS: Optional[dict] = None
 
@@ -195,6 +202,10 @@ def _metrics() -> dict:
                 "(the monotonic swap fence; rollback still advances it "
                 "— weights_id names the payload)",
                 tag_keys=("replica",)),
+            "kv_bytes": metrics.Gauge(
+                KV_BYTES_TOTAL,
+                "Paged KV pool byte budget (all layers, incl. scales)",
+                tag_keys=("kv_dtype",)),
         }
     return _METRICS
 
@@ -464,6 +475,10 @@ class LLMEngine:
         sampling distribution (fp32 logits, divided by the temperature
         when it is > 0), read back with the tokens;
         ``RequestHandle.logprobs``.
+    events: record the typed event log and observe the phase
+        histograms (default on); ``False`` turns both off (the A/B arm).
+    flight_dir: where a contained ``EngineFault`` and ``_fail_all``
+        write their flight bundles (None, default: no bundle).
     device: ``None``/``"cuda"`` (default: the card; raises without
         one) or ``"cpu"``.
     """
@@ -487,6 +502,7 @@ class LLMEngine:
                  shed_retry_after_s: float = 1.0,
                  admit_timeout_s: Optional[float] = None,
                  fault_injector=None, role: str = ROLE_UNIFIED,
+                 events: bool = True, flight_dir: Optional[str] = None,
                  device=None):
         self.device = resolve_device(device)
         for p in model.parameters():
@@ -534,6 +550,10 @@ class LLMEngine:
         self.alloc = BlockAllocator(n_pages, page_bytes=self.page_bytes)
         self.pages = init_kv_pool(self.cfg, n_pages, page_size,
                                   self.kv_dtype, device=self.device)
+        # the whole pool's byte budget, set once: a pool's shape is
+        # fixed for the engine's life
+        _metrics()["kv_bytes"].set(float(n_pages * self.page_bytes),
+                                   tags={"kv_dtype": self.kv_dtype})
         self.prefix_cache = (PrefixCache(self.alloc, page_size)
                              if prefix_cache else None)
         self.prefix_digest_max = max(0, int(prefix_digest_max))
@@ -603,7 +623,12 @@ class LLMEngine:
         # by the caller; the stats mirror the process counters.
         self.kv_fetcher: Optional[Any] = None
         self.kv_migration_stats = kv_migration.new_stats()
-        self.events = EventLog(name="engine")
+        # the typed lifecycle event log (lock-free bounded ring) and its
+        # legacy four-kind view; ``events=False`` is the A/B arm
+        self.events = obs.EventLog(8192, name="engine", enabled=events)
+        self._obs_enabled = bool(events)
+        self.sched_trace = obs.SchedTraceView(self.events)
+        self.flight_dir = flight_dir
 
     def _h2d(self, x) -> torch.Tensor:
         """Host->device for dispatch operands (page tables, token
@@ -684,11 +709,18 @@ class LLMEngine:
                        batch=priority == LANE_BATCH)
         if deadline_s is not None:
             req.deadline = req.t_submit + deadline_s
+        self.events.append("submit", rid=req.rid, t=req.t_submit,
+                           data={"trace_id": trace_id,
+                                 "prompt_len": len(prompt_ids),
+                                 "max_new_tokens": max_new_tokens,
+                                 "lane": priority})
         # bounded acquire: a wedged scheduler holds the lock for good,
         # and a caller must shed and reroute rather than park on it
         if not self._work.acquire(timeout=-1 if self.admit_timeout_s is None
                                   else self.admit_timeout_s):
             self.stats["admit_timeouts"] += 1
+            self.events.append("shed", rid=req.rid,
+                               data={"why": "admit_timeout"})
             raise EngineOverloaded(
                 f"admission lock unavailable for {self.admit_timeout_s}s "
                 f"(scheduler stalled); request shed",
@@ -708,6 +740,9 @@ class LLMEngine:
                 if depth >= bound:
                     self.stats["shed"] += 1
                     _metrics()["shed"].inc()
+                    self.events.append("shed", rid=req.rid,
+                                       data={"why": "queue_full",
+                                             "lane": priority})
                     raise EngineOverloaded(
                         f"admission queue full ({depth} {priority} "
                         f"waiting >= max_queued"
@@ -1017,6 +1052,7 @@ class LLMEngine:
         frees)."""
         err = err or EngineShutdown(
             "engine force-killed: wedged (no scheduler progress)")
+        self.events.append("force_kill", data={"error": repr(err)})
         self._force_killed = True
         self._stopped = True
 
@@ -1111,14 +1147,19 @@ class LLMEngine:
             return True
 
     def _fail_req_locked(self, req: _Request, err: BaseException,
-                         count: Optional[str] = None) -> None:
+                         count: Optional[str] = None,
+                         record: bool = True) -> None:
         """Resolve a request's consumers with a typed error, exactly
-        once; ``count`` names the stats counter to bump."""
+        once; ``count`` names the stats counter to bump and the event
+        recorded (``failed`` without one; none unless ``record``)."""
         if req.closed:
             return
         req.closed = True
         req.error = err
         req.out_q.put(_DONE)
+        if record:
+            self.events.append(count or "failed", rid=req.rid,
+                               data={"error": repr(err)})
         if count:
             self.stats[count] += 1
             m = _metrics().get(count)
@@ -1126,7 +1167,8 @@ class LLMEngine:
                 m.inc()
 
     def _teardown_slot_locked(self, ix: int, err: BaseException,
-                              count: Optional[str] = None) -> None:
+                              count: Optional[str] = None,
+                              record: bool = True) -> None:
         """Fail a slotted request and free its slot, its private pages
         and its shared prefix-page references (the tree keeps the KV);
         in-flight readback rows for it are discarded (``preempted``)."""
@@ -1134,7 +1176,7 @@ class LLMEngine:
         self.slots[ix] = None
         slot.preempted = True
         self._free_slot_pages_locked(slot, retire=False)
-        self._fail_req_locked(slot.req, err, count)
+        self._fail_req_locked(slot.req, err, count, record)
 
     def _reap_deadlines_locked(self) -> None:
         """Fail every request whose deadline passed, queued or slotted
@@ -1216,12 +1258,19 @@ class LLMEngine:
         decode/spec lane is handled here (``_contain_fault_locked``)
         with the lane's participants added to its ``sids``, and the
         engine keeps serving. Any other error escapes to the caller
-        (``_loop``'s ``_fail_all``)."""
+        (``_loop``'s ``_fail_all``).
+
+        A round that dispatched records a ``round`` event with its host
+        gap (the pre-plan drain plus the planner: the host time gating
+        this round's dispatches) and its wall time; the phase
+        histograms observe plan, dispatch, round wall and host gap."""
         with self._lock:
             if self._stopped:
                 return False
             self._round += 1
             self._hb = time.monotonic()
+            pm = obs.phase_metrics() if self._obs_enabled else None
+            t0 = self._hb
             self._fire("step")     # global site: escapes, like a
                                    # device loss
             if self._stopped:
@@ -1229,10 +1278,12 @@ class LLMEngine:
                 # fence forbids any further work this round
                 return False
             self._reap_deadlines_locked()
+            tg = time.monotonic()
             if self.overlap or (self._deferred and not self.spec_len):
                 self._drain_fetches_locked(ready_only=True)
             else:
                 self._drain_fetches_locked()
+            gap = time.monotonic() - tg
             if self._pending_swap is not None:
                 # drain-mode weight swap: admission is paused; flip
                 # here, between rounds, once everything settled
@@ -1252,7 +1303,13 @@ class LLMEngine:
                 else:
                     self._work.wait(timeout=0.01)
                 return True
+            tp = time.monotonic()
             plan = self._plan_steps_locked()
+            tpe = time.monotonic()
+            gap += tpe - tp
+            if pm is not None:
+                pm["plan"].observe(tpe - tp)
+            td = time.monotonic()
             try:
                 if plan.prefill:
                     self._dispatch_prefill_locked(plan.prefill)
@@ -1277,7 +1334,17 @@ class LLMEngine:
                 e.sids = sorted(part | set(e.sids))
                 self._contain_fault_locked(e)
                 return True
+            if pm is not None:
+                pm["dispatch"].observe(time.monotonic() - td)
             self._drain_fetches_locked(limit=1, keep=1)
+            now = time.monotonic()
+            self.events.append("round", data={
+                "host_gap_s": round(gap, 6),
+                "wall_s": round(now - t0, 6),
+                "overlap": self.overlap})
+            if pm is not None:
+                pm["round_wall"].observe(now - t0)
+                pm["host_gap"].observe(gap)
             return True
 
     def _contain_fault_locked(self, e: EngineFault) -> None:
@@ -1289,6 +1356,14 @@ class LLMEngine:
         generated, which must be complete."""
         self.stats["contained_faults"] += 1
         _metrics()["contained_faults"].inc()
+        self.events.append("fault", rid=e.culprit_rid, sid=e.culprit_sid,
+                           data={"sids": list(e.sids),
+                                 "error": repr(e.original)})
+        if self.flight_dir is not None:
+            # the postmortem while the fault's context is live (the
+            # probes take no lock, so holding the engine lock is fine)
+            obs.dump_flight_bundle(self.flight_dir, "engine-fault",
+                                   engine=self)
         self._drain_fetches_locked()
         for sid in sorted(set(e.sids)):
             slot = self.slots[sid] if 0 <= sid < self.S else None
@@ -1323,6 +1398,8 @@ class LLMEngine:
         self._wait.append(req)
         self.stats["retries"] += 1
         _metrics()["retries"].inc()
+        self.events.append("requeue", rid=req.rid, sid=sid,
+                           data={"attempts": req.attempts})
 
     def _plan_steps_locked(self) -> StepPlan:
         """Plan this round with the pure planner (serve/scheduler.py),
@@ -1433,22 +1510,31 @@ class LLMEngine:
 
     def _fail_all(self, e: BaseException):
         """Global failure (device error, scheduler bug): every queued
-        and in-flight request fails with the error."""
+        and in-flight request fails with the error. With ``flight_dir``
+        the flight bundle is written first, before teardown clears the
+        queues."""
+        self.events.append("fail_all", data={"error": repr(e)})
+        if self.flight_dir is not None:
+            obs.dump_flight_bundle(self.flight_dir, "engine-fail-all",
+                                   engine=self, extra={"error": repr(e)})
         with self._lock:
             self.stats["failed_all"] += 1
+            # the ``fail_all`` event stands for every request it fails:
+            # none gets a ``failed`` event of its own
             for i, slot in enumerate(self.slots):
                 if slot is not None:
-                    self._teardown_slot_locked(i, e)
+                    self._teardown_slot_locked(i, e, record=False)
             for _rb, riders, _steps in self._fetchq:
                 for _i, slot, _t in riders:
-                    self._fail_req_locked(slot.req, e)
+                    self._fail_req_locked(slot.req, e, record=False)
             for _rb, placements in self._pending_prefill:
                 for _ix, slot, _row in placements:
-                    self._fail_req_locked(slot.req, e)
+                    self._fail_req_locked(slot.req, e, record=False)
             self._fetchq.clear()
             self._pending_prefill.clear()
             while self._wait:
-                self._fail_req_locked(self._wait.popleft(), e)
+                self._fail_req_locked(self._wait.popleft(), e,
+                                      record=False)
             self._stopped = True
 
     def _next_admit_locked(self) -> Optional[_Request]:
@@ -1568,19 +1654,32 @@ class LLMEngine:
                 self._copy_page(copy_src, page_ids[0])
                 self.prefix_cache.release([copy_src])
             self._wait.popleft()
-            self.slots[free[0]] = _Slot(
+            slot = _Slot(
                 req=req, pages=shared_pages + page_ids, pos=start,
                 cur=None, admit_seq=next(self._admit_seq), prompt=prompt,
                 prefilled=start,
                 # tokens already delivered count against the budget
                 decoded=len(req.generated), shared=len(shared_pages))
+            self.slots[free[0]] = slot
             self.stats["admitted"] += 1
+            now = time.monotonic()
+            self.events.append("admit", rid=req.rid, sid=free[0], t=now,
+                               data={"cached": start,
+                                     "pages": len(slot.pages)})
+            if (self._obs_enabled and not req.generated
+                    and not req.attempts and not req.preemptions):
+                # first admission only: a re-admission would count the
+                # wait twice
+                obs.phase_metrics()["queue_wait"].observe(
+                    max(0.0, now - req.t_submit))
             if self.prefix_cache is not None:
                 self.prefix_cache.account(start, len(prompt) - start)
                 self.stats["cache_hit_tokens"] += start
                 self.stats["cache_miss_tokens"] += len(prompt) - start
                 if start:
                     self.stats["cache_hit_admissions"] += 1
+                    self.events.append("cache_hit", rid=req.rid,
+                                       sid=free[0], data=start)
 
     def _copy_page(self, src: int, dst: int) -> None:
         """The prefix cache's one COW copy: physical page ``src`` into
@@ -1901,6 +2000,10 @@ class LLMEngine:
         if victim.req.batch:
             self.stats["batch_preemptions"] += 1
             _metrics()["batch_preempted"].inc()
+        self.events.append("preempt", rid=victim.req.rid, sid=ix,
+                           data={"preemptions": victim.req.preemptions,
+                                 "lane": (LANE_BATCH if victim.req.batch
+                                          else LANE_ONLINE)})
         self._wait.appendleft(victim.req)
 
     def _dispatch_chunk_locked(self, steps: int):
@@ -1928,6 +2031,7 @@ class LLMEngine:
         for _i, slot, _t in riders:
             slot.pos += steps
             slot.decoded += steps
+        self.events.append("decode", data=steps)
         self.stats["chunks"] += 1
         self.stats["decode_steps"] += steps
         self._fetchq.append((_Readback(toks, lps), riders, steps))
@@ -1993,6 +2097,8 @@ class LLMEngine:
             while a < len(drafts) and drafts[a] == int(row[a]):
                 a += 1
             produced = a + 1
+            self.events.append("spec", rid=slot.req.rid, sid=i,
+                               data=(len(drafts), a))
             self.stats["spec_riders"] += 1
             self.stats["spec_proposed"] += len(drafts)
             self.stats["spec_accepted"] += a
@@ -2063,10 +2169,14 @@ class LLMEngine:
                 pend_pre, self._pending_prefill = self._pending_prefill, []
             # the heartbeat before each blocking get as well as after: a
             # drain through several buffers is progress at each one
-            self._hb = time.monotonic()
+            t_rb = self._hb = time.monotonic()
             got_pre = [(rb.get(), rb.logprobs()) for rb, _ in pend_pre]
             got = [(rb.get(), rb.logprobs()) for rb, _r, _s in batch]
             self._hb = time.monotonic()
+            self.events.append("readback",
+                               data={"bufs": len(batch) + len(pend_pre)})
+            if self._obs_enabled:
+                obs.phase_metrics()["readback"].observe(self._hb - t_rb)
             # prefill firsts FIRST: a slot's seeding prefill precedes
             # its first decode ride, and both can land in one drain
             for (_rb, placements), (firsts, f_lps) in zip(pend_pre,
@@ -2119,14 +2229,21 @@ class LLMEngine:
             t = int(t)
             if req.t_first is None:
                 req.t_first = time.monotonic()
+                ttft = req.t_first - req.t_submit
                 if not req.batch:
                     # online SLO signals only: a batch request may wait
                     # queued by design
-                    ttft = req.t_first - req.t_submit
                     self.ttfts_s.append(ttft)
                     a = self._ewma_alpha
                     self._ttft_ewma = ttft if self._ttft_ewma is None \
                         else a * ttft + (1 - a) * self._ttft_ewma
+                self.events.append("first_token", rid=req.rid, sid=ix,
+                                   t=req.t_first,
+                                   data={"ttft_s": ttft,
+                                         "lane": (LANE_BATCH if req.batch
+                                                  else LANE_ONLINE)})
+                if self._obs_enabled and not req.batch:
+                    obs.phase_metrics()["ttft"].observe(ttft)
             req.generated.append(t)
             req.out_q.put(t)
             n_put += 1
@@ -2138,14 +2255,21 @@ class LLMEngine:
             req.logprobs.extend(float(x) for x in lps[:n_put])
         if n_put:
             now = time.monotonic()
+            self.events.append("emit", rid=req.rid, sid=ix, t=now,
+                               data={"n": n_put})
             if req.batch:
                 self.stats["batch_tokens"] += n_put
                 _metrics()["batch_tokens"].inc(n_put)
-            elif req.t_last_emit is not None:
+            if req.t_last_emit is not None:
+                # mean gap per token over this readback's tokens
                 gap = max(0.0, now - req.t_last_emit) / n_put
-                a = self._ewma_alpha
-                self._itl_ewma = gap if self._itl_ewma is None \
-                    else a * gap + (1 - a) * self._itl_ewma
+                if self._obs_enabled:
+                    obs.phase_metrics()["inter_token"].observe(gap)
+                if not req.batch:
+                    # the online lane's EWMA only, as TTFT's
+                    a = self._ewma_alpha
+                    self._itl_ewma = gap if self._itl_ewma is None \
+                        else a * gap + (1 - a) * self._itl_ewma
             req.t_last_emit = now
         if done:
             req.closed = True
@@ -2154,6 +2278,8 @@ class LLMEngine:
                 self.slots[ix] = None
                 self._free_slot_pages_locked(slot, retire=True)
             self.stats["completed"] += 1
+            self.events.append("retire", rid=req.rid, sid=ix,
+                               data={"generated": len(req.generated)})
             req.out_q.put(_DONE)
 
     # ------------------------------------------------- device steps
@@ -2197,6 +2323,9 @@ class LLMEngine:
         # queued even with no finished rows, so drains (and preemption
         # barriers) sync on every in-flight prefill
         self._pending_prefill.append((_Readback(firsts, lps), placements))
+        self.events.append(
+            "prefill", rid=tuple(slot.req.rid for _ix, slot, _t in rows),
+            data=tuple((ix, take) for ix, _s, take in rows))
         self.stats["prefills"] += 1
         self.stats["prefill_tokens"] += sum(t for _i, _s, t in rows)
         self._hb = time.monotonic()

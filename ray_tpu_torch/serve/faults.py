@@ -16,7 +16,8 @@ prefix-cache refcounts, slots, queues) is back at baseline.
   ``culprit_rid`` name the one request the fault belongs to; ``sids``
   lists every slot of the failed dispatch, so containment can requeue
   the innocent rest under the retry policy.
-- ``check_quiesced``: asserts a drained engine is back at baseline.
+- ``check_quiesced``: asserts a drained engine is back at baseline;
+  ``check_pool_quiesced`` asserts it of every engine of a pool.
 
 Sites the engine consults (no-ops without an injector):
 
@@ -221,3 +222,13 @@ def check_quiesced(eng, expect_cached_pages: Optional[int] = None) -> None:
             assert r == 0, f"cached page {page} still has refcount {r}"
         assert not pc._fenced, f"fenced pages still pinned: {pc._fenced}"
         pc.check_invariants()
+
+
+def check_pool_quiesced(pool) -> None:
+    """Pool-wide quiescence: every replica engine — healthy, draining,
+    or dead — must individually pass ``check_quiesced``. A dead
+    replica's ``_fail_all`` frees slot pages and drops prefix refs,
+    so even a crash leaves allocator occupancy == cache residency;
+    anything else is a leak the pool masked instead of contained."""
+    for eng in pool.engines():
+        check_quiesced(eng)

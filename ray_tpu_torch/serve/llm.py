@@ -14,11 +14,19 @@ the request lifecycle (``deadline_s``, ``max_queued``,
 ``max_retries``, ``retry_backoff_s``, ``engine_stall_deadline_s``)
 pass through. The engine's KV pull and hot weight swap are reached
 through ``engine()`` (``kv_fetcher``, ``submit(pull=...)``,
-``swap_weights``). The engine pool, fleet, autoscaler, watchdog and
-tensor parallelism of the reference are not ported yet, nor the
-deployment's ``kv_pull_deadline_s`` and ``kv_pull_backoff_s``, which
-feed the engine pool, nor the pool and fleet branches of
-``serve_stats`` and ``load_report`` (ROADMAP.md, queue 1, item 6).
+``swap_weights``).
+
+``num_engine_replicas=N`` (N > 1) serves through an ``EnginePool``
+(serve/engine_pool.py) of N engines sharing the model's weights:
+prefix-affinity and session routing (a payload's ``session_id``), the
+resubmit of unstreamed requests across a replica's death, and with
+``pool_auto_restart`` the rebuild of a dead replica. With the prefix
+cache on, the pool shares prefixes across its replicas
+(``share_prefixes``: a cold replica pulls a sibling's cached pages,
+under ``kv_pull_deadline_s`` and ``kv_pull_backoff_s``); the reference
+turns that on only for its disaggregated pool. The fleet, autoscaler,
+watchdog, disaggregated roles and tensor parallelism of the reference
+are not ported yet (ROADMAP.md, queue 1, items 6, 8 and 9).
 """
 from __future__ import annotations
 
@@ -32,6 +40,7 @@ from ray_tpu_torch._device import resolve_device
 from ray_tpu_torch.models.llama import (LlamaConfig, build_model, generate,
                                         generate_stream, init_params,
                                         llama_tiny)
+from ray_tpu_torch.serve.kv_migration import validate_pull_knobs
 
 
 class LlamaDeployment:
@@ -76,6 +85,12 @@ class LlamaDeployment:
         a submit that cannot take a stalled engine's lock this long
         sheds instead of parking (the reference's watchdog also reads
         it, which is not ported yet); None: off.
+    num_engine_replicas: engines behind one ``EnginePool`` (default 1:
+        one engine, no pool).
+    pool_auto_restart: the pool rebuilds a dead replica after its
+        backoff (default on).
+    kv_pull_deadline_s, kv_pull_backoff_s: the pool's ``pull_prefix``
+        knobs (None: its defaults), validated here.
     device: ``None``/``"cuda"`` (the card; raises without one) or
         ``"cpu"``.
     """
@@ -96,11 +111,23 @@ class LlamaDeployment:
                  max_queued: Optional[int] = None,
                  max_retries: int = 2, retry_backoff_s: float = 0.02,
                  engine_stall_deadline_s: Optional[float] = None,
+                 num_engine_replicas: int = 1,
+                 pool_auto_restart: bool = True,
+                 kv_pull_deadline_s: Optional[float] = None,
+                 kv_pull_backoff_s: Optional[float] = None,
                  device=None):
         if (engine_stall_deadline_s is not None
                 and engine_stall_deadline_s <= 0):
             raise ValueError(
                 "engine_stall_deadline_s must be > 0 (or None)")
+        if num_engine_replicas < 1:
+            raise ValueError("num_engine_replicas must be >= 1")
+        # junk pull knobs fail here, at construction
+        validate_pull_knobs(kv_pull_deadline_s, kv_pull_backoff_s)
+        self.num_engine_replicas = num_engine_replicas
+        self.pool_auto_restart = pool_auto_restart
+        self.kv_pull_deadline_s = kv_pull_deadline_s
+        self.kv_pull_backoff_s = kv_pull_backoff_s
         self.device = resolve_device(device)
         self.cfg = config or llama_tiny()
         if params is None:
@@ -127,18 +154,36 @@ class LlamaDeployment:
         self._engine_lock = threading.Lock()
 
     def engine(self):
-        """The replica's engine, built and started at first use. Locked:
+        """The replica's engine (or, with ``num_engine_replicas`` > 1,
+        its ``EnginePool``), built and started at first use. Locked:
         two first requests racing here must not allocate two pools."""
         with self._engine_lock:
             if self._engine is None:
                 from ray_tpu_torch.serve.engine import LLMEngine
-                self._engine = LLMEngine(
-                    self.model, temperature=self.temperature,
-                    device=self.device, **self._engine_opts).start()
+                if self.num_engine_replicas > 1:
+                    from ray_tpu_torch.serve.engine_pool import EnginePool
+
+                    def factory(idx):
+                        return LLMEngine(
+                            self.model, temperature=self.temperature,
+                            seed=idx, device=self.device,
+                            **self._engine_opts)
+
+                    self._engine = EnginePool(
+                        factory, self.num_engine_replicas,
+                        auto_restart=self.pool_auto_restart,
+                        share_prefixes=self._engine_opts["prefix_cache"],
+                        kv_pull_deadline_s=self.kv_pull_deadline_s,
+                        kv_pull_backoff_s=self.kv_pull_backoff_s)
+                else:
+                    self._engine = LLMEngine(
+                        self.model, temperature=self.temperature,
+                        device=self.device, **self._engine_opts).start()
             return self._engine
 
     def shutdown(self) -> None:
-        """Stop the engine (if built); in-flight requests fail typed."""
+        """Stop the engine or pool (if built); in-flight requests fail
+        typed."""
         with self._engine_lock:
             if self._engine is not None:
                 self._engine.shutdown()
@@ -152,6 +197,9 @@ class LlamaDeployment:
         if not self.use_engine or self._engine is None:
             return {"engine": None}
         eng = self._engine
+        from ray_tpu_torch.serve.engine_pool import EnginePool
+        if isinstance(eng, EnginePool):
+            return {"engine": self._pool_stats(eng)}
         locked = eng._lock.acquire(timeout=0.05)
         try:
             live = sum(1 for s in eng.slots if s is not None)
@@ -171,10 +219,38 @@ class LlamaDeployment:
             out["prefix_cache"] = prefix
         return {"engine": out}
 
+    def _pool_stats(self, pool) -> dict:
+        """``serve_stats``' pool branch: the replicas' summed counters,
+        slots and pages (each replica's lock tried for 50 ms, so
+        ``consistent`` is False), the knobs and ``pool_stats()``."""
+        out: dict = dict(pool.stats)
+        slots_live = slots_total = pages_free = pages_total = 0
+        for eng in pool.engines():
+            locked = eng._lock.acquire(timeout=0.05)
+            try:
+                slots_live += sum(1 for s in eng.slots if s is not None)
+                slots_total += eng.S
+                pages_free += eng.alloc.n_free
+                pages_total += eng.alloc.n_pages - 1
+            finally:
+                if locked:
+                    eng._lock.release()
+        opts = self._engine_opts
+        out.update(slots_live=slots_live, slots_total=slots_total,
+                   pages_free=pages_free, pages_total=pages_total,
+                   consistent=False, max_queued=opts["max_queued"],
+                   max_retries=opts["max_retries"],
+                   retry_backoff_s=opts["retry_backoff_s"],
+                   pool=pool.pool_stats())
+        ps = pool.prefix_stats()
+        if ps:
+            out["prefix_cache"] = ps
+        return out
+
     def load_report(self) -> Optional[dict]:
-        """The engine's ``load_report`` without its prefix digest (an
-        affinity signal within a pool); None before the lazy engine
-        exists or without the engine."""
+        """The engine's ``load_report`` (or the pool's aggregate)
+        without a prefix digest (an affinity signal within a pool); None
+        before the lazy engine exists or without the engine."""
         if not self.use_engine or self._engine is None:
             return None
         rpt = dict(self._engine.load_report())
@@ -204,8 +280,10 @@ class LlamaDeployment:
                 None, None)
 
     def _submit(self, payload):
-        ids, mnt, dl, _sid, tid = self._request_args(payload)
+        ids, mnt, dl, sid, tid = self._request_args(payload)
         kw: Dict[str, Any] = dict(max_new_tokens=mnt, deadline_s=dl)
+        if sid is not None and self.num_engine_replicas > 1:
+            kw["session_id"] = sid
         if tid is not None:
             kw["trace_id"] = tid
         return ids, self.engine().submit(ids, **kw)

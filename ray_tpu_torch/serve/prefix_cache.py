@@ -37,12 +37,43 @@ eviction from the tree at once — nothing can match it again — and a
 detached page goes back to the allocator when its last pin drops
 (``release``); ``is_fenced`` tells the donor's export to refuse it.
 
-The reference's Prometheus metrics are not wired here yet (ROADMAP.md,
-queue 1, item 5.4); ``stats()`` carries the same counts.
+Metrics (util/metrics.py, the reference's families): hit and miss
+tokens, evictions, resident pages; ``stats()`` carries the same counts.
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from ray_tpu_torch.util import metrics
+
+HIT_TOKENS = "serve_prefix_cache_hit_tokens"
+MISS_TOKENS = "serve_prefix_cache_miss_tokens"
+EVICTIONS = "serve_prefix_cache_evictions"
+CACHED_PAGES = "serve_prefix_cache_pages"
+
+_METRICS: Optional[dict] = None
+
+
+def _metrics() -> dict:
+    """Lazy metric singletons, re-created if a ``clear_registry()``
+    dropped them."""
+    global _METRICS
+    if (_METRICS is None or metrics.registry().get(HIT_TOKENS)
+            is not _METRICS["hit_tokens"]):
+        _METRICS = {
+            "hit_tokens": metrics.Counter(
+                HIT_TOKENS,
+                "Prompt tokens admitted from cached prefix KV "
+                "(prefill skipped)"),
+            "miss_tokens": metrics.Counter(
+                MISS_TOKENS, "Prompt tokens prefilled from scratch"),
+            "evictions": metrics.Counter(
+                EVICTIONS, "Cached pages reclaimed under pressure"),
+            "cached_pages": metrics.Gauge(
+                CACHED_PAGES, "KV pages currently held by the prefix "
+                "cache (refcount-0 ones are evictable)"),
+        }
+    return _METRICS
 
 
 def _child_hash(parent_hash: int, chunk: Tuple[int, ...]) -> int:
@@ -247,6 +278,11 @@ class PrefixCache:
         engine actually skipped vs computed)."""
         self.hit_tokens += hit_tokens
         self.miss_tokens += miss_tokens
+        m = _metrics()
+        if hit_tokens:
+            m["hit_tokens"].inc(hit_tokens)
+        if miss_tokens:
+            m["miss_tokens"].inc(miss_tokens)
 
     # ---------------------------------------------------------- write
 
@@ -317,6 +353,7 @@ class PrefixCache:
                     # recycle ours
                     self.alloc.free([page])
             node = child
+        _metrics()["cached_pages"].set(len(self._nodes))
 
     def evict(self, n: int) -> int:
         """Free up to ``n`` least-recently-used refcount-0 LEAF pages
@@ -338,6 +375,10 @@ class PrefixCache:
             self.alloc.free([victim.page])
             freed += 1
             self.evictions += 1
+        if freed:
+            m = _metrics()
+            m["evictions"].inc(freed)
+            m["cached_pages"].set(len(self._nodes))
         return freed
 
     def clear(self) -> int:
@@ -352,7 +393,7 @@ class PrefixCache:
         of one — from the tree: an unpinned one is freed now, a pinned
         one when its last pin drops (``release``). Returns the pages
         evicted or freed now."""
-        freed = self.clear()
+        freed = evicted = self.clear()
         for page in self._nodes:
             pins = self._ref.get(page, 0)
             if pins:
@@ -364,6 +405,10 @@ class PrefixCache:
         self._root.children.clear()
         self._nodes.clear()
         self._ref.clear()
+        m = _metrics()
+        if freed > evicted:
+            m["evictions"].inc(freed - evicted)
+        m["cached_pages"].set(0)
         return freed
 
     # ----------------------------------------------------- diagnostics

@@ -97,6 +97,9 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.serve.spec_decode",
                  "ray_tpu_torch.serve.kv_migration",
                  "ray_tpu_torch.serve.obs",
+                 "ray_tpu_torch.serve.engine_pool",
+                 "ray_tpu_torch.serve.fleet.routing",
+                 "ray_tpu_torch.util.tracing",
                  "ray_tpu_torch.serve.fleet.wire",
                  "ray_tpu_torch.serve.fleet.transport",
                  "ray_tpu_torch.util.metrics"):
