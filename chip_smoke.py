@@ -6,8 +6,8 @@ sm_90a).
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
-which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 4f, 2,
-5, 6, 6b, 7, 7b, then 4d's profile: the host-timed serving phases come before
+which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g,
+2, 5, 6, 6b, 7, 7b, then 4d's profile: the host-timed serving phases come before
 any torch.profiler session, since a process that has run one launches
 kernels at a higher host cost for the rest of its life.
 
@@ -74,7 +74,16 @@ kernels at a higher host cost for the rest of its life.
    and batch rollouts an online burst preempts (fp and int8 pools):
    the same failed requests and error types, the same survivor streams
    (int8: or a near-tie parting), the same ``lifecycle_stats()``, both
-   engines quiesced (``check_quiesced``). Then the
+   engines quiesced (``check_quiesced``). Then, with every readback
+   taken in the round the CPU takes it (the readiness probe answers
+   True, so the card blocks on each copy), a pool of two engines whose
+   requests are all routed before the first round and whose replica 0
+   a ``kill_replica`` plan takes down at its round 6: the same routes,
+   the same requests resubmitted or failed typed ``EngineShutdown``,
+   the same streams and pool events; and one engine with a contained
+   decode fault and ``flight_dir``: the same event log (kinds,
+   requests, slots, data but times), ``sched_trace`` and flight-bundle
+   culprit. Then the
    same model and prompts through the static-cache loops: greedy
    ``generate`` (16 new tokens) identical on the card and on the CPU,
    and ``generate_stream`` (chunk 8) identical to ``generate``.
@@ -227,6 +236,34 @@ kernels at a higher host cost for the rest of its life.
    every reader with ``EngineShutdown`` in < 1 s, the released zombie
    committing no token and leaving the prefix cache as it was, and a
    second ``shutdown()`` leak-free; prints those times.
+4g. The event log and the engine pool at full width: TinyLlama-1.1B
+   bf16 (random weights from ``--seed``), 16 slots, 64-token pages, 513
+   pages per engine, one warm-up request each. (a) 8 of phase 4's
+   prompts x 64 new tokens through one engine with ``events=True``,
+   ``events=False`` and ``events=True`` again: tok/s and TTFT p50 of
+   each arm and ``EventLog.append``'s host ns per event; every request's
+   events run submit -> admit -> first_token -> retire, its
+   ``request_phases`` TTFT equals the handle's within 1 ms, the Chrome
+   trace loads as JSON, ``serve_phase_inter_token_s`` counts one
+   observation per emit event but each request's first; then a decode
+   fault with ``flight_dir``: the bundle is written and names the
+   culprit. (b) ``LlamaDeployment(num_engine_replicas=2,
+   prefix_cache=True)``: 8 sessions (own 512-token system prompts) x 3
+   turns (a 32-token message, 32 new tokens), a thread per request in
+   session order, against one engine on the same trace: tok/s, TTFT
+   p50, 16 affinity hits and the hit tokens ``_expected_hits`` computes,
+   routes per replica. Then 4 more messages per session, with replica
+   1 holding its rounds until the wave is routed and a
+   ``kill_replica`` armed at the first round boundary at which part of
+   its wave has streamed: those fail typed ``EngineShutdown``, the rest
+   resubmit to replica 0 and complete (teacher-forced within 0.05), no
+   other request fails, replica 1 is rebuilt with generation + 1,
+   ``check_pool_quiesced``; K1 22 x the decode steps, K2 never. Then the
+   int8 pool with ``share_prefixes``: a session placed on the cold
+   replica pulls its 8 prefix pages from the warm one (the landed bytes
+   equal the donor's), K2 22 x the decode steps, K1 never; after
+   ``swap_replica_weights`` to another ``weights_id`` the donor, holding
+   a fresh prefix, is refused as a pull source (``_pull_hint`` None).
 5. The flash-attention kernels against their plain versions on the
    card, each on the same inputs as its plain version: K3 (forward),
    K4 (dQ) and K5 (dK, dV) in fp32 (the scalar kernels) at T
@@ -287,9 +324,11 @@ kernels at a higher host cost for the rest of its life.
 8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; K1's
    ``launches`` are phase 4's, ``launches_default_loop`` phase 4d's
    three arms, ``launches_kv_pull`` phase 4e's fp requester,
-   ``launches_faults`` phase 4f (a)'s two waves; K2's ``launches``
+   ``launches_faults`` phase 4f (a)'s two waves, ``launches_pool``
+   phase 4g (b)'s fp pool; K2's ``launches``
    phase 4b's, ``launches_kv_pull`` phase 4e's int8 requester,
-   ``launches_lanes`` phase 4f (b)'s backlog wave; the flash rows
+   ``launches_lanes`` phase 4f (b)'s backlog wave,
+   ``launches_pool_int8`` phase 4g (b)'s int8 pool; the flash rows
    at the GPT-2 shape with phase 7's launches, and under
    ``"llama_1_1b"`` at the TinyLlama shape with phase 7b's), then the
    ``{"ok": true, ...}`` line.
@@ -983,6 +1022,177 @@ def phase_engine_faults(tl, seed: int, card_device: str = "cuda") -> dict:
           f"{res['lanes_int8']['lanes']['batch_preemptions']} (int8, "
           f"{len(res['lanes_int8']['int8_parting_gaps'])} streams parted "
           f"at near-ties)")
+    return res
+
+
+class _ReadyReadbacks:
+    """Within the block, the engine's readback readiness probe answers
+    True on every device: a drain then takes each readback in the round
+    the CPU does (blocking on the card until its copy is done), so the
+    rounds in which tokens are emitted — and so the event log and who
+    had streamed when a replica dies — are the same on the card and on
+    the CPU. Restored on exit."""
+
+    def __enter__(self):
+        from ray_tpu_torch.serve import engine
+        self._cls = engine._Readback
+        self._ready = self._cls.ready
+        self._cls.ready = lambda rb: True
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.ready = self._ready
+
+
+def _gated_engine():
+    """An ``LLMEngine`` whose scheduler thread starts at ``go()``, not at
+    the pool's ``start()``: a wave is queued whole before its first
+    round, so every replica's rounds are the same on every device."""
+    from ray_tpu_torch.serve.engine import LLMEngine
+
+    class _Gated(LLMEngine):
+        def start(self):
+            return self
+
+        def go(self):
+            return LLMEngine.start(self)
+
+    return _Gated
+
+
+def _pool_kill_case(model, device: str, prompts, n: int) -> dict:
+    """Phase 3's pool case on ``device``: a pool of two engines (fp32,
+    4 slots, the lockstep loop), every prompt routed before any round,
+    then a ``kill_replica`` plan takes replica 0 down at its round 6.
+    Returns the routes, each request's outcome, the pool's events
+    (kind, replica) and its counters, after ``check_pool_quiesced``."""
+    from ray_tpu_torch.serve.engine_pool import EnginePool
+    from ray_tpu_torch.serve.faults import (FaultInjector,
+                                            check_pool_quiesced)
+    gated = _gated_engine()
+    inj = FaultInjector()
+    inj.kill_replica(round=6)
+
+    def factory(idx):
+        return gated(model, max_slots=4, page_size=16, n_pages=64, chunk=2,
+                     prefill_chunk=16, seed=idx, overlap=False,
+                     fault_injector=inj if idx == 0 else None,
+                     device=device)
+
+    pool = EnginePool(factory, 2)
+    with _ReadyReadbacks():
+        hs = [pool.submit(p, max_new_tokens=n) for p in prompts]
+        routes = [h.replica_idx for h in hs]
+        for eng in pool.engines():
+            eng.go()
+        outs = [_outcome(h) for h in hs]
+        served = [h.replica_idx for h in hs]
+    if not inj.log:
+        raise AssertionError(f"{device}: the kill never fired")
+    pool.shutdown()
+    check_pool_quiesced(pool)
+    st = pool.pool_stats()
+    return {"routes": routes, "served_by": served, "out": outs,
+            "events": [(e[2], e[4]) for e in pool.events.snapshot()],
+            "counters": {k: st.get(k, 0) for k in (
+                "routed", "requeues", "replica_deaths", "route_p2c")}}
+
+
+def _event_case(model, device: str, prompts, n: int, flight_dir: str
+                ) -> dict:
+    """Phase 3's event case on ``device``: one engine (fp32, the
+    lockstep loop, driven by ``step()``), a decode fault on slot 1 at
+    round 3 with ``flight_dir``. Returns the outcomes, the event log
+    without its times, ``sched_trace`` and the bundle's culprit."""
+    import os
+
+    from ray_tpu_torch.serve import obs
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.faults import FaultInjector, check_quiesced
+    inj = FaultInjector()
+    inj.inject("dispatch_decode", sid=1, round=2,
+               exc=RuntimeError("decode fault"))
+    eng = LLMEngine(model, max_slots=4, page_size=16, n_pages=64, chunk=4,
+                    overlap=False, fault_injector=inj,
+                    flight_dir=flight_dir, device=device)
+    with _ReadyReadbacks():
+        hs = [eng.submit(p, max_new_tokens=n) for p in prompts[:4]]
+        while eng.step():
+            pass
+    if not inj.log:
+        raise AssertionError(f"{device}: the decode fault never fired")
+    check_quiesced(eng)
+    (bdir,) = [os.path.join(flight_dir, d) for d in os.listdir(flight_dir)]
+    bundle = obs.load_flight_bundle(bdir)
+    fault = [ev for ev in bundle["engine"]["events"]
+             if ev["type"] == "fault"][-1]
+    return {"out": [_outcome(h) for h in hs],
+            "events": [(e[obs.ETYPE], e[obs.RID], e[obs.SID],
+                        {k: v for k, v in e[obs.DATA].items()
+                         if not k.endswith("_s")}
+                        if isinstance(e[obs.DATA], dict) else e[obs.DATA])
+                       for e in eng.events.snapshot()],
+            "sched_trace": list(eng.sched_trace),
+            "culprit": (bundle["reason"], fault["rid"], fault["sid"])}
+
+
+def phase_pool_events(tl, seed: int, card_device: str = "cuda") -> dict:
+    """Phase 3's pool and event cases, card vs CPU, on phase 3's reduced
+    fp32 model: (1) a pool of two engines under a ``kill_replica`` plan
+    on replica 0 — the same routes, the same requests resubmitted or
+    failed typed, every stream equal, the same pool events; (2) one
+    engine with a contained decode fault and ``flight_dir`` — the same
+    event log (kinds, requests, slots, data but times), ``sched_trace``
+    and the bundle's culprit. (``card_device="cpu"`` rehearses it.)"""
+    import tempfile
+    cfg = tl.LlamaConfig(vocab_size=32000, max_seq_len=256, dim=512,
+                         n_layers=2, n_heads=8, n_kv_heads=2,
+                         hidden_dim=1024, dtype=torch.float32)
+    sd = tl.init_params(cfg, seed=seed, device="cpu")
+    g = np.random.default_rng(seed + 13)
+    prompts = [g.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (5, 16, 17, 30, 45, 9, 23, 40)]
+    models = {d: tl.build_model(cfg, sd, d) for d in ("cpu", card_device)}
+    res = {}
+    pool = {d: _pool_kill_case(models[d], d, prompts, 16)
+            for d in ("cpu", card_device)}
+    card = pool[card_device]
+    kinds = {o[1] if o[0] == "err" else "ok" for o in card["out"]}
+    checks = {
+        "card == CPU": pool["cpu"] == card,
+        "requests resubmitted": card["counters"]["requeues"] >= 1,
+        "a partial stream failed typed": any(
+            o == ("err", "EngineShutdown", o[2]) for o in card["out"]
+            if o[0] == "err"),
+        "only typed failures": kinds <= {"ok", "EngineShutdown"},
+        "one replica death": card["counters"]["replica_deaths"] == 1,
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 3 pool kill: {checks}\ncard {card}\n"
+                             f"cpu {pool['cpu']}")
+    res["pool_kill"] = {
+        "routes": card["routes"], "counters": card["counters"],
+        "failed_typed": sum(1 for o in card["out"] if o[0] == "err"),
+        "pool_events": [k for k, _r in card["events"]]}
+    ev = {}
+    for d in ("cpu", card_device):
+        with tempfile.TemporaryDirectory() as tmp:
+            ev[d] = _event_case(models[d], d, prompts, 16, tmp)
+    if ev["cpu"] != ev[card_device] or ev["cpu"]["culprit"][0] != \
+            "engine-fault":
+        raise AssertionError(f"phase 3 events: card and CPU differ:\n"
+                             f"{ev[card_device]}\n{ev['cpu']}")
+    res["events"] = {"n_events": len(ev["cpu"]["events"]),
+                     "culprit": ev["cpu"]["culprit"],
+                     "failed": [i for i, o in enumerate(ev["cpu"]["out"])
+                                if o[0] == "err"]}
+    print(f"phase 3: pool of 2 under kill_replica, card == CPU: routes "
+          f"{card['routes']}, {card['counters']['requeues']} resubmitted, "
+          f"{res['pool_kill']['failed_typed']} partial streams failed "
+          f"typed, pool events {res['pool_kill']['pool_events']}; one "
+          f"engine with a decode fault: {res['events']['n_events']} "
+          f"events equal card vs CPU (kinds, rids, slots, data), flight "
+          f"bundle culprit {res['events']['culprit']}")
     return res
 
 
@@ -2756,6 +2966,500 @@ def phase_faults_lanes_path(tl, pa, seed: int, smi: str, cfg=None,
     return res
 
 
+def _append_cost_ns(obs) -> dict:
+    """``EventLog.append`` on the decode hot path's shape, per event,
+    with the log on and off (host ns, 200 000 appends each)."""
+    out = {}
+    for enabled in (True, False):
+        log = obs.EventLog(8192, enabled=enabled)
+        t0 = time.perf_counter()
+        for _ in range(200_000):
+            log.append("decode", sid=0, data=8)
+        out["on" if enabled else "off"] = \
+            (time.perf_counter() - t0) / 200_000 * 1e9
+    return out
+
+
+def _obs_wave(model, prompts, device: str, events: bool,
+              flight_dir=None) -> tuple:
+    """Phase 4g (a)'s arm: one engine (16 slots, 64-token pages, 513
+    pages, the default loop), one warm-up request, then ``prompts`` x
+    64 new tokens. Returns the arm's numbers and the engine (running)."""
+    from ray_tpu_torch.serve import obs
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.faults import FaultInjector
+    from ray_tpu_torch.util import metrics
+    inj = FaultInjector()
+    eng = LLMEngine(model, max_slots=16, page_size=64, n_pages=513, chunk=8,
+                    events=events, flight_dir=flight_dir,
+                    fault_injector=inj, device=device).start()
+    eng.submit(prompts[0][:100], 64).result()
+    if not eng.wait_idle(60):
+        raise AssertionError("phase 4g (a): warm-up did not settle")
+    eng.reset_latency_stats()
+    eng.events.clear()
+    metrics.clear_registry()          # fresh serve_phase_* histograms
+    t0 = time.monotonic()
+    hs = [eng.submit(p, 64) for p in prompts]
+    _wait_done(hs, 600)
+    wall = time.monotonic() - t0
+    if not eng.wait_idle(60):
+        raise AssertionError("phase 4g (a): the engine did not settle")
+    pm = obs.phase_metrics()
+    counts = {k: sum(v["count"] for _t, v in pm[k]._samples())
+              for k in pm}
+    tokens = sum(len(h.result()) for h in hs)
+    return {"hs": hs, "tok_s": tokens / wall, "tokens": tokens,
+            "ttft_p50_s": float(np.median([h.ttft_s for h in hs])),
+            "phase_counts": counts, "events": eng.events.snapshot(),
+            "inj": inj}, eng
+
+
+def _check_obs_arm(obs, arm: dict) -> dict:
+    """Phase 4g (a)'s checks on an ``events=True`` arm: every request's
+    submit -> admit -> first_token -> retire in order,
+    ``request_phases`` TTFT equal to the handle's within 1 ms, the
+    Chrome trace a loadable JSON, and the ``inter_token`` histogram
+    observed once per emit but each request's first."""
+    evs = arm["events"]
+    by_rid = {}
+    for e in evs:
+        if isinstance(e[obs.RID], int):
+            by_rid.setdefault(e[obs.RID], []).append(e[obs.ETYPE])
+    ph = obs.request_phases(evs)
+    order_ok, ttft_err, emits = True, 0.0, 0
+    for h in arm["hs"]:
+        rid = h._req.rid
+        kinds = by_rid.get(rid, [])
+        marks = [k for k in kinds
+                 if k in ("submit", "admit", "first_token", "retire")]
+        order_ok &= marks == ["submit", "admit", "first_token", "retire"]
+        ttft_err = max(ttft_err, abs(ph[rid]["ttft_s"] - h.ttft_s))
+        emits += kinds.count("emit")
+    trace = json.loads(json.dumps(obs.chrome_trace({"engine": evs})))
+    spans = sum(1 for e in trace if e.get("ph") == "X")
+    checks = {
+        "submit -> admit -> first_token -> retire": order_ok,
+        "request_phases TTFT within 1 ms": ttft_err < 1e-3,
+        "chrome_trace loads": spans >= 4 * len(arm["hs"]),
+        "inter_token = emits - 1 per request":
+            arm["phase_counts"]["inter_token"] == emits - len(arm["hs"]),
+        "ttft observed per request":
+            arm["phase_counts"]["ttft"] == len(arm["hs"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4g (a): {checks}")
+    return {"events": len(evs), "ttft_max_err_s": ttft_err,
+            "emits": emits, "chrome_spans": spans}
+
+
+def _session_traffic(vocab: int, seed: int) -> tuple:
+    """Phase 4g (b)'s traffic, from ``default_rng(seed + 11)``: 8
+    sessions, each with its own 512-token system prompt; 3 turns of a
+    32-token user message; then a second wave of 4 more 32-token
+    messages per session."""
+    g = np.random.default_rng(seed + 11)
+
+    def rand(n):
+        return g.integers(0, vocab, int(n)).tolist()
+
+    systems = [rand(512) for _ in range(8)]
+    turns = [[rand(32) for _ in range(8)] for _ in range(3)]
+    wave2 = [[rand(32) for _ in range(4)] for _ in range(8)]
+    return rand(100), systems, turns, wave2
+
+
+def _run_sessions(dep, systems, turns, n_new: int) -> dict:
+    """The 3 turns of every session through ``dep.stream``, a thread
+    per request, sessions in cyclic order each turn; each turn's prompt
+    is the session's history (system prompt, earlier messages and
+    replies) plus its new message."""
+    history = [list(s) for s in systems]
+    ttfts, prompts, tokens = [], [], 0
+    t0 = time.monotonic()
+    for msgs in turns:
+        wave = [history[s] + msgs[s] for s in range(len(history))]
+        outs = [None] * len(wave)
+
+        def run(s):
+            t = time.monotonic()
+            got = []
+            for tok in dep.stream({"prompt_ids": wave[s],
+                                   "session_id": f"s{s}",
+                                   "max_new_tokens": n_new}):
+                if not got:
+                    ttfts.append(time.monotonic() - t)
+                got.append(tok)
+            outs[s] = got
+
+        threads = [threading.Thread(target=run, args=(s,))
+                   for s in range(len(wave))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(o is None or len(o) != n_new for o in outs):
+            raise AssertionError("phase 4g (b): a session turn came back "
+                                 "short")
+        prompts.append(wave)
+        tokens += sum(len(o) for o in outs)
+        history = [w + o for w, o in zip(wave, outs)]
+    wall = time.monotonic() - t0
+    return {"tok_s": tokens / wall, "ttft_p50_s": float(np.median(ttfts)),
+            "prompts": prompts, "history": history, "tokens": tokens}
+
+
+def _decode_steps(engines) -> int:
+    return sum(e.stats["decode_steps"] for e in engines)
+
+
+def _pool_kill_wave(tl, model, pool, history, wave2, n_new: int,
+                    device: str) -> dict:
+    """Phase 4g (b)'s second wave: 4 requests per session (its history
+    plus a new message), sticky to the session's replica: 4 or more
+    prefills of ~96 uncached tokens outrun one round's 256-token budget,
+    so they finish in different rounds. On replica 1's scheduler thread,
+    the first round boundary at which some of the wave there has
+    streamed and some has not arms a ``kill_replica``; replica 1 holds
+    its rounds until the whole wave is routed. The requests that
+    had streamed must fail typed ``EngineShutdown``, the others
+    resubmit to replica 0 and complete, replica 1 is rebuilt with its
+    generation + 1, and the pool quiesces."""
+    from ray_tpu_torch.serve.errors import EngineShutdown
+    from ray_tpu_torch.serve.faults import (FaultInjector,
+                                            check_pool_quiesced)
+    victim = pool.replica(1)
+    eng = victim.engine
+    inj = FaultInjector()
+    eng._injector = inj
+    state = {"armed": False, "queued": False, "streamed": set(),
+             "unstreamed": set()}
+    step = eng.step
+
+    def step_then_maybe_kill():
+        # replica 1 holds its rounds (outside the engine lock) until
+        # the whole wave is routed: its admissions then start together
+        while not state["queued"]:
+            time.sleep(0.0005)
+        if not state["armed"]:
+            reqs = ([s.req for s in eng.slots if s is not None]
+                    + list(eng._wait))
+            done = {r.rid for r in reqs if r.generated}
+            fresh = {r.rid for r in reqs if not r.generated}
+            if done and fresh:
+                state.update(armed=True, streamed=done, unstreamed=fresh)
+                inj.kill_replica()        # fires at the top of this step
+        return step()
+
+    eng.step = step_then_maybe_kill
+    reqs = [(s, history[s] + wave2[s][k]) for k in range(4)
+            for s in range(8)]
+    hs, first = [], []
+    for s, p in reqs:
+        h = pool.submit(p, max_new_tokens=n_new, session_id=f"s{s}")
+        hs.append(h)
+        first.append((h.replica_idx, h._inner._req.rid))
+    state["queued"] = True            # the whole wave is routed
+    outs = [None] * len(hs)
+
+    def consume(i):
+        outs[i] = _outcome(hs[i])
+
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(hs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if not state["armed"]:
+        raise AssertionError(
+            f"phase 4g (b): the wave on replica 1 never stood part "
+            f"streamed, part not ({sum(r == 1 for r, _ in first)} "
+            f"requests there)")
+    deadline = time.monotonic() + 60
+    while pool.replica(1).generation != victim.generation + 1:
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 4g (b): replica 1 not rebuilt")
+        time.sleep(0.01)
+    for e in pool.engines():
+        e.wait_idle(60)
+    check_pool_quiesced(pool)
+    failed = [i for i, o in enumerate(outs) if o[0] == "err"]
+    resub = [i for i, (rep, rid) in enumerate(first)
+             if rep == 1 and rid in state["unstreamed"]]
+    checks = {
+        "the kill fired mid-wave": state["armed"] and bool(inj.log),
+        "the streamed requests failed typed": sorted(failed) == sorted(
+            i for i, (rep, rid) in enumerate(first)
+            if rep == 1 and rid in state["streamed"])
+            and all(outs[i][1] == "EngineShutdown" for i in failed),
+        "unstreamed ones resubmitted and complete": bool(resub) and all(
+            outs[i][0] == "ok" and len(outs[i][1]) == n_new
+            and hs[i].resubmits == 1 and hs[i].replica_idx == 0
+            for i in resub),
+        "no other request failed": all(
+            outs[i][0] == "ok" for i in range(len(hs))
+            if first[i][0] == 0),
+        "one replica death": pool.route_stats["replica_deaths"] == 1,
+        "replica 1 rebuilt, generation + 1":
+            pool.replica(1).state == "healthy"
+            and pool.replica(1).generation == victim.generation + 1,
+    }
+    eng.step = step
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4g (b) kill: {checks}; outs "
+                             f"{[o[:2] if o[0] == 'err' else 'ok' for o in outs]}")
+    # resubmitted bf16 streams: teacher-forced, as phases 4d and 4f
+    checked = resub[:2]
+    gaps = [x for i in checked
+            for x in _gaps(model, reqs[i][1], outs[i][1], "fp", device)]
+    if max(gaps) > LOGIT_SLACK:
+        raise AssertionError(f"phase 4g (b): a resubmitted token sits "
+                             f"{max(gaps)} below the top logit")
+    return {"streamed_failed": len(failed), "resubmitted": len(resub),
+            "requests": len(hs),
+            "on_replica_1": sum(1 for rep, _ in first if rep == 1),
+            "generation_after": pool.replica(1).generation,
+            "teacher_forced_max_gap_bf16": max(gaps),
+            "killed_engine": eng}
+
+
+def phase_obs_pool_path(tl, pa, seed: int, smi: str, cfg=None,
+                        device: str = "cuda") -> dict:
+    """Phase 4g: the event log and the engine pool at full width
+    (TinyLlama-1.1B bf16 unless ``cfg``; ``device="cpu"`` with a small
+    ``cfg`` rehearses it without a card)."""
+    import tempfile
+
+    from ray_tpu_torch.serve import obs
+    from ray_tpu_torch.models.kv_cache import export_pages_bytes
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+    from ray_tpu_torch.serve.prefix_cache import path_hashes
+    cfg = cfg or tl.tinyllama_1_1b()
+    n_layers = cfg.n_layers
+    cuda = device == "cuda"
+    params = tl.init_params(cfg, seed=seed, device=device)
+    model = tl.build_model(cfg, params, device)
+    # phase 4's prompts (the same draws after its warm-up prompt)
+    g = np.random.default_rng(seed)
+    g.integers(0, cfg.vocab_size, 100)
+    prompts = [g.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in g.integers(16, 1537, size=16)][:8]
+    res = {"card": smi}
+    # (a) the event log on, off, on
+    arms = {}
+    for name, events in (("on", True), ("off", False), ("on_again", True)):
+        flight = tempfile.mkdtemp() if name == "on_again" else None
+        arm, eng = _obs_wave(model, prompts, device, events, flight)
+        if events:
+            arm["checked"] = _check_obs_arm(obs, arm)
+        elif (eng.events.total or any(arm["phase_counts"].values())
+              or list(eng.sched_trace)):
+            raise AssertionError("phase 4g (a): events=False recorded")
+        if name == "on_again":
+            # a contained decode fault writes a flight bundle naming it
+            inj = arm["inj"]
+            inj.inject("dispatch_decode", sid=2, round=eng._round + 3,
+                       exc=RuntimeError("decode fault"))
+            hs = [eng.submit(p, 64) for p in prompts[:4]]
+            _wait_done(hs, 600)
+            outs = [_outcome(h) for h in hs]
+            culprits = [h._req.rid for h, o in zip(hs, outs)
+                        if o[0] == "err"]
+            import os
+            dirs = [os.path.join(flight, d) for d in os.listdir(flight)]
+            bundle = obs.load_flight_bundle(dirs[0]) if dirs else {}
+            fault = [ev for ev in bundle.get("engine", {}).get(
+                "events", []) if ev["type"] == "fault"]
+            if (len(dirs) != 1 or len(culprits) != 1 or not fault
+                    or fault[-1]["rid"] != culprits[0]):
+                raise AssertionError(f"phase 4g (a): bundle {dirs}, "
+                                     f"culprits {culprits}, {fault}")
+            arm["bundle"] = {"reason": bundle["reason"],
+                             "culprit_rid": culprits[0],
+                             "events_in_bundle": len(
+                                 bundle["engine"]["events"])}
+        eng.shutdown()
+        del arm["hs"], arm["events"], arm["inj"]
+        arms[name] = arm
+        del eng
+        if cuda:
+            torch.cuda.empty_cache()
+    res["obs"] = {"arms": arms, "append_ns": _append_cost_ns(obs)}
+    a = res["obs"]
+    print(f"phase 4g (a): TinyLlama-1.1B bf16, 8 requests x 64 on {smi}: "
+          + "; ".join(f"events {k}: {v['tok_s']:.1f} tok/s, TTFT p50 "
+                      f"{v['ttft_p50_s'] * 1e3:.1f} ms"
+                      for k, v in arms.items())
+          + f"; append {a['append_ns']['on']:.0f} ns/event on, "
+          f"{a['append_ns']['off']:.0f} off; "
+          f"{arms['on']['checked']['events']} events, every request "
+          f"submit -> admit -> first_token -> retire, TTFT vs handle "
+          f"{arms['on']['checked']['ttft_max_err_s'] * 1e6:.1f} us, "
+          f"inter_token = emits - 8; fault bundle "
+          f"{arms['on_again']['bundle']}")
+    del model
+    # (b) the pool against one engine on the same session trace
+    n_new = 32
+    warm, systems, turns, wave2 = _session_traffic(cfg.vocab_size, seed)
+    kw = dict(max_slots=16, page_size=64, n_pages=513,
+              max_new_tokens=n_new, prefix_cache=True, device=device)
+    one = LlamaDeployment(cfg, params, **kw)
+    one(warm)
+    one_run = _run_sessions(one, systems, turns, n_new)
+    one.shutdown()
+    del one
+    if cuda:
+        torch.cuda.empty_cache()
+    dep = LlamaDeployment(cfg, params, num_engine_replicas=2, **kw)
+    dep(warm)
+    pool = dep.engine()
+    for e in pool.engines():
+        e.wait_idle(60)
+    engines = list(pool.engines())
+    steps0 = _decode_steps(engines)
+    hits0 = pool.stats["cache_hit_tokens"]
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
+    run = _run_sessions(dep, systems, turns, n_new)
+    placed = {s: pool._sticky.get(f"s{s}") for s in range(8)}
+    expected = 0
+    for turn in range(1, 3):
+        for s in range(8):
+            cached = [run["prompts"][t][s2] for t in range(turn)
+                      for s2 in range(8) if placed[s2] == placed[s]]
+            expected += _expected_hits(cached, run["prompts"][turn][s], 64)
+    hits = pool.stats["cache_hit_tokens"] - hits0
+    ps = pool.pool_stats()
+    routes = collections.Counter(e[obs.SID] for e in pool.events.snapshot()
+                                 if e[obs.ETYPE] == "route")
+    kill = _pool_kill_wave(tl, dep.model, pool, run["history"], wave2,
+                           n_new, device)
+    engines.append(kill.pop("killed_engine"))
+    engines = list({id(e): e for e in engines + pool.engines()}.values())
+    steps = _decode_steps(engines) - steps0
+    k_launch = (pa.paged_decode_attention.launches,
+                pa.paged_decode_attention.launches_int8)
+    checks = {
+        "affinity hits: 2 later turns x 8 sessions":
+            ps["affinity_hits"] == 16,
+        "cache hit tokens as expected": hits == expected,
+        "both replicas served": len(routes) == 2,
+    }
+    if cuda:
+        checks["K1 22 x decode steps, K2 never"] = \
+            steps > 0 and k_launch == (n_layers * steps, 0)
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4g (b): {checks}; hits {hits} vs "
+                             f"{expected}, {ps['affinity_hits']}, "
+                             f"launches {k_launch} steps {steps}")
+    res["pool"] = {
+        "tok_s": run["tok_s"], "ttft_p50_s": run["ttft_p50_s"],
+        "one_engine_tok_s": one_run["tok_s"],
+        "one_engine_ttft_p50_s": one_run["ttft_p50_s"],
+        "affinity_hits": ps["affinity_hits"], "cache_hit_tokens": hits,
+        "expected_hit_tokens": expected,
+        "routes_per_replica": {int(k): v for k, v in sorted(routes.items())},
+        "kill": kill, "k1_launches": k_launch[0], "decode_steps": steps}
+    dep.shutdown()
+    del dep, pool, engines
+    if cuda:
+        torch.cuda.empty_cache()
+    p = res["pool"]
+    print(f"phase 4g (b): LlamaDeployment(num_engine_replicas=2, "
+          f"prefix_cache=True) on {smi}, 8 sessions x 3 turns (512-token "
+          f"system prompts, 32-token turns, 32 new): pool "
+          f"{p['tok_s']:.1f} tok/s, TTFT p50 {p['ttft_p50_s'] * 1e3:.1f} ms"
+          f" / one engine {p['one_engine_tok_s']:.1f} tok/s, TTFT p50 "
+          f"{p['one_engine_ttft_p50_s'] * 1e3:.1f} ms; affinity hits "
+          f"{p['affinity_hits']} (16 expected), hit tokens "
+          f"{p['cache_hit_tokens']} = {p['expected_hit_tokens']} expected; "
+          f"routes per replica {p['routes_per_replica']}; kill of replica 1"
+          f": {p['kill']['streamed_failed']} streamed failed typed, "
+          f"{p['kill']['resubmitted']} resubmitted and complete of "
+          f"{p['kill']['on_replica_1']} there, generation "
+          f"{p['kill']['generation_after']}, resubmitted teacher-forced max "
+          f"gap {p['kill']['teacher_forced_max_gap_bf16']:.4f}; K1 "
+          f"{p['k1_launches']} = {n_layers} x {p['decode_steps']} decode "
+          f"steps")
+    # the int8 arm: a cold route pulls a session's prefix, and a weight
+    # swap fences the pull
+    dep = LlamaDeployment(cfg, params, num_engine_replicas=2,
+                          kv_dtype="int8", **kw)
+    dep(warm)
+    pool = dep.engine()
+    for e in pool.engines():
+        e.wait_idle(60)
+    engines = list(pool.engines())
+    steps0 = _decode_steps(engines)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
+    sa = systems[0] + turns[0][0]
+    h = pool.submit(sa, max_new_tokens=n_new, session_id="a")
+    h.result()
+    warm_idx = h.replica_idx
+    cold_idx = 1 - warm_idx
+    donor, req = pool.replica(warm_idx).engine, pool.replica(cold_idx).engine
+    donor.wait_idle(60)
+    with pool._lock:                 # the session lives on the other one
+        pool._sticky["b"] = cold_idx
+    sb = systems[0] + turns[1][0]
+    hb = pool.submit(sb, max_new_tokens=n_new, session_id="b")
+    out_b = hb.result()
+    req.wait_idle(60)
+    hashes = path_hashes(systems[0], 64)
+    landed = {}
+    for name, e in (("donor", donor), ("requester", req)):
+        pinned = e.kv_pin_prefix(hashes)
+        landed[name] = (len(pinned), export_pages_bytes(e.pages, pinned))
+        e.kv_release_pages(pinned)
+    mig = pool.kv_migration_stats()
+    steps = _decode_steps(engines) - steps0
+    k_launch = (pa.paged_decode_attention.launches,
+                pa.paged_decode_attention.launches_int8)
+    # the fence: the donor swaps to another payload and caches session
+    # c's prompt under it; the requester may not pull that
+    pool.swap_replica_weights(warm_idx, params, weights_id="g-other")
+    sc = systems[1] + turns[0][1]
+    donor.submit(sc, max_new_tokens=2).result()
+    donor.wait_idle(60)
+    reports = {i: pool.replica(i).engine.load_report() for i in (0, 1)}
+    chain = path_hashes(sc, 64)
+    covered = all(x in reports[warm_idx]["prefix_digest"]
+                  for x in chain[:8])
+    hint = pool._pull_hint(sc, pool.replica(cold_idx), reports)
+    checks = {
+        "the cold route pulled": hb.replica_idx == cold_idx
+            and mig["pulls"] >= 1 and mig["pulled_pages"] == 8
+            and mig["fallbacks"] == 0,
+        "landed bytes equal the donor's": landed["donor"][0] == 8
+            and landed["requester"] == landed["donor"],
+        "stream complete": len(out_b) == n_new,
+        "the fenced pull refused": covered and hint is None,
+    }
+    if cuda:
+        checks["K2 22 x decode steps, K1 never"] = \
+            steps > 0 and k_launch == (0, n_layers * steps)
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4g int8: {checks}; {mig}, launches "
+                             f"{k_launch} steps {steps}")
+    res["int8"] = {"pulled_pages": mig["pulled_pages"],
+                   "wire_bytes": mig.get("wire_bytes"),
+                   "k2_launches": k_launch[1], "decode_steps": steps,
+                   "fenced_hint": hint}
+    dep.shutdown()
+    del dep, pool, engines, donor, req
+    if cuda:
+        torch.cuda.empty_cache()
+    print(f"phase 4g (b) int8: a cold route pulled session a's 8 prefix "
+          f"pages ({res['int8']['wire_bytes']} wire bytes), landed bytes "
+          f"equal the donor's; after a swap to weights_id g-other the "
+          f"donor's covering digest is refused (hint None); K2 "
+          f"{res['int8']['k2_launches']} = {n_layers} x "
+          f"{res['int8']['decode_steps']} decode steps")
+    return res
+
+
 def _flash_inputs(seed, B, T, H, D, dtype, pad_to=None, Tk=None):
     g = np.random.default_rng(seed)
     out = []
@@ -3393,6 +4097,7 @@ def main(argv=None) -> int:
     phase_engine_parity(tl, args.seed)
     engine_modes = phase_engine_modes(tl, args.seed)
     engine_faults = phase_engine_faults(tl, args.seed)
+    pool_events = phase_pool_events(tl, args.seed)
     phase_generate_parity(tl, args.seed)
     print(f"phase 3 done at {time.monotonic() - t0:.1f} s")
     main_path, steps_fp = phase_main_path(tl, pa, args.seed, smi)
@@ -3413,6 +4118,9 @@ def main(argv=None) -> int:
     faults_lanes = phase_faults_lanes_path(tl, pa, args.seed, smi)
     print(f"phase 4f done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
+    obs_pool = phase_obs_pool_path(tl, pa, args.seed, smi)
+    print(f"phase 4g done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
     k1["launches"] = main_path["k1_launches"]
@@ -3423,6 +4131,8 @@ def main(argv=None) -> int:
     k2["launches_kv_pull"] = kv_pull["int8"]["k2_launches"]
     k1["launches_faults"] = faults_lanes["containment"]["k1_launches"]
     k2["launches_lanes"] = faults_lanes["lanes"]["k2_launches"]
+    k1["launches_pool"] = obs_pool["pool"]["k1_launches"]
+    k2["launches_pool_int8"] = obs_pool["int8"]["k2_launches"]
     # which split pass the served pools' decode steps run: the
     # tensor-core pass over bf16 pages on the fp pool (K1) and over int8
     # pages on the int8 pool (K2), in every layer
@@ -3470,6 +4180,8 @@ def main(argv=None) -> int:
                        "kv_pull_swap": kv_pull,
                        "engine_faults": engine_faults,
                        "faults_lanes_path": faults_lanes,
+                       "pool_events": pool_events,
+                       "obs_pool_path": obs_pool,
                        "train_main_path": train,
                        "llama_train_main_path": llama_train,
                        "total_s": time.monotonic() - t0}, f, indent=1)

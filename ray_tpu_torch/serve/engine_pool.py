@@ -19,6 +19,11 @@ Routing policy, in precedence order (``_route``, through
 4. **Power-of-two-choices** on least outstanding tokens, sampled from
    ``random.Random(seed)``.
 
+A replica's outstanding tokens are its report's plus those of the
+routes already chosen for it whose submit has not returned; the
+reference reads the reports alone, so concurrent submits that route in
+one instant all pick the same replica (``_route``).
+
 BATCH-lane requests (``priority="batch"``, ``submit_rollout_batch``)
 skip all four: they go to the replica with the least batch backlog and
 never write placement state.
@@ -369,6 +374,9 @@ class EnginePool:
         # routing and lifecycle counters (the engines keep their own
         # ``stats``; ``EnginePool.stats`` sums those)
         self.route_stats: Dict[str, int] = collections.Counter()
+        # tokens of routes chosen but not yet queued at their replica
+        # (``_route``), counted as that replica's outstanding work
+        self._routing: Dict[int, int] = collections.Counter()
         self.events = obs.EventLog(2048, name="pool")
         self._stopped = False
         self._share_prefixes = bool(share_prefixes)
@@ -873,12 +881,13 @@ class EnginePool:
         batch = priority == LANE_BATCH
         exclude = set(exclude) if exclude else set()
         shed: List[EngineOverloaded] = []
+        cost = len(prompt) + max_new_tokens
         while True:
             if target_idx is not None:
                 rep, decision = self._route_direct(target_idx)
             else:
-                rep, decision = self._route(prompt, session_id,
-                                            exclude, batch=batch)
+                rep, decision = self._route(prompt, session_id, exclude,
+                                            batch=batch, cost=cost)
             if rep is not None and pull is not None:
                 decision = dict(decision, pull=pull)
             if rep is None:
@@ -942,6 +951,10 @@ class EnginePool:
                     raise
                 exclude.add(rep.idx)
                 continue
+            finally:
+                if target_idx is None:
+                    with self._lock:
+                        self._routing[rep.idx] -= cost
             self._record_route(rep, decision,
                                session_id if record_sticky else None,
                                trace_id=trace_id)
@@ -960,11 +973,20 @@ class EnginePool:
         return rep, {"kind": "direct", "pages": 0}
 
     def _route(self, prompt: List[int], session_id: Optional[str],
-               exclude: set, *, batch: bool = False):
+               exclude: set, *, batch: bool = False, cost: int = 0):
         """Pick a replica, or ``(None, {"hints": [...]})`` when none can
         admit. The replica table is read under the pool lock; the
         ``load_report()`` calls happen outside it (each briefly takes
-        its engine's lock). ``batch=True`` takes ``_route_batch``."""
+        its engine's lock). ``batch=True`` takes ``_route_batch``.
+
+        The pick and its ``cost`` tokens, added to the picked replica's
+        routes in flight (``_submit_once`` takes them off once the
+        submit returns), are one step under the pool lock, and the
+        policy sees each replica's outstanding tokens plus its routes
+        in flight. The reference's policy sees the reports alone, so
+        submits racing in one instant read the same reports and all
+        pick the same replica (a difference on purpose; the two agree
+        whenever no route is in flight)."""
         with self._lock:
             reps = [r for r in self._replicas
                     if r.state == HEALTHY and r.idx not in exclude]
@@ -990,16 +1012,23 @@ class EnginePool:
         live = [r for r in reps
                 if not reports[r.idx]["stopped"]
                 and not reports[r.idx]["draining"]]
-        if batch:
-            return self._route_batch(live, reports)
-        cands = [Candidate(r.idx, reports[r.idx],
-                           getattr(r.engine, "Pg", 0))
-                 for r in live]
-        pick, decision = select_candidate(
-            cands, prompt, sticky_key=sticky_idx, rng=self._rng)
-        if pick is None:
-            return None, decision
-        rep = by_key[pick.key]
+        with self._lock:
+            seen = {r.idx: dict(reports[r.idx], outstanding_tokens=(
+                reports[r.idx].get("outstanding_tokens", 0)
+                + self._routing[r.idx])) for r in live}
+            if batch:
+                rep, decision = self._route_batch(live, seen)
+            else:
+                cands = [Candidate(r.idx, seen[r.idx],
+                                   getattr(r.engine, "Pg", 0))
+                         for r in live]
+                pick, decision = select_candidate(
+                    cands, prompt, sticky_key=sticky_idx, rng=self._rng)
+                rep = by_key[pick.key] if pick is not None else None
+            if rep is not None:
+                self._routing[rep.idx] += cost
+        if rep is None or batch:
+            return rep, decision
         if self._share_prefixes:
             hint = self._pull_hint(prompt, rep, reports)
             if hint is not None:

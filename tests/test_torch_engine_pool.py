@@ -671,6 +671,35 @@ def test_p2c_seeded_routes_equal():
     assert len(set(_both(case)["picks"])) > 1
 
 
+def test_concurrent_routes_count_routes_in_flight():
+    """Four submits route while every replica's submit is held: the
+    port's pool counts the routes in flight as outstanding work and
+    spreads them 2 / 2; the reports alone (all equal, as the JAX pool
+    reads them) would send all four to replica 0."""
+    gate = threading.Event()
+    entered = threading.Semaphore(0)
+
+    class Held(FakeEngine):
+        def submit(self, prompt, **kw):
+            entered.release()
+            gate.wait(10)
+            return super().submit(prompt, **kw)
+
+    pool = tpool.EnginePool(lambda i: Held(terr, i), 2)
+    hs = []
+    threads = [threading.Thread(target=lambda: hs.append(
+        pool.submit([1, 2, 3], max_new_tokens=4))) for _ in range(4)]
+    for t in threads:
+        t.start()
+        assert entered.acquire(timeout=10)     # routed, submit held
+    gate.set()
+    for t in threads:
+        t.join(timeout=10)
+    assert sorted(h.replica_idx for h in hs) == [0, 0, 1, 1]
+    assert pool._routing == {0: 0, 1: 0}
+    pool.shutdown()
+
+
 def test_roles_other_than_unified_are_refused():
     with pytest.raises(ValueError, match="item 6"):
         tpool.EnginePool(lambda i: FakeEngine(terr, i), 2,

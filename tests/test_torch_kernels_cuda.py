@@ -824,6 +824,58 @@ def test_lone_slot_exhaustion_on_card_matches_cpu(dev):
     assert (life["contained_faults"], life["fault_failed"]) == (1, 1)
 
 
+def _reduced_model(d):
+    """The reduced fp32 Llama of ``_engine_case`` on ``d``."""
+    from ray_tpu_torch.models.llama import build_model, init_params, \
+        llama_tiny
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = llama_tiny(dtype=torch.float32, dim=128, n_heads=2,
+                     n_kv_heads=1)
+    return build_model(cfg, init_params(cfg, seed=0, device="cpu"), d)
+
+
+_POOL_WAVE = [[3, 9, 4], list(range(1, 17)), [4] * 17, [5, 6, 7, 8] * 5,
+              list(range(30, 60)), [7] * 5]
+
+
+def test_pool_kill_on_card_matches_cpu(dev):
+    """chip_smoke's phase 3 pool case: two engines of a pool, every
+    request routed before the first round, replica 0 killed at its round
+    6. On the card as on the CPU: the same routes, the same requests
+    resubmitted (and served by replica 1) or failed typed, the same
+    streams and pool events."""
+    import chip_smoke
+    rec = [chip_smoke._pool_kill_case(_reduced_model(d), str(d),
+                                      _POOL_WAVE, 16)
+           for d in ("cpu", dev)]
+    assert rec[0] == rec[1]
+    kinds = [k for k, _r in rec[1]["events"]]
+    assert kinds.count("replica_death") == 1
+    assert rec[1]["counters"]["requeues"] == kinds.count("resubmit")
+    assert {o[1] for o in rec[1]["out"] if o[0] == "err"} <= \
+        {"EngineShutdown"}
+
+
+def test_engine_events_on_card_match_cpu(dev, tmp_path):
+    """chip_smoke's phase 3 event case: one engine with a contained
+    decode fault and ``flight_dir``; the event log (kinds, requests,
+    slots, data but times), ``sched_trace`` and the flight bundle's
+    culprit are the same on the card as on the CPU."""
+    import chip_smoke
+    rec = []
+    for d in ("cpu", dev):
+        flight = tmp_path / str(d).replace(":", "-")
+        flight.mkdir()
+        rec.append(chip_smoke._event_case(_reduced_model(d), str(d),
+                                          _POOL_WAVE, 16, str(flight)))
+    assert rec[0] == rec[1]
+    assert rec[1]["culprit"][0] == "engine-fault"
+    kinds = [e[0] for e in rec[1]["events"]]
+    assert {"submit", "admit", "prefill", "decode", "fault", "requeue",
+            "fault_failed", "first_token", "emit", "retire",
+            "round"} <= set(kinds)
+
+
 # --------------------------------------------------------------------
 # Flash attention: K3, K4, K5
 # --------------------------------------------------------------------
