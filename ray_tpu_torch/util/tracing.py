@@ -1,7 +1,7 @@
 """Own copy of part of ``ray_tpu/util/tracing.py``: the span sink that
 ``serve/obs.py``'s ``emit_request_spans`` feeds — ``setup_tracing``,
-``teardown_tracing``, ``is_enabled``, ``get_spans``, ``export_json``
-and the id minting.
+``teardown_tracing``, ``is_enabled``, ``get_spans`` and the id
+minting.
 
 Spans go to an in-memory list and, once ``setup_tracing`` named a
 trace directory, to ``<dir>/<pid>.jsonl`` as well, which ``get_spans``
@@ -9,8 +9,8 @@ merges back (the reference's cross-process sink: a process started
 after the call inherits ``RAY_TPU_TRACE_DIR`` and appends there). The
 default directory lies under the system temp directory (``TMPDIR``),
 where the reference names ``/tmp``. The reference's ``span`` context
-manager and its remote-call context propagation belong to its cluster
-runtime, which the port does not have.
+manager, its remote-call context propagation, its pluggable exporter
+and ``export_json`` are not taken: nothing in the port uses them.
 """
 from __future__ import annotations
 
@@ -20,25 +20,22 @@ import shutil
 import tempfile
 import threading
 import uuid
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 _lock = threading.Lock()
 _enabled = False
 _spans: List[Dict[str, Any]] = []
-_exporter: Optional[Callable[[Dict[str, Any]], None]] = None
 _trace_dir: Optional[str] = None
 _TRACE_DIR_ENV = "RAY_TPU_TRACE_DIR"
 
 
-def setup_tracing(exporter: Optional[Callable[[Dict[str, Any]], None]]
-                  = None, trace_dir: Optional[str] = None) -> None:
-    """Enable tracing. ``exporter`` also receives every span;
-    ``trace_dir`` (default: a per-pid directory under the temp
-    directory) collects each process's spans as JSONL and is exported
-    through ``RAY_TPU_TRACE_DIR`` to processes started afterwards."""
-    global _enabled, _exporter, _trace_dir
+def setup_tracing(trace_dir: Optional[str] = None) -> None:
+    """Enable tracing. ``trace_dir`` (default: a per-pid directory under
+    the temp directory) collects each process's spans as JSONL and is
+    exported through ``RAY_TPU_TRACE_DIR`` to processes started
+    afterwards."""
+    global _enabled, _trace_dir
     _enabled = True
-    _exporter = exporter
     _trace_dir = trace_dir or os.path.join(
         tempfile.gettempdir(), "ray_tpu", "traces",
         f"driver-{os.getpid()}")
@@ -49,9 +46,8 @@ def setup_tracing(exporter: Optional[Callable[[Dict[str, Any]], None]]
 def teardown_tracing() -> None:
     """Disable tracing, drop the collected spans and the trace
     directory."""
-    global _enabled, _exporter, _trace_dir
+    global _enabled, _trace_dir
     _enabled = False
-    _exporter = None
     if _trace_dir is not None:
         shutil.rmtree(_trace_dir, ignore_errors=True)
     _trace_dir = None
@@ -85,14 +81,6 @@ def get_spans(include_workers: bool = True) -> List[Dict[str, Any]]:
     return out
 
 
-def export_json(path: str) -> str:
-    with _lock:
-        data = list(_spans)
-    with open(path, "w") as f:
-        json.dump(data, f, indent=2)
-    return path
-
-
 def _new_id() -> str:
     return uuid.uuid4().hex[:16]
 
@@ -100,11 +88,6 @@ def _new_id() -> str:
 def _emit(span: Dict[str, Any]) -> None:
     with _lock:
         _spans.append(span)
-    if _exporter is not None:
-        try:
-            _exporter(span)
-        except Exception:  # noqa: BLE001 - an exporter never breaks a span
-            pass
     if _trace_dir is not None:
         try:
             path = os.path.join(_trace_dir, f"{os.getpid()}.jsonl")
