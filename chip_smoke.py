@@ -341,8 +341,11 @@ import argparse
 import collections
 import dataclasses
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -1102,10 +1105,8 @@ def _event_case(model, device: str, prompts, n: int, flight_dir: str
                 ) -> dict:
     """Phase 3's event case on ``device``: one engine (fp32, the
     lockstep loop, driven by ``step()``), a decode fault on slot 1 at
-    round 3 with ``flight_dir``. Returns the outcomes, the event log
+    round 2 with ``flight_dir``. Returns the outcomes, the event log
     without its times, ``sched_trace`` and the bundle's culprit."""
-    import os
-
     from ray_tpu_torch.serve import obs
     from ray_tpu_torch.serve.engine import LLMEngine
     from ray_tpu_torch.serve.faults import FaultInjector, check_quiesced
@@ -1144,7 +1145,6 @@ def phase_pool_events(tl, seed: int, card_device: str = "cuda") -> dict:
     engine with a contained decode fault and ``flight_dir`` — the same
     event log (kinds, requests, slots, data but times), ``sched_trace``
     and the bundle's culprit. (``card_device="cpu"`` rehearses it.)"""
-    import tempfile
     cfg = tl.LlamaConfig(vocab_size=32000, max_seq_len=256, dim=512,
                          n_layers=2, n_heads=8, n_kv_heads=2,
                          hidden_dim=1024, dtype=torch.float32)
@@ -3113,7 +3113,7 @@ def _decode_steps(engines) -> int:
     return sum(e.stats["decode_steps"] for e in engines)
 
 
-def _pool_kill_wave(tl, model, pool, history, wave2, n_new: int,
+def _pool_kill_wave(model, pool, history, wave2, n_new: int,
                     device: str) -> dict:
     """Phase 4g (b)'s second wave: 4 requests per session (its history
     plus a new message), sticky to the session's replica: 4 or more
@@ -3229,8 +3229,6 @@ def phase_obs_pool_path(tl, pa, seed: int, smi: str, cfg=None,
     """Phase 4g: the event log and the engine pool at full width
     (TinyLlama-1.1B bf16 unless ``cfg``; ``device="cpu"`` with a small
     ``cfg`` rehearses it without a card)."""
-    import tempfile
-
     from ray_tpu_torch.serve import obs
     from ray_tpu_torch.models.kv_cache import export_pages_bytes
     from ray_tpu_torch.serve.llm import LlamaDeployment
@@ -3266,7 +3264,6 @@ def phase_obs_pool_path(tl, pa, seed: int, smi: str, cfg=None,
             outs = [_outcome(h) for h in hs]
             culprits = [h._req.rid for h, o in zip(hs, outs)
                         if o[0] == "err"]
-            import os
             dirs = [os.path.join(flight, d) for d in os.listdir(flight)]
             bundle = obs.load_flight_bundle(dirs[0]) if dirs else {}
             fault = [ev for ev in bundle.get("engine", {}).get(
@@ -3280,6 +3277,8 @@ def phase_obs_pool_path(tl, pa, seed: int, smi: str, cfg=None,
                              "events_in_bundle": len(
                                  bundle["engine"]["events"])}
         eng.shutdown()
+        if flight is not None:
+            shutil.rmtree(flight, ignore_errors=True)
         del arm["hs"], arm["events"], arm["inj"]
         arms[name] = arm
         del eng
@@ -3333,8 +3332,8 @@ def phase_obs_pool_path(tl, pa, seed: int, smi: str, cfg=None,
     ps = pool.pool_stats()
     routes = collections.Counter(e[obs.SID] for e in pool.events.snapshot()
                                  if e[obs.ETYPE] == "route")
-    kill = _pool_kill_wave(tl, dep.model, pool, run["history"], wave2,
-                           n_new, device)
+    kill = _pool_kill_wave(dep.model, pool, run["history"], wave2, n_new,
+                           device)
     engines.append(kill.pop("killed_engine"))
     engines = list({id(e): e for e in engines + pool.engines()}.values())
     steps = _decode_steps(engines) - steps0

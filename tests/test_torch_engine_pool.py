@@ -625,7 +625,30 @@ def _scale_down_drain_vs_kill_vs_resubmit_three_way(s):
     return _record(pool)
 
 
+def _direct_submit_to_named_replica(s):
+    """``_submit_once(target_idx=)``, the disaggregated handoff's
+    decode-in-place rung: no routing policy, no sticky write, a shed
+    from the named replica raised as is, an unhealthy one refused."""
+    fakes = [FakeEngine(s.errors, 0), FakeEngine(s.errors, 1,
+                                                 outstanding=900)]
+    pool = _fake_pool(s, fakes)
+    rep, _inner = pool._submit_once([1, 2], 4, None, "s",
+                                    target_idx=1, record_sticky=False)
+    assert rep.idx == 1 and pool._sticky == {}
+    fakes[1].script.append(s.errors.EngineOverloaded(
+        "full", retry_after_s=3.0))
+    with pytest.raises(s.errors.EngineOverloaded):
+        pool._submit_once([1, 2], 4, None, None, target_idx=1)
+    pool.replica(0).state = s.pool.DRAINING
+    with pytest.raises(s.errors.EngineShutdown):
+        pool._submit_once([1, 2], 4, None, None, target_idx=0)
+    pool.replica(0).state = s.pool.HEALTHY
+    pool.shutdown()
+    return _record(pool)
+
+
 _FAKE_CASES = [
+    _direct_submit_to_named_replica,
     _rejects_zero_replicas, _p2c_routes_least_outstanding,
     _affinity_routes_longest_cached_prefix,
     _sticky_session_rehomes_after_death,
