@@ -1512,12 +1512,19 @@ class LLMEngine:
         """Global failure (device error, scheduler bug): every queued
         and in-flight request fails with the error. With ``flight_dir``
         the flight bundle is written first, before teardown clears the
-        queues."""
+        queues.
+
+        The engine is marked stopped before any consumer is released: a
+        pool judges a replica dead by ``_stopped`` the moment its
+        consumer sees the error, and must not read False there (the
+        reference sets it last, so its pool can take a replica death
+        for a request failure and lose the request)."""
         self.events.append("fail_all", data={"error": repr(e)})
         if self.flight_dir is not None:
             obs.dump_flight_bundle(self.flight_dir, "engine-fail-all",
                                    engine=self, extra={"error": repr(e)})
         with self._lock:
+            self._stopped = True
             self.stats["failed_all"] += 1
             # the ``fail_all`` event stands for every request it fails:
             # none gets a ``failed`` event of its own
@@ -1535,7 +1542,6 @@ class LLMEngine:
             while self._wait:
                 self._fail_req_locked(self._wait.popleft(), e,
                                       record=False)
-            self._stopped = True
 
     def _next_admit_locked(self) -> Optional[_Request]:
         """The request admission takes next: closed requests at the head

@@ -974,6 +974,31 @@ def test_drain_racing_replica_death_quiesces_leak_free(tiny):
         faults.check_pool_quiesced(pool)
 
 
+def test_fail_all_stops_before_releasing_consumers(tiny):
+    """A replica's ``_fail_all`` marks the engine stopped before it
+    releases any consumer, so the pool, judging the death by
+    ``_stopped`` as the consumer sees the error, never takes it for a
+    request failure (the reference sets ``_stopped`` last: under load
+    its pool then re-raises the raw error and the request is lost)."""
+    eng = tiny.engine("torch", max_slots=1, page_size=8, n_pages=32,
+                      chunk=2, eos_id=-1)
+    seen = []
+    hs = [eng.submit([5, 9, 2, 7], max_new_tokens=8),
+          eng.submit([4, 4, 2], max_new_tokens=8)]
+    eng.step()                            # one slotted, one queued
+    for h in hs:
+        q = h._req.out_q
+        put = q.put
+        q.put = lambda item, put=put: (seen.append(eng._stopped),
+                                       put(item))[1]
+    eng._fail_all(tfaults.ReplicaKilled("injected replica death"))
+    assert seen and all(seen), seen
+    for h in hs:
+        with pytest.raises(tfaults.ReplicaKilled):
+            h.result()
+    tfaults.check_quiesced(eng)
+
+
 # ----------------------------------------- from other reference files
 
 

@@ -646,7 +646,10 @@ def _record(tiny, pkg, name, tmp):
         inj = faults.FaultInjector()
         inj.inject("dispatch_decode", sid=1, round=3,
                    exc=RuntimeError("decode fault"))
-        kw.update(fault_injector=inj, flight_dir=str(tmp / pkg))
+        # no retry backoff: the requeued riders re-admit at a round
+        # the wall clock cannot move
+        kw.update(fault_injector=inj, flight_dir=str(tmp / pkg),
+                  retry_backoff_s=0.0)
     eng = tiny.engine(pkg, **kw)
     hs = _script(eng, name, tmp)
     faults.check_quiesced(eng)
