@@ -604,8 +604,9 @@ _METRICS: Optional[Dict[str, Any]] = None
 
 
 def phase_metrics() -> Dict[str, Any]:
-    """Lazy serve_phase_* Histogram singletons (same rebuild-on-
-    clear_registry pattern as the engine/pool metric builders)."""
+    """Lazy serve_phase_* Histogram singletons, re-created if a
+    ``clear_registry()`` dropped them (the engine's and the pool's
+    pattern)."""
     global _METRICS
     from ray_tpu_torch.util import metrics
     if _METRICS is None or metrics.registry().get(QUEUE_WAIT) is not \

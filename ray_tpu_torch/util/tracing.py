@@ -38,7 +38,7 @@ def setup_tracing(trace_dir: Optional[str] = None) -> None:
     _enabled = True
     _trace_dir = trace_dir or os.path.join(
         tempfile.gettempdir(), "ray_tpu", "traces",
-        f"driver-{os.getpid()}")
+        f"p{os.getpid()}")
     os.makedirs(_trace_dir, exist_ok=True)
     os.environ[_TRACE_DIR_ENV] = _trace_dir
 
