@@ -55,15 +55,33 @@ pages over ``loopback_call`` instead of recomputing them — never from
 a sibling serving another ``weights_id`` (the cross-replica half of
 the weight fence).
 
-The pool keeps its own ``obs.EventLog(2048, name="pool")`` (route,
-resubmit, drain, restart, replica_death, weight events) and the
-reference's ``serve_pool_*`` metrics.
+Prefill/decode disaggregation (``roles=``, which needs
+``share_prefixes``): while a healthy ``prefill`` replica exists, an
+online request of more than one token is served in two legs
+(``PoolRequestHandle._stream_disagg``). Leg 1 takes ONE bridging token
+on the prefill side (prefill or unified replicas); the engine retires
+the slot after it, publishing the prompt's full pages into its prefix
+cache. Leg 2 resumes the stream at ``prompt + [first]`` on the decode
+side with a finished-prefill push hint (``kv_migration.
+prefill_push_hint``), so the decode replica pulls the pages instead of
+recomputing them. Every way leg 2 can fail before its first token
+falls back typed: decode in place on the prefill replica, then any
+healthy replica. Batch work and session stickiness never land on a
+prefill replica. ``RolePoolView`` gives each side a pool-shaped view
+for a per-role autoscaler.
 
-Not ported yet (ROADMAP.md, queue 1, item 6): replica roles other than
-unified (the disaggregated two-leg stream and ``RolePoolView``), the
-watchdog's suspect and wedged marks, the autoscaler and the fleet.
-``capacity_hint_fn`` stays an attribute (None) that only an
-autoscaler would set.
+The watchdog's marks (serve/watchdog.py): ``mark_suspect`` takes a
+replica out of routing and capacity counts, ``clear_suspect`` gives it
+back, ``mark_wedged`` force-kills it and runs the death path. An
+attached autoscaler (serve/pool_autoscaler.py) installs
+``capacity_hint_fn``; its and the watchdog's ``stats()`` are blocks of
+``pool_stats()``.
+
+The pool keeps its own ``obs.EventLog(2048, name="pool")`` (route,
+resubmit, drain, restart, replica_death, weight, handoff, suspect,
+wedged and autoscale events) and the reference's ``serve_pool_*`` and
+``serve_disagg_*`` metrics. The fleet waits for ROADMAP.md, queue 1,
+item 9.
 """
 from __future__ import annotations
 
@@ -81,7 +99,8 @@ from ray_tpu_torch.serve.fleet.routing import (Candidate, ResubmitPolicy,
                                                select_candidate)
 from ray_tpu_torch.serve.prefix_cache import path_hashes
 from ray_tpu_torch.serve.scheduler import (LANE_BATCH, LANE_ONLINE,
-                                           ROLE_UNIFIED)
+                                           REPLICA_ROLES, ROLE_DECODE,
+                                           ROLE_PREFILL, ROLE_UNIFIED)
 from ray_tpu_torch.util import metrics
 
 ROUTED = "serve_pool_routed_total"
@@ -97,6 +116,18 @@ FREE_SLOTS = "serve_pool_replica_free_slots"
 QUEUE_DEPTH = "serve_pool_replica_queue_depth"
 BATCH_QUEUE_DEPTH = "serve_pool_replica_batch_queue_depth"
 CAPACITY_HINT_ERRORS = "serve_pool_capacity_hint_errors_total"
+SUSPECTS = "serve_pool_suspect_total"
+WEDGED = "serve_pool_wedged_total"
+WEDGE_LATENCY = "serve_pool_wedge_detect_latency_s"
+DISAGG_HANDOFFS = "serve_disagg_handoffs_total"
+DISAGG_FALLBACKS = "serve_disagg_handoff_fallbacks_total"
+
+# The role sets the disaggregated router selects over: new prompts land
+# on the prefill side, handed-off streams on the decode side. Unified
+# replicas serve both, which keeps a half-rolled or degraded
+# disaggregated pool available.
+_PREFILL_SIDE = (ROLE_PREFILL, ROLE_UNIFIED)
+_DECODE_SIDE = (ROLE_DECODE, ROLE_UNIFIED)
 
 _METRICS: Optional[dict] = None
 
@@ -145,6 +176,23 @@ def _metrics() -> dict:
             "capacity_hint_errors": metrics.Counter(
                 CAPACITY_HINT_ERRORS, "capacity_hint_fn raised; the "
                 "pool fell back to the pending-backoff ETA"),
+            "suspects": metrics.Counter(
+                SUSPECTS, "Replicas quarantined SUSPECT by the "
+                "watchdog (stale heartbeat with work pending)"),
+            "wedged": metrics.Counter(
+                WEDGED, "Replicas declared WEDGED and force-killed "
+                "by the watchdog"),
+            "wedge_latency": metrics.Histogram(
+                WEDGE_LATENCY, "Seconds from last observed progress "
+                "to the WEDGED declaration",
+                boundaries=(0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+                            10.0, 30.0)),
+            "disagg_handoffs": metrics.Counter(
+                DISAGG_HANDOFFS, "Prefill->decode stream handoffs "
+                "submitted over the KV-migration path"),
+            "disagg_fallbacks": metrics.Counter(
+                DISAGG_FALLBACKS, "Handoffs aborted typed and fallen "
+                "back to decoding in place"),
         }
     return _METRICS
 
@@ -152,8 +200,11 @@ def _metrics() -> dict:
 HEALTHY = "healthy"
 DRAINING = "draining"
 DEAD = "dead"
-# the watchdog's quarantine mark (not ported yet: nothing sets it);
-# pool_stats counts it as the reference does
+# The watchdog's quarantine (serve/watchdog.py): the replica's progress
+# heartbeat went stale WITH work pending. Routing, capacity counts and
+# the autoscaler's signals all skip it (they filter on HEALTHY); the
+# watchdog clears it back to HEALTHY on probed progress or escalates to
+# the death path.
 SUSPECT = "suspect"
 # Scale-down tombstone: drained and shut down ON PURPOSE, never
 # rebuilt; a later scale-up may reuse its index. Kept in the table so
@@ -204,10 +255,18 @@ class PoolRequestHandle(ResubmitPolicy):
         self._priority = priority
         self._rep: Optional[_Replica] = None
         self._inner = None
+        # two-leg disaggregated service, set by the pool at submit when
+        # it split the request: leg 1 streams ONE bridging token from
+        # the prefill side, leg 2 the rest from the decode side over
+        # the KV handoff
+        self._disagg = False
 
     def stream(self):
         """Yield generated token ids; recover across replica deaths
         while the at-most-once guard allows (zero tokens delivered)."""
+        if self._disagg:
+            yield from self._stream_disagg()
+            return
         while True:
             rep, inner = self._rep, self._inner
             try:
@@ -238,6 +297,152 @@ class PoolRequestHandle(ResubmitPolicy):
                     raise self._partial_stream_error(
                         str(rep.idx), e) from e
                 self._resubmit(e)      # raises typed when impossible
+
+    def _stream_disagg(self):
+        """The two-leg stream. Leg 1 (submitted by the pool): one
+        bridging token on the prefill side; the engine retires the slot
+        after it, publishing the prompt's full pages into the donor's
+        prefix cache. Leg 2: the rest on the decode side, admitted with
+        the finished-prefill push hint, so its KV lands over
+        ``kv_migration.pull_prefix`` at full prompt length instead of
+        being recomputed. Greedy fp32 decoding is deterministic, so the
+        stitched stream equals single-replica service.
+
+        Every way leg 2 can fail BEFORE its first token falls back
+        typed (``_hand_off``); after leg 2 streams, a death fails typed
+        as in the base loop: at most once per leg."""
+        pool = self._pool
+        first: Optional[int] = None
+        # ---- leg 1: the bridging token from the prefill side
+        while True:
+            rep, inner = self._rep, self._inner
+            try:
+                for tok in inner.stream():
+                    self._note_token(tok)
+                    first = tok
+                break
+            except GeneratorExit:
+                raise
+            except (RequestCancelled, DeadlineExceeded,
+                    EngineOverloaded, EngineDraining) as e:
+                self._fail(e)
+                raise
+            except BaseException as e:
+                if not pool._note_replica_death(rep):
+                    self._fail(e)
+                    raise
+                if first is not None:
+                    break     # the token landed; only the donor is gone
+                if self._cancelled:
+                    raise self._partial_stream_error(
+                        str(rep.idx), e) from e
+                deadline = self._check_resubmit(e)
+                pool._count_requeue(trace_id=self._trace_id)
+                try:
+                    self._rep, self._inner = pool._submit_leg(
+                        self._prompt, 1, deadline, None,
+                        trace_id=self._trace_id, roles=_PREFILL_SIDE,
+                        fallback_any=True)
+                except BaseException as e2:
+                    self._fail(e2)
+                    raise
+        if first is None:
+            # the engine's contract: a stream that does not fail emits
+            # at least one token
+            err = EngineShutdown("prefill leg closed without a token")
+            self._fail(err)
+            raise err
+        yield first
+        if self._mnt <= 1 or self._cancelled:
+            self._finished = True
+            return
+        # ---- the handoff: the decode leg resumes at full prompt length
+        donor = self._rep
+        prompt2 = self._prompt + [first]
+        mnt2 = self._mnt - 1
+        self._rep = self._inner = None
+        self._hand_off(donor, prompt2, mnt2)
+        # ---- leg 2: the stream on the decode side
+        leg2_tokens = 0
+        while True:
+            rep, inner = self._rep, self._inner
+            try:
+                for tok in inner.stream():
+                    if leg2_tokens == 0:
+                        pool._note_handoff_first_token(
+                            rep, trace_id=self._trace_id)
+                    leg2_tokens += 1
+                    self._note_token(tok)
+                    yield tok
+                self._finished = True
+                return
+            except GeneratorExit:
+                raise
+            except (RequestCancelled, DeadlineExceeded,
+                    EngineOverloaded, EngineDraining) as e:
+                self._fail(e)
+                raise
+            except BaseException as e:
+                if not pool._note_replica_death(rep):
+                    self._fail(e)
+                    raise
+                if leg2_tokens or self._cancelled:
+                    raise self._partial_stream_error(
+                        str(rep.idx), e) from e
+                self._check_resubmit(e)
+                pool._count_requeue(trace_id=self._trace_id)
+                self._hand_off(donor, prompt2, mnt2)
+
+    def _hand_off(self, donor: Optional[_Replica], prompt2: List[int],
+                  mnt2: int) -> None:
+        """Submit the decode leg: a decode-side route with the
+        finished-prefill push hint, then the typed-abort fallback
+        ladder — decode in place on the donor (its prefix cache holds
+        the prompt's pages: a local-hit residual prefill), then any
+        healthy replica (plain prefill). Raises typed only when no
+        replica at all can take the stream."""
+        pool = self._pool
+        deadline = (self._remaining_deadline(None)
+                    if self._deadline_s is not None else None)
+        donor_live = (donor is not None
+                      and not getattr(donor.engine, "_stopped", True))
+        hint = None
+        if donor_live:
+            hint = kv_migration.prefill_push_hint(
+                self._prompt, getattr(donor.engine, "Pg", 0),
+                replica_idx=donor.idx)
+        try:
+            self._rep, self._inner = pool._submit_leg(
+                prompt2, mnt2, deadline, self._session_id,
+                trace_id=self._trace_id, roles=_DECODE_SIDE, pull=hint,
+                exclude={donor.idx} if donor_live else None)
+            pool._note_handoff(donor, self._rep, trace_id=self._trace_id)
+            return
+        except (RequestCancelled, DeadlineExceeded) as e:
+            self._fail(e)
+            raise
+        except BaseException as e:  # noqa: BLE001 - the ladder below
+            cause = e
+        pool._note_handoff_fallback(donor, cause, trace_id=self._trace_id)
+        if donor_live:
+            try:
+                self._rep, self._inner = pool._submit_once(
+                    prompt2, mnt2, deadline, None,
+                    trace_id=self._trace_id, target_idx=donor.idx,
+                    record_sticky=False)
+                return
+            except (RequestCancelled, DeadlineExceeded) as e:
+                self._fail(e)
+                raise
+            except BaseException:  # noqa: BLE001 - the donor died too
+                pass
+        try:
+            self._rep, self._inner = pool._submit_once(
+                prompt2, mnt2, deadline, self._session_id,
+                trace_id=self._trace_id)
+        except BaseException as e:
+            self._fail(e)
+            raise
 
     def cancel(self) -> bool:
         self._cancelled = True
@@ -316,8 +521,9 @@ class EnginePool:
         ``DEGRADED``. None = unlimited.
     share_prefixes: the replicas pull each other's cached prefixes
         (``kv_migration``) instead of recomputing them.
-    roles: every replica's role; only ``"unified"`` is ported (another
-        raises ``ValueError``).
+    roles: every replica's role (``"prefill"``, ``"decode"`` or
+        ``"unified"``, the default); a pool with any other than unified
+        is disaggregated and needs ``share_prefixes=True``.
     kv_pull_deadline_s / kv_pull_backoff_s: ``pull_prefix`` knob
         overrides (None: its defaults), validated here.
     seed: the power-of-two-choices sampling seed.
@@ -338,18 +544,24 @@ class EnginePool:
                  seed: int = 0):
         if num_replicas < 1:
             raise ValueError("num_replicas must be >= 1")
-        if roles is not None:
+        if roles is None:
+            roles = [ROLE_UNIFIED] * num_replicas
+        else:
             roles = list(roles)
             if len(roles) != num_replicas:
                 raise ValueError(
                     f"roles must name every replica: got "
                     f"{len(roles)} roles for {num_replicas} replicas")
-            if any(r != ROLE_UNIFIED for r in roles):
+            for role in roles:
+                _check_role(role)
+            if (any(r != ROLE_UNIFIED for r in roles)
+                    and not share_prefixes):
+                # the handoff path IS the share_prefixes KV wiring: a
+                # disaggregated pool without it would re-prefill every
+                # handed-off stream
                 raise ValueError(
-                    f"replica roles {sorted(set(roles))}: only "
-                    f"'{ROLE_UNIFIED}' replicas are ported; the "
-                    f"disaggregated prefill/decode pool waits for "
-                    f"ROADMAP.md queue 1, item 6")
+                    "role-disaggregated pools require "
+                    "share_prefixes=True (the KV handoff path)")
         self._factory = engine_factory
         # requester-side pull knob overrides (None: pull_prefix's
         # defaults), validated typed at construction
@@ -366,9 +578,11 @@ class EnginePool:
             self.restart_backoff_s, float(restart_backoff_max_s))
         self.max_restarts = max_restarts
         # the ETA (s) until capacity being provisioned joins the pool,
-        # which an autoscaler installs (not ported yet): an all-shed
+        # installed by an attached PoolAutoscaler: an all-shed
         # Retry-After never invites a client back before it exists
         self.capacity_hint_fn: Optional[Callable[[], float]] = None
+        self._autoscaler = None      # an attached PoolAutoscaler
+        self._watchdog = None        # an attached PoolWatchdog
         self._sticky: "collections.OrderedDict[str, int]" = \
             collections.OrderedDict()
         # routing and lifecycle counters (the engines keep their own
@@ -381,6 +595,9 @@ class EnginePool:
         self._stopped = False
         self._share_prefixes = bool(share_prefixes)
         self._kv_donors: Dict[int, kv_migration.KVDonor] = {}
+        # role -> RolePoolView, registered by the views: the per-role
+        # autoscalers' attachment points and pool_stats blocks
+        self._role_views: Dict[str, Any] = {}
         # the payload every rebuilt or added replica is re-stamped to
         # (``set_weight_source``): the factory closes over the
         # original weights
@@ -388,11 +605,24 @@ class EnginePool:
         self._replicas: List[_Replica] = []
         for i in range(num_replicas):
             eng = engine_factory(i)
+            self._stamp_role(eng, roles[i])
             self._stamp_replica_tag(eng, i)
             eng.start()
-            rep = _Replica(i, eng)
+            rep = _Replica(i, eng, role=roles[i])
             self._replicas.append(rep)
             self._wire_kv(rep)
+
+    @staticmethod
+    def _stamp_role(engine, role: str) -> None:
+        """Stamp a replica's role onto its engine after the factory
+        built it: one ``f(idx)`` factory serves both sides, and the
+        role steers only dynamic decisions (the planner caps of
+        ``role_plan_caps``, the load report). Engines without the
+        attribute (a test's fakes) are left alone."""
+        try:
+            engine.role = role
+        except Exception:  # noqa: BLE001 - best effort
+            pass
 
     @staticmethod
     def _stamp_replica_tag(engine, idx: int) -> None:
@@ -445,7 +675,7 @@ class EnginePool:
         generation now serving on that replica."""
         with self._lock:
             rep = self._replicas[idx]
-            if rep.state != HEALTHY:
+            if rep.state not in (HEALTHY, SUSPECT):
                 raise RuntimeError(
                     f"replica {idx} is {rep.state}; only live "
                     f"replicas can swap weights")
@@ -488,6 +718,24 @@ class EnginePool:
         with self._lock:
             return any(r.state == DEGRADED for r in self._replicas)
 
+    def disaggregated(self) -> bool:
+        """True while a healthy prefill replica exists: the condition
+        under which an online request splits into two legs. Read per
+        submit, so a pool whose last prefill replica died serves
+        unified instead of stranding traffic."""
+        with self._lock:
+            return any(r.role == ROLE_PREFILL and r.state == HEALTHY
+                       for r in self._replicas)
+
+    def role_counts(self) -> Dict[str, int]:
+        """Active (not retired) replicas per role."""
+        out: Dict[str, int] = collections.Counter()
+        with self._lock:
+            for r in self._replicas:
+                if r.state != RETIRED:
+                    out[r.role] += 1
+        return dict(out)
+
     def submit(self, prompt_ids: Sequence[int],
                max_new_tokens: int = 64,
                deadline_s: Optional[float] = None,
@@ -500,13 +748,30 @@ class EnginePool:
         request at once, a pool-aggregate ``EngineOverloaded`` when
         every healthy replica sheds, ``EngineShutdown`` when none is
         left (``PoolDegraded`` past the restart cap).
-        ``priority="batch"`` takes the batch spill route."""
+        ``priority="batch"`` takes the batch spill route. In a
+        disaggregated pool an online request of more than one token
+        starts its first leg on the prefill side (module docstring),
+        or is served unified when that side cannot admit at all."""
         if self._stopped:
             raise EngineShutdown("engine pool stopped")
         prompt = [int(t) for t in prompt_ids]
         handle = PoolRequestHandle(self, prompt, max_new_tokens,
                                    deadline_s, session_id, trace_id,
                                    priority=priority)
+        if (priority == LANE_ONLINE and max_new_tokens > 1
+                and self.disaggregated()):
+            # leg 1: ONE token on the prefill side; the session is not
+            # passed, so no sticky entry ever pins it to a prefill
+            # replica
+            try:
+                rep, inner = self._submit_once(
+                    prompt, 1, deadline_s, None, trace_id=trace_id,
+                    roles=_PREFILL_SIDE)
+                handle._disagg = True
+                handle._attach(rep, inner)
+                return handle
+            except (EngineShutdown, PoolDegraded):
+                pass
         rep, inner = self._submit_once(prompt, max_new_tokens,
                                        deadline_s, session_id,
                                        trace_id=trace_id,
@@ -528,6 +793,58 @@ class EnginePool:
                                       if trace_id else None),
                             priority=LANE_BATCH)
                 for i, p in enumerate(prompts)]
+
+    def _submit_leg(self, prompt: List[int], max_new_tokens: int,
+                    deadline_s: Optional[float],
+                    session_id: Optional[str], *,
+                    trace_id: Optional[str] = None,
+                    roles: Optional[Sequence[str]] = None,
+                    pull: Optional[Dict[str, Any]] = None,
+                    exclude: Optional[set] = None,
+                    fallback_any: bool = False):
+        """One leg of a disaggregated request: a role-filtered
+        ``_submit_once``, with ``fallback_any`` an unrestricted route
+        when the whole side is gone (a dead prefill side must not
+        strand a request a decode replica could still serve by plain
+        prefill)."""
+        try:
+            return self._submit_once(prompt, max_new_tokens, deadline_s,
+                                     session_id, trace_id=trace_id,
+                                     roles=roles, pull=pull,
+                                     exclude=exclude)
+        except (EngineShutdown, PoolDegraded):
+            if not fallback_any:
+                raise
+            return self._submit_once(prompt, max_new_tokens, deadline_s,
+                                     session_id, trace_id=trace_id)
+
+    def _note_handoff(self, donor: Optional[_Replica], target: _Replica,
+                      trace_id: Optional[str] = None) -> None:
+        with self._lock:
+            self.route_stats["disagg_handoffs"] += 1
+        self.events.append(
+            "handoff", sid=target.idx,
+            data={"from": donor.idx if donor is not None else None,
+                  "to": target.idx, "trace_id": trace_id})
+        _metrics()["disagg_handoffs"].inc()
+
+    def _note_handoff_first_token(self, target: _Replica,
+                                  trace_id: Optional[str] = None) -> None:
+        """The decode leg's first token: the closing edge of the
+        handoff latency, which opens at the ``handoff`` event."""
+        self.events.append("handoff_first_token", sid=target.idx,
+                           data={"to": target.idx, "trace_id": trace_id})
+
+    def _note_handoff_fallback(self, donor: Optional[_Replica],
+                               cause: BaseException,
+                               trace_id: Optional[str] = None) -> None:
+        with self._lock:
+            self.route_stats["disagg_handoff_fallbacks"] += 1
+        self.events.append(
+            "handoff_fallback",
+            sid=donor.idx if donor is not None else None,
+            data={"error": repr(cause), "trace_id": trace_id})
+        _metrics()["disagg_fallbacks"].inc()
 
     def shutdown(self) -> None:
         """Stop every replica; queued and in-flight requests fail typed
@@ -578,23 +895,25 @@ class EnginePool:
 
     def add_replica(self, role: str = ROLE_UNIFIED) -> int:
         """Scale up by one from the factory, reusing a retired index
-        when there is one (its generation bumps). Returns the index."""
+        when there is one (its generation bumps). ``role`` places the
+        new replica on a disaggregated pool's prefill or decode side.
+        Returns the index."""
         if self._stopped:
             raise EngineShutdown("engine pool stopped")
-        if role != ROLE_UNIFIED:
-            raise ValueError(
-                f"replica role {role!r}: only '{ROLE_UNIFIED}' replicas "
-                f"are ported (ROADMAP.md queue 1, item 6)")
+        _check_role(role)
         with self._lock:
             retired = [r for r in self._replicas if r.state == RETIRED]
             idx = retired[0].idx if retired else len(self._replicas)
+            if retired:
+                retired[0].role = role    # _rebuild carries it over
         if retired:
             self._rebuild(idx)
         else:
             eng = self._factory(idx)
+            self._stamp_role(eng, role)
             self._stamp_replica_tag(eng, idx)
             eng.start()
-            rep = _Replica(idx, eng)
+            rep = _Replica(idx, eng, role=role)
             with self._lock:
                 self._replicas.append(rep)
             self._wire_kv(rep)
@@ -619,12 +938,15 @@ class EnginePool:
             self.route_stats["replicas_retired"] += 1
         return clean
 
-    def scale_down(self, n: int = 1, timeout_s: float = 30.0) -> List[int]:
+    def scale_down(self, n: int = 1, timeout_s: float = 30.0,
+                   role: Optional[str] = None) -> List[int]:
         """Retire the ``n`` least-loaded healthy replicas (by
-        outstanding tokens), never going below one healthy replica.
-        Returns the retired indices."""
+        outstanding tokens), never going below one healthy replica — of
+        ``role`` when it is given (a per-role autoscaler never retires
+        its side's last replica). Returns the retired indices."""
         with self._lock:
-            candidates = [r for r in self._replicas if r.state == HEALTHY]
+            candidates = [r for r in self._replicas if r.state == HEALTHY
+                          and (role is None or r.role == role)]
         n = min(n, len(candidates) - 1)
         if n <= 0:
             return []
@@ -678,6 +1000,7 @@ class EnginePool:
     def _rebuild(self, idx: int) -> None:
         old = self._replicas[idx]
         eng = self._factory(idx)
+        self._stamp_role(eng, old.role)
         self._stamp_replica_tag(eng, idx)
         eng.start()
         with self._lock:
@@ -690,6 +1013,63 @@ class EnginePool:
         self.events.append("restart", sid=idx,
                            data={"generation": old.generation + 1})
         _metrics()["restarts"].inc()
+
+    # -------------------------------------------------- watchdog marks
+
+    def mark_suspect(self, rep: _Replica) -> bool:
+        """HEALTHY -> SUSPECT (the watchdog's quarantine): the replica
+        stops counting as capacity everywhere at once, since routing,
+        ``healthy_count``, scale-down and the autoscaler's signals all
+        filter on HEALTHY. False when the replica moved on (died,
+        drained, was replaced) since it was observed."""
+        with self._lock:
+            if (self._replicas[rep.idx] is not rep
+                    or rep.state != HEALTHY):
+                return False
+            rep.state = SUSPECT
+            self.route_stats["suspects"] += 1
+            self._drop_sticky_locked(rep.idx)
+        self.events.append("suspect", sid=rep.idx)
+        _metrics()["suspects"].inc()
+        return True
+
+    def clear_suspect(self, rep: _Replica) -> bool:
+        """SUSPECT -> HEALTHY: the probe saw progress (a long but moving
+        dispatch, not a wedge); the replica takes traffic again."""
+        with self._lock:
+            if (self._replicas[rep.idx] is not rep
+                    or rep.state != SUSPECT):
+                return False
+            rep.state = HEALTHY
+        self.events.append("suspect_cleared", sid=rep.idx)
+        return True
+
+    def mark_wedged(self, rep: _Replica,
+                    err: Optional[BaseException] = None,
+                    stalled_for_s: Optional[float] = None) -> bool:
+        """Declare a silent replica WEDGED and drive the death path:
+        ``force_kill`` the engine out of band (lock-free: the wedged
+        scheduler thread holds the engine lock), which fails every
+        consumer typed so the unstreamed requests resubmit, then
+        ``_note_replica_death`` marks it DEAD and schedules the rebuild.
+        Healthy replicas are never touched."""
+        with self._lock:
+            if (self._replicas[rep.idx] is not rep
+                    or rep.state not in (HEALTHY, SUSPECT)):
+                return False
+            self.route_stats["wedged"] += 1
+        self.events.append("wedged", sid=rep.idx,
+                           data={"stalled_for_s": stalled_for_s,
+                                 "error": repr(err) if err else None})
+        m = _metrics()
+        m["wedged"].inc()
+        if stalled_for_s is not None:
+            m["wedge_latency"].observe(stalled_for_s)
+        try:
+            rep.engine.force_kill(err)
+        except Exception:  # noqa: BLE001 - the death path still runs
+            pass
+        return self._note_replica_death(rep)
 
     def _note_replica_death(self, rep: _Replica) -> bool:
         """Judge (and record) a replica death: True iff ``rep``'s
@@ -867,6 +1247,7 @@ class EnginePool:
                      session_id: Optional[str],
                      trace_id: Optional[str] = None,
                      priority: str = LANE_ONLINE,
+                     roles: Optional[Sequence[str]] = None,
                      pull: Optional[Dict[str, Any]] = None,
                      exclude: Optional[set] = None,
                      target_idx: Optional[int] = None,
@@ -874,10 +1255,11 @@ class EnginePool:
         """Route and submit until one replica accepts. A replica that
         sheds, dies or drains between the snapshot and the submit is
         excluded and routing retries; when nothing accepts, the
-        failure is typed and aggregated. ``pull`` overrides the routed
-        pull hint; ``target_idx`` skips routing and submits to that
-        one healthy replica; ``record_sticky=False`` writes no session
-        placement."""
+        failure is typed and aggregated. ``roles`` restricts routing to
+        those replica roles; ``pull`` overrides the routed pull hint
+        (the finished-prefill push hint); ``target_idx`` skips routing
+        and submits to that one healthy replica (the decode-in-place
+        rung); ``record_sticky=False`` writes no session placement."""
         batch = priority == LANE_BATCH
         exclude = set(exclude) if exclude else set()
         shed: List[EngineOverloaded] = []
@@ -887,7 +1269,8 @@ class EnginePool:
                 rep, decision = self._route_direct(target_idx)
             else:
                 rep, decision = self._route(prompt, session_id, exclude,
-                                            batch=batch, cost=cost)
+                                            batch=batch, cost=cost,
+                                            roles=roles)
             if rep is not None and pull is not None:
                 decision = dict(decision, pull=pull)
             if rep is None:
@@ -973,11 +1356,16 @@ class EnginePool:
         return rep, {"kind": "direct", "pages": 0}
 
     def _route(self, prompt: List[int], session_id: Optional[str],
-               exclude: set, *, batch: bool = False, cost: int = 0):
+               exclude: set, *, batch: bool = False, cost: int = 0,
+               roles: Optional[Sequence[str]] = None):
         """Pick a replica, or ``(None, {"hints": [...]})`` when none can
         admit. The replica table is read under the pool lock; the
         ``load_report()`` calls happen outside it (each briefly takes
-        its engine's lock). ``batch=True`` takes ``_route_batch``.
+        its engine's lock). ``batch=True`` takes ``_route_batch``, and
+        batch work never lands on a prefill replica (a backlog spills
+        only where long decode streams can run). ``roles`` restricts
+        the candidates to those roles. A sticky entry naming a prefill
+        replica is dropped, not followed.
 
         The pick and its ``cost`` tokens, added to the picked replica's
         routes in flight (``_submit_once`` takes them off once the
@@ -989,9 +1377,18 @@ class EnginePool:
         whenever no route is in flight)."""
         with self._lock:
             reps = [r for r in self._replicas
-                    if r.state == HEALTHY and r.idx not in exclude]
+                    if r.state == HEALTHY and r.idx not in exclude
+                    and (roles is None or r.role in roles)
+                    and not (batch and r.role == ROLE_PREFILL)]
             sticky_idx = (self._sticky.get(session_id)
                           if session_id is not None else None)
+            if (sticky_idx is not None
+                    and sticky_idx < len(self._replicas)
+                    and self._replicas[sticky_idx].role == ROLE_PREFILL):
+                # e.g. written before the replica was re-roled: a
+                # session is never pinned to a prefill replica
+                del self._sticky[session_id]
+                sticky_idx = None
         if not reps:
             return None, {"hints": []}
         reports = {r.idx: r.engine.load_report() for r in reps}
@@ -1113,24 +1510,28 @@ class EnginePool:
             out.extend(rep.engine.ttfts_s)
         return out
 
-    def load_reports(self) -> Dict[int, Dict[str, Any]]:
+    def load_reports(self, role: Optional[str] = None
+                     ) -> Dict[int, Dict[str, Any]]:
         with self._lock:
             reps = [r for r in self._replicas
-                    if r.state in (HEALTHY, DRAINING)]
+                    if r.state in (HEALTHY, DRAINING)
+                    and (role is None or r.role == role)]
         return {r.idx: r.engine.load_report() for r in reps}
 
-    def load_report(self) -> Dict[str, Any]:
+    def load_report(self, role: Optional[str] = None) -> Dict[str, Any]:
         """Pool-aggregate load snapshot: the engine report's fields
         summed over the live replicas (``shed_retry_after_s``,
         ``ttft_ewma_s`` and ``itl_ewma_s``: the largest), plus replica
         counts and the rollout state. No digest: affinity is the
-        pool's own decision."""
-        reports = list(self.load_reports().values())
+        pool's own decision. ``role`` restricts it to one side of a
+        disaggregated pool: what a per-role autoscaler senses."""
+        reports = list(self.load_reports(role).values())
         with self._lock:
-            n = len(self._replicas)
-            active = sum(1 for r in self._replicas if r.state != RETIRED)
-            healthy = sum(1 for r in self._replicas
-                          if r.state == HEALTHY)
+            mine = [r for r in self._replicas
+                    if role is None or r.role == role]
+            n = len(mine)
+            active = sum(1 for r in mine if r.state != RETIRED)
+            healthy = sum(1 for r in mine if r.state == HEALTHY)
             role_counts: Dict[str, int] = collections.Counter(
                 r.role for r in self._replicas if r.state != RETIRED)
         agg = {"free_slots": 0, "free_pages": 0, "queue_depth": 0,
@@ -1141,7 +1542,7 @@ class EnginePool:
                "total_slots": 0, "shed_total": 0,
                "ttft_ewma_s": None,
                "itl_ewma_s": None,
-               "role": ROLE_UNIFIED,
+               "role": role if role is not None else ROLE_UNIFIED,
                "roles": dict(role_counts),
                "n_replicas": n,
                "active_replicas": active,
@@ -1191,6 +1592,7 @@ class EnginePool:
                          r.engine, "weight_generation", 0),
                      "weights_id": getattr(r.engine, "weights_id", None)}
                     for r in self._replicas]
+            role_views = dict(self._role_views)
         routed = counters.get("routed", 0)
         counters["affinity_hit_rate"] = round(
             counters.get("affinity_hits", 0) / routed, 4) \
@@ -1209,6 +1611,16 @@ class EnginePool:
         kv = self.kv_migration_stats()
         if kv is not None:
             counters["kv_migration"] = kv
+        if self._autoscaler is not None:
+            counters["autoscale"] = self._autoscaler.stats()
+        # per-role autoscalers: one block per side
+        by_role = {role: view._autoscaler.stats()
+                   for role, view in role_views.items()
+                   if view._autoscaler is not None}
+        if by_role:
+            counters["autoscale_by_role"] = by_role
+        if self._watchdog is not None:
+            counters["watchdog"] = self._watchdog.stats()
         return counters
 
     def _agg_numeric(self, per_replica: List[Optional[Dict[str, Any]]]
@@ -1267,3 +1679,102 @@ class EnginePool:
             if per:
                 out[knob] = per[0].get(knob)
         return out
+
+    def _role_capacity_eta_s(self) -> float:
+        """The largest provisioning ETA over the per-role autoscalers:
+        the pool's ``capacity_hint_fn`` once role views are attached
+        (either side's new capacity can end an all-shed)."""
+        eta = 0.0
+        for view in list(self._role_views.values()):
+            scaler = view._autoscaler
+            if scaler is None:
+                continue
+            try:
+                eta = max(eta, float(scaler.capacity_eta_s()))
+            except Exception:  # noqa: BLE001
+                _metrics()["capacity_hint_errors"].inc()
+        return eta
+
+
+def _check_role(role: str) -> None:
+    if role not in REPLICA_ROLES:
+        raise ValueError(f"unknown replica role {role!r}; expected one "
+                         f"of {sorted(REPLICA_ROLES)}")
+
+
+class _RoleEventLog:
+    """The event log a ``RolePoolView`` hands its autoscaler: appends
+    land in the POOL's log with the view's role added to the data, so
+    both sides' scale decisions interleave in one log and stay
+    attributable."""
+
+    def __init__(self, log: obs.EventLog, role: str):
+        self._log = log
+        self._role = role
+
+    def append(self, etype: str, rid: Any = None, sid: Any = None,
+               data: Any = None, t: Optional[float] = None) -> None:
+        d = dict(data) if isinstance(data, dict) else (
+            {"data": data} if data is not None else {})
+        d["role"] = self._role
+        self._log.append(etype, rid=rid, sid=sid, data=d, t=t)
+
+    def __getattr__(self, name: str) -> Any:
+        return getattr(self._log, name)
+
+
+class RolePoolView:
+    """One side of a disaggregated ``EnginePool``, shaped like a pool.
+
+    A ``PoolAutoscaler`` attaches itself to what it is given
+    (``_autoscaler``, ``capacity_hint_fn``), so two per-role scalers on
+    the same pool would overwrite each other. Each gets a view instead:
+    ``load_report`` and the counts filter to the role, ``add_replica``
+    and ``scale_down`` scale only this side, events carry the role, and
+    the view registers itself on the pool, so ``pool_stats`` shows
+    both sides' decisions (``autoscale_by_role``) and the pool's
+    capacity hint is the largest of the attached scalers' ETAs."""
+
+    def __init__(self, pool: EnginePool, role: str):
+        _check_role(role)
+        self._pool = pool
+        self.role = role
+        # a PoolAutoscaler's attachment points land here, per view
+        self._autoscaler = None
+        self.capacity_hint_fn: Optional[Callable[[], float]] = None
+        self.events = _RoleEventLog(pool.events, role)
+        pool._role_views[role] = self
+        pool.capacity_hint_fn = pool._role_capacity_eta_s
+
+    # the pool surface the autoscaler senses
+
+    @property
+    def _stopped(self) -> bool:
+        return self._pool._stopped
+
+    @property
+    def add_replica_for_ticket(self):
+        # a provider's harvest override, honored pool-wide if installed
+        return getattr(self._pool, "add_replica_for_ticket", None)
+
+    def load_report(self) -> Dict[str, Any]:
+        return self._pool.load_report(role=self.role)
+
+    def active_count(self) -> int:
+        with self._pool._lock:
+            return sum(1 for r in self._pool._replicas
+                       if r.state != RETIRED and r.role == self.role)
+
+    def healthy_count(self) -> int:
+        with self._pool._lock:
+            return sum(1 for r in self._pool._replicas
+                       if r.state == HEALTHY and r.role == self.role)
+
+    # the pool surface the autoscaler acts on
+
+    def add_replica(self) -> int:
+        return self._pool.add_replica(role=self.role)
+
+    def scale_down(self, n: int = 1,
+                   timeout_s: float = 30.0) -> List[int]:
+        return self._pool.scale_down(n, timeout_s, role=self.role)

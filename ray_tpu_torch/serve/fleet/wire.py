@@ -20,12 +20,8 @@ and a JAX-package process speak one wire.
 Fleet-specific typed errors subclass the serving taxonomy
 (serve/errors.py) as the reference's do: ``StaleFencingToken``,
 ``UnknownMember``, ``AgentFenced``, ``NotPrimary`` and
-``KVPullAborted``.
-
-One difference: the reference resolves the name ``ReplicaWedged``
-lazily from its watchdog (``ray_tpu/serve/watchdog.py``). The port has
-no watchdog yet (ROADMAP.md, queue 1, item 6), so that name decodes
-here as a plain ``WireError`` until it does.
+``KVPullAborted``. The name ``ReplicaWedged`` resolves lazily, at raise
+time, to the watchdog's class (serve/watchdog.py).
 """
 from __future__ import annotations
 
@@ -88,6 +84,17 @@ class WireError(RuntimeError):
     """A remote failure with no typed equivalent on this side."""
 
 
+def _error_class(name: str):
+    cls = _WIRE_ERRORS.get(name)
+    if cls is None and name == "ReplicaWedged":
+        # lazy: the watchdog imports the engine pool, which imports
+        # fleet.routing, so resolving at raise time keeps this module
+        # free of the import order
+        from ray_tpu_torch.serve.watchdog import ReplicaWedged
+        _WIRE_ERRORS[name] = cls = ReplicaWedged
+    return cls
+
+
 def request(method: str, args: Dict[str, Any],
             trace_id: Optional[str] = None) -> Dict[str, Any]:
     return {"v": WIRE_VERSION, "method": method, "args": args,
@@ -109,7 +116,7 @@ def raise_error(error: Dict[str, Any]) -> None:
     """Rebuild and raise the typed error a response carried."""
     name = error.get("type", "WireError")
     msg = error.get("msg", "")
-    cls = _WIRE_ERRORS.get(name)
+    cls = _error_class(name)
     if cls is None:
         raise WireError(f"{name}: {msg}")
     exc = cls(msg)

@@ -24,9 +24,18 @@ resubmit of unstreamed requests across a replica's death, and with
 cache on, the pool shares prefixes across its replicas
 (``share_prefixes``: a cold replica pulls a sibling's cached pages,
 under ``kv_pull_deadline_s`` and ``kv_pull_backoff_s``); the reference
-turns that on only for its disaggregated pool. The fleet, autoscaler,
-watchdog, disaggregated roles and tensor parallelism of the reference
-are not ported yet (ROADMAP.md, queue 1, items 6, 8 and 9).
+turns that on only for its disaggregated pool.
+
+``disaggregate=True`` splits the pool into ``prefill_replicas`` that
+take new prompts and ``decode_replicas`` that resume the streams over
+the KV handoff (serve/engine_pool.py). ``autoscale=True`` drives the
+pool between ``num_engine_replicas`` and ``autoscale_max_replicas``
+with a ``PoolAutoscaler`` (serve/pool_autoscaler.py), one per side of
+a disaggregated pool over its ``RolePoolView``.
+``engine_stall_deadline_s`` on a pool adds a ``PoolWatchdog``
+(serve/watchdog.py) that wedges and rebuilds a replica whose scheduler
+stops making progress. The fleet and tensor parallelism of the
+reference are not ported yet (ROADMAP.md, queue 1, items 8 and 9).
 """
 from __future__ import annotations
 
@@ -81,14 +90,28 @@ class LlamaDeployment:
         ``EngineOverloaded``); None: unbounded.
     max_retries, retry_backoff_s: the engine's retry policy after a
         contained fault.
-    engine_stall_deadline_s: becomes the engine's ``admit_timeout_s``:
-        a submit that cannot take a stalled engine's lock this long
-        sheds instead of parking (the reference's watchdog also reads
-        it, which is not ported yet); None: off.
+    engine_stall_deadline_s: becomes the engine's ``admit_timeout_s``
+        (a submit that cannot take a stalled engine's lock this long
+        sheds instead of parking) and, on a pool, the stall deadline of
+        a ``PoolWatchdog``; None: off.
+    watchdog_interval_s: the watchdog's poll period (None: an eighth
+        of the deadline).
     num_engine_replicas: engines behind one ``EnginePool`` (default 1:
-        one engine, no pool).
+        one engine, no pool); with ``autoscale`` the pool's floor.
     pool_auto_restart: the pool rebuilds a dead replica after its
         backoff (default on).
+    autoscale: drive the pool's size with a ``PoolAutoscaler`` between
+        ``num_engine_replicas`` and ``autoscale_max_replicas`` (default
+        the larger of ``num_engine_replicas`` and 4).
+    autoscale_policy: ``SLOPolicy`` fields to override (e.g.
+        ``{"ttft_slo_s": 0.2}``); a disaggregated pool also takes
+        ``"prefill"`` and ``"decode"`` dicts of per-side overrides.
+    autoscale_interval_s: the autoscaler's tick period.
+    autoscale_provider: its ``ReplicaCapacityProvider`` (default
+        ``ImmediateCapacityProvider``; one shared by both sides).
+    disaggregate: serve through prefill and decode replicas (needs
+        ``prefix_cache``); ``prefill_replicas`` and ``decode_replicas``
+        (default 1 each) set the split and so the pool's width.
     kv_pull_deadline_s, kv_pull_backoff_s: the pool's ``pull_prefix``
         knobs (None: its defaults), validated here.
     device: ``None``/``"cuda"`` (the card; raises without one) or
@@ -111,23 +134,73 @@ class LlamaDeployment:
                  max_queued: Optional[int] = None,
                  max_retries: int = 2, retry_backoff_s: float = 0.02,
                  engine_stall_deadline_s: Optional[float] = None,
+                 watchdog_interval_s: Optional[float] = None,
                  num_engine_replicas: int = 1,
                  pool_auto_restart: bool = True,
+                 autoscale: bool = False,
+                 autoscale_max_replicas: Optional[int] = None,
+                 autoscale_policy: Optional[Dict[str, Any]] = None,
+                 autoscale_interval_s: float = 0.5,
+                 autoscale_provider=None,
+                 disaggregate: bool = False,
+                 prefill_replicas: Optional[int] = None,
+                 decode_replicas: Optional[int] = None,
                  kv_pull_deadline_s: Optional[float] = None,
                  kv_pull_backoff_s: Optional[float] = None,
                  device=None):
+        # every knob is checked here, in the reference's order, before
+        # the model is built
+        if num_engine_replicas < 1:
+            raise ValueError("num_engine_replicas must be >= 1")
+        self.autoscale = autoscale
+        self.autoscale_max_replicas = (
+            autoscale_max_replicas if autoscale_max_replicas is not None
+            else max(num_engine_replicas, 4))
+        if autoscale and self.autoscale_max_replicas < num_engine_replicas:
+            raise ValueError("autoscale_max_replicas must be >= "
+                             "num_engine_replicas")
+        self.autoscale_policy = dict(autoscale_policy or {})
+        self.autoscale_interval_s = autoscale_interval_s
+        self.autoscale_provider = autoscale_provider
         if (engine_stall_deadline_s is not None
                 and engine_stall_deadline_s <= 0):
             raise ValueError(
                 "engine_stall_deadline_s must be > 0 (or None)")
-        if num_engine_replicas < 1:
-            raise ValueError("num_engine_replicas must be >= 1")
+        self.watchdog_interval_s = watchdog_interval_s
         # junk pull knobs fail here, at construction
         validate_pull_knobs(kv_pull_deadline_s, kv_pull_backoff_s)
-        self.num_engine_replicas = num_engine_replicas
-        self.pool_auto_restart = pool_auto_restart
         self.kv_pull_deadline_s = kv_pull_deadline_s
         self.kv_pull_backoff_s = kv_pull_backoff_s
+        self.disaggregate = bool(disaggregate)
+        self.prefill_replicas: Optional[int] = None
+        self.decode_replicas: Optional[int] = None
+        if not disaggregate and (prefill_replicas is not None
+                                 or decode_replicas is not None):
+            raise ValueError("prefill_replicas/decode_replicas require "
+                             "disaggregate=True")
+        if disaggregate:
+            if not prefix_cache:
+                raise ValueError(
+                    "disaggregate=True requires prefix_cache=True (the "
+                    "handoff pulls the prefill replica's published "
+                    "pages)")
+            n_pre = 1 if prefill_replicas is None else int(prefill_replicas)
+            n_dec = 1 if decode_replicas is None else int(decode_replicas)
+            if n_pre < 1 or n_dec < 1:
+                raise ValueError("prefill_replicas and decode_replicas "
+                                 "must be >= 1")
+            if num_engine_replicas not in (1, n_pre + n_dec):
+                raise ValueError(
+                    f"num_engine_replicas={num_engine_replicas} "
+                    f"conflicts with prefill_replicas+decode_replicas="
+                    f"{n_pre + n_dec}; omit it (the role split "
+                    f"determines pool width)")
+            num_engine_replicas = n_pre + n_dec
+            self.prefill_replicas, self.decode_replicas = n_pre, n_dec
+        self.num_engine_replicas = num_engine_replicas
+        self.pool_auto_restart = pool_auto_restart
+        self._autoscaler = None
+        self._watchdog = None
         self.device = resolve_device(device)
         self.cfg = config or llama_tiny()
         if params is None:
@@ -154,37 +227,98 @@ class LlamaDeployment:
         self._engine_lock = threading.Lock()
 
     def engine(self):
-        """The replica's engine (or, with ``num_engine_replicas`` > 1,
-        its ``EnginePool``), built and started at first use. Locked:
-        two first requests racing here must not allocate two pools."""
+        """The replica's engine (or, with more than one replica,
+        ``autoscale`` or ``disaggregate``, its ``EnginePool``), built
+        and started at first use with the pool's autoscalers and
+        watchdog. Locked: two first requests racing here must not
+        allocate two pools."""
         with self._engine_lock:
             if self._engine is None:
                 from ray_tpu_torch.serve.engine import LLMEngine
-                if self.num_engine_replicas > 1:
-                    from ray_tpu_torch.serve.engine_pool import EnginePool
-
-                    def factory(idx):
-                        return LLMEngine(
-                            self.model, temperature=self.temperature,
-                            seed=idx, device=self.device,
-                            **self._engine_opts)
-
-                    self._engine = EnginePool(
-                        factory, self.num_engine_replicas,
-                        auto_restart=self.pool_auto_restart,
-                        share_prefixes=self._engine_opts["prefix_cache"],
-                        kv_pull_deadline_s=self.kv_pull_deadline_s,
-                        kv_pull_backoff_s=self.kv_pull_backoff_s)
+                if (self.num_engine_replicas > 1 or self.autoscale
+                        or self.disaggregate):
+                    self._engine = self._build_pool(LLMEngine)
                 else:
                     self._engine = LLMEngine(
                         self.model, temperature=self.temperature,
                         device=self.device, **self._engine_opts).start()
             return self._engine
 
+    def _build_pool(self, engine_cls):
+        """The pool of ``num_engine_replicas`` engines, its roles, one
+        autoscaler (or one per role over a ``RolePoolView``, sharing
+        one provider) and the watchdog."""
+        from ray_tpu_torch.serve.engine_pool import EnginePool, RolePoolView
+        from ray_tpu_torch.serve.pool_autoscaler import (
+            ImmediateCapacityProvider, PoolAutoscaler, SLOPolicy)
+        from ray_tpu_torch.serve.scheduler import ROLE_DECODE, ROLE_PREFILL
+
+        def factory(idx):
+            return engine_cls(self.model, temperature=self.temperature,
+                              seed=idx, device=self.device,
+                              **self._engine_opts)
+
+        kw: Dict[str, Any] = dict(
+            auto_restart=self.pool_auto_restart,
+            share_prefixes=self._engine_opts["prefix_cache"],
+            kv_pull_deadline_s=self.kv_pull_deadline_s,
+            kv_pull_backoff_s=self.kv_pull_backoff_s)
+        if self.disaggregate:
+            kw["roles"] = ([ROLE_PREFILL] * self.prefill_replicas
+                           + [ROLE_DECODE] * self.decode_replicas)
+        pool = EnginePool(factory, self.num_engine_replicas, **kw)
+        if self.autoscale and self.disaggregate:
+            # the prefill side chases TTFT and its queue, the decode side
+            # ITL and free slots: they reach different sizes on one trace
+            policy = dict(self.autoscale_policy)
+            over = {ROLE_PREFILL: dict(policy.pop("prefill", {})),
+                    ROLE_DECODE: dict(policy.pop("decode", {}))}
+            provider = (self.autoscale_provider
+                        or ImmediateCapacityProvider())
+            self._autoscaler = {
+                role: PoolAutoscaler(
+                    RolePoolView(pool, role),
+                    SLOPolicy(min_replicas=floor,
+                              max_replicas=self.autoscale_max_replicas,
+                              **{**policy, **over[role]}),
+                    provider).run(self.autoscale_interval_s)
+                for role, floor in ((ROLE_PREFILL, self.prefill_replicas),
+                                    (ROLE_DECODE, self.decode_replicas))}
+        elif self.autoscale:
+            self._autoscaler = PoolAutoscaler(
+                pool, SLOPolicy(min_replicas=self.num_engine_replicas,
+                                max_replicas=self.autoscale_max_replicas,
+                                **self.autoscale_policy),
+                self.autoscale_provider).run(self.autoscale_interval_s)
+        if self.engine_stall_deadline_s is not None:
+            from ray_tpu_torch.serve.watchdog import PoolWatchdog
+            self._watchdog = PoolWatchdog(
+                pool, stall_deadline_s=self.engine_stall_deadline_s,
+                poll_interval_s=self.watchdog_interval_s).run()
+        return pool
+
+    def autoscaler(self):
+        """The attached ``PoolAutoscaler`` (None before the lazy engine
+        is built or without ``autoscale``); a disaggregated deployment
+        returns ``{"prefill": ..., "decode": ...}``."""
+        return self._autoscaler
+
+    def watchdog(self):
+        """The attached ``PoolWatchdog`` (None before the lazy engine is
+        built, without a pool or without ``engine_stall_deadline_s``)."""
+        return self._watchdog
+
     def shutdown(self) -> None:
-        """Stop the engine or pool (if built); in-flight requests fail
-        typed."""
+        """Stop the autoscalers and the watchdog, then the engine or
+        pool (if built); in-flight requests fail typed."""
         with self._engine_lock:
+            scalers = self._autoscaler
+            if not isinstance(scalers, dict):
+                scalers = {None: scalers} if scalers is not None else {}
+            for scaler in scalers.values():
+                scaler.stop()
+            if self._watchdog is not None:
+                self._watchdog.stop()
             if self._engine is not None:
                 self._engine.shutdown()
 

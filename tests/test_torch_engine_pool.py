@@ -724,15 +724,27 @@ def test_concurrent_routes_count_routes_in_flight():
 
 
 def test_roles_other_than_unified_are_refused():
-    with pytest.raises(ValueError, match="item 6"):
-        tpool.EnginePool(lambda i: FakeEngine(terr, i), 2,
-                         roles=["prefill", "decode"],
-                         share_prefixes=True)
-    pool = tpool.EnginePool(lambda i: FakeEngine(terr, i), 2,
-                            roles=["unified", "unified"])
-    with pytest.raises(ValueError, match="item 6"):
-        pool.add_replica(role="decode")
-    pool.shutdown()
+    """Prefill and decode roles construct (the disaggregated pool), a
+    decode replica joins by ``add_replica(role=)``, and an unknown role
+    is refused there: the same records as the JAX pool."""
+    def case(s):
+        pool = s.pool.EnginePool(lambda i: FakeEngine(s.errors, i), 2,
+                                 roles=["prefill", "decode"],
+                                 share_prefixes=True)
+        assert pool.disaggregated()
+        assert pool.add_replica(role="decode") == 2
+        with pytest.raises(ValueError, match="unknown replica role"):
+            pool.add_replica(role="router")
+        counts = pool.role_counts()
+        report = pool.load_report("decode")
+        report.pop("tp", None)      # the JAX pool's tensor parallelism
+        pool.shutdown()
+        return _record(pool, {"roles": counts, "report": report})
+
+    rec = _both(case)
+    assert rec["roles"] == {"prefill": 1, "decode": 2}
+    assert [r["role"] for r in rec["pool_stats"]["replicas"]] == [
+        "prefill", "decode", "decode"]
 
 
 # ----------------------------------------------------- real engines

@@ -102,7 +102,10 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.util.tracing",
                  "ray_tpu_torch.serve.fleet.wire",
                  "ray_tpu_torch.serve.fleet.transport",
-                 "ray_tpu_torch.util.metrics"):
+                 "ray_tpu_torch.util.metrics",
+                 "ray_tpu_torch.serve.watchdog",
+                 "ray_tpu_torch.serve.pool_autoscaler",
+                 "ray_tpu_torch.autoscaler.node_provider"):
         assert name in res["modules"]
 
 

@@ -348,8 +348,22 @@ def test_wire_errors_rebuild_by_name_as_the_reference(name):
 
 
 def test_replica_wedged_decodes_as_wire_error_until_the_watchdog():
-    with pytest.raises(twire.WireError, match="ReplicaWedged: stuck"):
-        twire.raise_error({"type": "ReplicaWedged", "msg": "stuck"})
+    """Both wires decode ``ReplicaWedged`` to their own watchdog's class
+    (an ``EngineShutdown``) with the message and retry hint it carried."""
+    from ray_tpu.serve import errors as jerrors
+    from ray_tpu.serve import watchdog as jwatchdog
+    from ray_tpu_torch.serve import errors as terrors
+    from ray_tpu_torch.serve import watchdog as twatchdog
+    seen = []
+    for wire, wd, errors in ((twire, twatchdog, terrors),
+                             (jwire, jwatchdog, jerrors)):
+        with pytest.raises(wd.ReplicaWedged) as ei:
+            wire.raise_error({"type": "ReplicaWedged", "msg": "stuck",
+                              "retry_after_s": 0.5})
+        assert isinstance(ei.value, errors.EngineShutdown)
+        seen.append((type(ei.value).__name__, str(ei.value),
+                     ei.value.retry_after_s))
+    assert seen[0] == seen[1] == ("ReplicaWedged", "stuck", 0.5)
 
 
 def test_pull_crosses_the_packages_over_a_socket():
