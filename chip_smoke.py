@@ -1196,6 +1196,197 @@ def phase_pool_events(tl, seed: int, card_device: str = "cuda") -> dict:
     return res
 
 
+def _disagg_case(model, device: str, prompts, n: int) -> dict:
+    """Phase 3's disaggregated case on ``device``: a pool of one prefill
+    and one decode engine (fp32, 4 slots, 16-token pages, the prefix
+    cache), every prompt's first leg submitted, then each stream read
+    in turn. Returns the streams, the pool's events (kind, replica),
+    handoffs, fallbacks and the decode engine's pull counters, after
+    ``check_pool_quiesced``."""
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.engine_pool import EnginePool
+    from ray_tpu_torch.serve.faults import check_pool_quiesced
+
+    def factory(idx):
+        return LLMEngine(model, max_slots=4, page_size=16, n_pages=64,
+                         chunk=2, prefill_chunk=16, seed=idx,
+                         prefix_cache=True, device=device)
+
+    pool = EnginePool(factory, 2, roles=["prefill", "decode"],
+                      share_prefixes=True)
+    hs = [pool.submit(p, max_new_tokens=n) for p in prompts]
+    outs = [_outcome(h) for h in hs]
+    for e in pool.engines():
+        e.wait_idle(60)
+    ps = pool.pool_stats()
+    mig = pool.replica(1).engine.kv_migration_stats
+    pool.shutdown()
+    check_pool_quiesced(pool)
+    return {"out": outs,
+            "events": [(e[2], e[4]) for e in pool.events.snapshot()],
+            "handoffs": ps.get("disagg_handoffs", 0),
+            "fallbacks": ps.get("disagg_handoff_fallbacks", 0),
+            "pulls": {k: mig[k] for k in ("pulls", "pulled_pages",
+                                          "fallbacks")},
+            "wire_bytes": mig["wire_bytes"]}
+
+
+def _watchdog_case(model, device: str, prompts, n: int, flight_dir: str
+                   ) -> dict:
+    """Phase 3's watchdog case on ``device``: a pool of two engines
+    (fp32, 4 slots, the lockstep loop, every readback taken in the CPU's
+    round), every prompt routed before any round, a ``hang`` at replica
+    0's step in its round 6 and a ``PoolWatchdog`` (stall deadline 1 s,
+    10 ms polls) started with the rounds. Returns the routes, each
+    request's outcome (error types only: their messages carry the
+    measured stall), the pool's events up to the death and the rest
+    counted, the watchdog's log, and the counters, after releasing the
+    zombie (it must commit nothing) and ``check_pool_quiesced``."""
+    from ray_tpu_torch.serve.engine_pool import EnginePool
+    from ray_tpu_torch.serve.faults import (FaultInjector,
+                                            check_pool_quiesced)
+    from ray_tpu_torch.serve.watchdog import PoolWatchdog
+    gated = _gated_engine()
+    inj = FaultInjector()
+    inj.hang("step", round=6)
+
+    def factory(idx):
+        return gated(model, max_slots=4, page_size=16, n_pages=64, chunk=2,
+                     prefill_chunk=16, seed=idx, overlap=False,
+                     fault_injector=inj if idx == 0 else None,
+                     device=device)
+
+    pool = EnginePool(factory, 2)
+    wd = PoolWatchdog(pool, stall_deadline_s=1.0, poll_interval_s=0.01,
+                      flight_dir=flight_dir)
+    victim = pool.replica(0).engine
+    try:
+        with _ReadyReadbacks():
+            hs = [pool.submit(p, max_new_tokens=n) for p in prompts]
+            routes = [h.replica_idx for h in hs]
+            for eng in pool.engines():
+                eng.go()
+            wd.run()
+            outs = [None] * len(hs)
+
+            def read(i):
+                try:
+                    outs[i] = ("ok", hs[i].result())
+                except Exception as e:  # noqa: BLE001 - typed below
+                    outs[i] = ("err", type(e).__name__,
+                               len(hs[i]._generated))
+
+            threads = [threading.Thread(target=read, args=(i,))
+                       for i in range(len(hs))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=120)
+        held = list(victim._wait) + [s.req for s in victim.slots
+                                     if s is not None]
+        committed = [len(r.generated) for r in held]
+        inj.release_all()
+        victim._thread.join(timeout=30)
+        if victim._thread.is_alive():
+            raise AssertionError(f"{device}: the released zombie lives")
+        zombie_ok = committed == [len(r.generated) for r in held]
+    finally:
+        wd.stop()
+        inj.release_all()
+        pool.shutdown()
+    check_pool_quiesced(pool)
+    kinds = [(e[2], e[4]) for e in pool.events.snapshot()]
+    cut = kinds.index(("replica_death", 0)) + 1
+    st = pool.route_stats
+    return {"routes": routes, "out": outs, "events": kinds[:cut],
+            "after": sorted(collections.Counter(kinds[cut:]).items()),
+            "log": [(e["event"], e["replica"]) for e in wd.log],
+            "bundle": bool(wd.log) and wd.log[-1].get("bundle") is not None,
+            "zombie_committed_nothing": zombie_ok,
+            "counters": {k: st.get(k, 0) for k in (
+                "requeues", "replica_deaths", "wedged", "suspects")}}
+
+
+def phase_pool_control(tl, seed: int, card_device: str = "cuda") -> dict:
+    """Phase 3's disaggregated and watchdog cases, card vs CPU, on phase
+    3's reduced fp32 model: (1) one prefill and one decode engine — the
+    same streams, events, handoffs and pulls; (2) a ``hang`` wedged by
+    the ``PoolWatchdog`` — the same suspect -> wedged sequence, the
+    streamed requests failed typed, the others resubmitted and equal,
+    the zombie fenced. (``card_device="cpu"`` rehearses it.)"""
+    cfg = tl.LlamaConfig(vocab_size=32000, max_seq_len=256, dim=512,
+                         n_layers=2, n_heads=8, n_kv_heads=2,
+                         hidden_dim=1024, dtype=torch.float32)
+    sd = tl.init_params(cfg, seed=seed, device="cpu")
+    g = np.random.default_rng(seed + 13)
+    prompts = [g.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in (5, 16, 17, 30, 45, 9, 23, 40)]
+    models = {d: tl.build_model(cfg, sd, d) for d in ("cpu", card_device)}
+    dis = {d: _disagg_case(models[d], d, prompts, 16)
+           for d in ("cpu", card_device)}
+    card = dis[card_device]
+    want_pages = sum(len(p) // 16 for p in prompts)
+    checks = {
+        "card == CPU": {k: v for k, v in card.items() if k != "wire_bytes"}
+        == {k: v for k, v in dis["cpu"].items() if k != "wire_bytes"},
+        "8 handoffs, no fallback": (card["handoffs"], card["fallbacks"])
+        == (8, 0),
+        "a pull per prompt with a full page": card["pulls"] == {
+            "pulls": sum(len(p) >= 16 for p in prompts),
+            "pulled_pages": want_pages, "fallbacks": 0},
+        "every stream complete": all(o[0] == "ok" and len(o[1]) == 16
+                                     for o in card["out"]),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 3 disaggregated: {checks}\ncard "
+                             f"{card}\ncpu {dis['cpu']}")
+    res = {"disagg": {"handoffs": card["handoffs"], "pulls": card["pulls"],
+                      "wire_bytes": card["wire_bytes"]}}
+    wd = {}
+    for d in ("cpu", card_device):
+        with tempfile.TemporaryDirectory() as tmp:
+            wd[d] = _watchdog_case(models[d], d, prompts, 16, tmp)
+    card = wd[card_device]
+    kinds = {o[1] if o[0] == "err" else "ok" for o in card["out"]}
+    on0 = [i for i, r in enumerate(card["routes"]) if r == 0]
+    checks = {
+        "card == CPU": wd["cpu"] == card,
+        "suspect, then wedged": card["log"] == [("suspect", 0),
+                                                ("wedged", 0)]
+        and card["events"][-3:] == [("suspect", 0), ("wedged", 0),
+                                    ("replica_death", 0)],
+        "the bundle written": card["bundle"],
+        "streamed ones failed typed, after tokens": all(
+            o[1] == "EngineShutdown" and o[2] > 0
+            for o in card["out"] if o[0] == "err"),
+        "some failed, some resubmitted": kinds == {"ok", "EngineShutdown"}
+        and card["counters"]["requeues"] >= 1,
+        "replica 1's own requests complete": all(
+            card["out"][i][0] == "ok" for i in range(len(prompts))
+            if i not in on0),
+        "the zombie committed nothing": card["zombie_committed_nothing"],
+        "one wedge, one death": (card["counters"]["wedged"],
+                                 card["counters"]["replica_deaths"])
+        == (1, 1),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 3 watchdog: {checks}\ncard {card}\n"
+                             f"cpu {wd['cpu']}")
+    res["watchdog"] = {"routes": card["routes"],
+                       "counters": card["counters"],
+                       "failed_typed": sum(1 for o in card["out"]
+                                           if o[0] == "err")}
+    print(f"phase 3: disaggregated pool (1 prefill + 1 decode), card == "
+          f"CPU: 8 handoffs, pulls {res['disagg']['pulls']}, "
+          f"{res['disagg']['wire_bytes']} wire bytes, streams equal; "
+          f"hang at replica 0's round 6 under the PoolWatchdog, card == "
+          f"CPU: suspect -> wedged -> death, "
+          f"{res['watchdog']['failed_typed']} streamed failed typed, "
+          f"{card['counters']['requeues']} resubmitted, the zombie "
+          f"committed nothing")
+    return res
+
+
 def _teacher_forced_logits(model, prompt, completion,
                            kv_dtype: str = "fp",
                            device: str = "cuda") -> torch.Tensor:
@@ -3459,6 +3650,481 @@ def phase_obs_pool_path(tl, pa, seed: int, smi: str, cfg=None,
     return res
 
 
+def _arrivals(dep, prompts, n_new: int, gaps) -> dict:
+    """Each prompt streamed through ``dep.stream`` by its own thread
+    (trace id ``r<i>``), thread i started ``gaps[i]`` seconds after
+    thread i - 1. Returns the streams, each request's start, TTFT and
+    time per output token, and tok/s over the wave."""
+    n = len(prompts)
+    outs, start = [None] * n, [None] * n
+    ttft, tpot = [None] * n, [None] * n
+
+    def run(i):
+        start[i] = time.monotonic()
+        got, stamps = [], []
+        for tok in dep.stream({"prompt_ids": prompts[i],
+                               "max_new_tokens": n_new,
+                               "trace_id": f"r{i}"}):
+            stamps.append(time.monotonic())
+            got.append(tok)
+        outs[i] = got
+        ttft[i] = stamps[0] - start[i]
+        if len(stamps) > 1:
+            tpot[i] = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
+
+    threads = []
+    t0 = time.monotonic()
+    for i in range(n):
+        if gaps[i]:
+            time.sleep(gaps[i])
+        threads.append(threading.Thread(target=run, args=(i,)))
+        threads[-1].start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.monotonic() - t0
+    if any(o is None or len(o) != n_new for o in outs):
+        raise AssertionError(f"a request came back short or failed: "
+                             f"{[None if o is None else len(o) for o in outs]}")
+    return {"outs": outs, "start": start, "ttft": ttft,
+            "tok_s": n * n_new / wall, "wall_s": wall,
+            "ttft_p50_s": float(np.percentile(ttft, 50)),
+            "ttft_p99_s": float(np.percentile(ttft, 99)),
+            "tpot_p50_s": float(np.median([x for x in tpot
+                                           if x is not None]))}
+
+
+def _handoff_latencies(pool) -> list:
+    """Seconds from each ``handoff`` event to its stream's
+    ``handoff_first_token``, by trace id (the waves' ``r<i>`` ids)."""
+    from ray_tpu_torch.serve import obs
+    marks = collections.defaultdict(dict)
+    for e in pool.events.snapshot():
+        if e[obs.ETYPE] in ("handoff", "handoff_first_token"):
+            tid = (e[obs.DATA] or {}).get("trace_id")
+            if tid and tid.startswith("r"):
+                marks[tid][e[obs.ETYPE]] = e[obs.T]
+    return [m["handoff_first_token"] - m["handoff"] for m in marks.values()
+            if len(m) == 2]
+
+
+def _wait_transfers(pool, timeout_s: float = 60.0) -> None:
+    """Until no donor of ``pool`` holds an open transfer (a pull that a
+    requester's death abandoned still runs to its end)."""
+    deadline = time.monotonic() + timeout_s
+    while any(d.open_transfers() for d in list(pool._kv_donors.values())):
+        if time.monotonic() > deadline:
+            raise AssertionError("a KV transfer stayed open")
+        time.sleep(0.01)
+
+
+def _hold_then_arm(eng, arm) -> dict:
+    """Shadow ``eng.step`` so the scheduler holds its rounds (outside
+    the engine lock) until ``state["queued"]`` is set, and calls
+    ``arm()`` at the first round boundary at which part of the work
+    there has streamed and part has not, recording both sets of request
+    ids. ``del eng.step`` restores it."""
+    state = {"queued": False, "armed": False, "streamed": set(),
+             "fresh": set()}
+    step = eng.step
+
+    def wrapped():
+        while not state["queued"]:
+            time.sleep(0.0005)
+        if not state["armed"]:
+            reqs = ([s.req for s in eng.slots if s is not None]
+                    + list(eng._wait))
+            done = {r.rid for r in reqs if r.generated}
+            fresh = {r.rid for r in reqs if not r.generated}
+            if done and fresh:
+                state.update(armed=True, streamed=done, fresh=fresh)
+                arm()
+        return step()
+
+    eng.step = wrapped
+    return state
+
+
+def phase_pool_control_path(tl, pa, seed: int, smi: str, cfg=None,
+                            device: str = "cuda") -> dict:
+    """Phase 4h: the pool's disaggregated roles, watchdog and autoscaler
+    at full width (TinyLlama-1.1B bf16 unless ``cfg``; ``device="cpu"``
+    with a small ``cfg`` rehearses it without a card)."""
+    from ray_tpu_torch.models.kv_cache import export_pages_bytes
+    from ray_tpu_torch.serve import obs
+    from ray_tpu_torch.serve.faults import (FaultInjector, check_pool_quiesced,
+                                            check_quiesced)
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+    from ray_tpu_torch.serve.prefix_cache import path_hashes
+    cfg = cfg or tl.tinyllama_1_1b()
+    n_layers, cuda = cfg.n_layers, device == "cuda"
+    params = tl.init_params(cfg, seed=seed, device=device)
+    n_new, Pg = 64, 64
+    kw = dict(max_slots=16, page_size=Pg, n_pages=513, max_new_tokens=n_new,
+              prefix_cache=True, device=device)
+    g = np.random.default_rng(seed + 17)
+
+    def rand(n):
+        return g.integers(0, cfg.vocab_size, int(n)).tolist()
+
+    warm = rand(100)
+    wave = [rand(n) for n in g.integers(512, 1025, size=16)]
+    res = {"card": smi}
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # (a) disaggregated against unified on one arrival trace
+    arms = {}
+    for name, extra in (("unified", dict(num_engine_replicas=2)),
+                        ("disaggregated", dict(disaggregate=True,
+                                               prefill_replicas=1,
+                                               decode_replicas=1))):
+        dep = LlamaDeployment(cfg, params, **kw, **extra)
+        pool = dep.engine()
+        if name == "unified":
+            for e in pool.engines():
+                e.submit(warm, 8).result()
+        else:
+            dep(warm)                 # leg 1, the handoff, leg 2
+        for e in pool.engines():
+            e.wait_idle(60)
+            e.reset_latency_stats()
+        engines = pool.engines()
+        steps0 = [e.stats["decode_steps"] for e in engines]
+        mig0 = dict(pool.replica(1).engine.kv_migration_stats)
+        hand0 = pool.route_stats["disagg_handoffs"]
+        fetch = []
+        _timed(pool, "_kv_fetch", fetch)
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_attention.launches_int8 = 0
+        run = _arrivals(dep, wave, n_new, [0.0] + [0.05] * 15)
+        k_launch = (pa.paged_decode_attention.launches,
+                    pa.paged_decode_attention.launches_int8)
+        for e in engines:
+            e.wait_idle(60)
+        del pool._kv_fetch
+        steps = [e.stats["decode_steps"] - s0
+                 for e, s0 in zip(engines, steps0)]
+        arm = {k: run[k] for k in ("tok_s", "wall_s", "ttft_p50_s",
+                                   "ttft_p99_s", "tpot_p50_s")}
+        arm.update(decode_steps=steps, k1_launches=k_launch[0],
+                   k2_launches=k_launch[1], outs=run["outs"])
+        if name == "disaggregated":
+            mig = pool.replica(1).engine.kv_migration_stats
+            pulls = {k: mig[k] - mig0[k] for k in mig0}
+            lat = _handoff_latencies(pool)
+            hashes = path_hashes(wave[0], Pg)[:len(wave[0]) // Pg]
+            landed = {}
+            for side, e in (("donor", pool.replica(0).engine),
+                            ("requester", pool.replica(1).engine)):
+                pinned = e.kv_pin_prefix(hashes)
+                landed[side] = (len(pinned),
+                                export_pages_bytes(e.pages, pinned))
+                e.kv_release_pages(pinned)
+            arm.update(
+                handoffs=pool.route_stats["disagg_handoffs"] - hand0,
+                fallbacks=pool.route_stats["disagg_handoff_fallbacks"],
+                pulls=pulls,
+                handoff_p50_s=float(np.percentile(lat, 50)),
+                handoff_p99_s=float(np.percentile(lat, 99)),
+                n_handoff_latencies=len(lat),
+                pull_host_ms_per_page=1e3 * sum(fetch)
+                / max(1, pulls["pulled_pages"]),
+                wire_mb=pulls["wire_bytes"] / 1e6,
+                landed_pages=landed["donor"][0],
+                landed_equal=landed["donor"] == landed["requester"])
+            want_pages = sum(len(p) // Pg for p in wave)
+            checks = {
+                "16 handoffs, no fallback": (arm["handoffs"],
+                                             arm["fallbacks"]) == (16, 0),
+                "16 pulls of sum(len // 64) pages": pulls["pulls"] == 16
+                and pulls["pulled_pages"] == want_pages
+                and pulls["fallbacks"] == 0,
+                "a pull's landed bytes equal the donor's":
+                    arm["landed_equal"]
+                    and arm["landed_pages"] == len(wave[0]) // Pg,
+                "16 handoff latencies": len(lat) == 16,
+                "no decode step on the prefill replica": steps[0] == 0,
+            }
+            if cuda:
+                checks["K1 22 x the decode replica's steps, K2 never"] = \
+                    steps[1] > 0 and k_launch == (n_layers * steps[1], 0)
+            if not all(checks.values()):
+                raise AssertionError(f"phase 4h (a): {checks}; {arm}")
+            # each stream equals its unified twin or parts at a near-tie
+            parted = [i for i in range(16)
+                      if arm["outs"][i] != arms["unified"]["outs"][i]]
+            gaps = [x for i in parted for x in _gaps(
+                dep.model, wave[i], arm["outs"][i], "fp", device)]
+            arm.update(parted=len(parted),
+                       parted_max_gap=max(gaps) if gaps else 0.0)
+            if gaps and max(gaps) > LOGIT_SLACK:
+                raise AssertionError(f"phase 4h (a): a disaggregated token "
+                                     f"sits {max(gaps)} below the top "
+                                     f"logit")
+        check_pool_quiesced(pool)
+        arms[name] = arm
+        if name == "unified":
+            dep.shutdown()
+            del dep, pool, engines
+            free()
+    res["disagg_ab"] = {k: {kk: vv for kk, vv in v.items() if kk != "outs"}
+                        for k, v in arms.items()}
+    for name, a in res["disagg_ab"].items():
+        print(f"phase 4h (a) {name}: TinyLlama-1.1B bf16 on {smi}, 16 "
+              f"requests (512-1024-token prompts, 64 new) 50 ms apart: "
+              f"{a['tok_s']:.1f} tok/s, TTFT p50 {a['ttft_p50_s'] * 1e3:.1f}"
+              f" ms p99 {a['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50 "
+              f"{a['tpot_p50_s'] * 1e3:.2f} ms, decode steps "
+              f"{a['decode_steps']}, K1 {a['k1_launches']}"
+              + (f"; handoffs {a['handoffs']}, handoff p50 "
+                 f"{a['handoff_p50_s'] * 1e3:.1f} ms p99 "
+                 f"{a['handoff_p99_s'] * 1e3:.1f} ms, pulls "
+                 f"{a['pulls']['pulls']} of {a['pulls']['pulled_pages']} "
+                 f"pages, {a['pull_host_ms_per_page']:.2f} host ms per page,"
+                 f" {a['wire_mb']:.1f} wire MB, landed bytes equal the "
+                 f"donor's, {a['parted']} streams part from the unified "
+                 f"twin (max teacher-forced gap {a['parted_max_gap']:.4f})"
+                 if name == "disaggregated" else ""))
+    # (b) the decode replica dies while leg 2s are being submitted
+    victim = pool.replica(1)
+    inj = FaultInjector()
+    victim.engine._injector = inj
+    state = _hold_then_arm(victim.engine, inj.kill_replica)
+    prompts = [rand(n) for n in g.integers(512, 1025, size=8)]
+    fb0 = pool.route_stats["disagg_handoff_fallbacks"]
+    hs = [pool.submit(p, max_new_tokens=n_new) for p in prompts]
+    state["queued"] = True
+    outs = [None] * len(hs)
+
+    def consume(i):
+        outs[i] = _outcome(hs[i])
+
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(hs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    del victim.engine.step
+    deadline = time.monotonic() + 60
+    while pool.replica(1).generation != victim.generation + 1:
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 4h (b): decode replica not rebuilt")
+        time.sleep(0.01)
+    for e in pool.engines():
+        e.wait_idle(60)
+    _wait_transfers(pool)
+    check_pool_quiesced(pool)
+    check_quiesced(victim.engine)
+    fallbacks = pool.route_stats["disagg_handoff_fallbacks"] - fb0
+    in_place = [i for i, h in enumerate(hs)
+                if outs[i][0] == "ok" and h.replica_idx == 0]
+    failed = [i for i, o in enumerate(outs) if o[0] == "err"]
+    checks = {
+        "the kill fired with leg 2s streaming and pending":
+            state["armed"] and bool(inj.log),
+        "handoffs fell back": fallbacks >= 1 and bool(in_place),
+        "no request lost": all(o is not None for o in outs),
+        "only streamed leg 2s failed, typed": all(
+            outs[i][1] == "EngineShutdown" and len(hs[i]._generated) > 1
+            for i in failed),
+        "the rest complete": all(len(o[1]) == n_new for o in outs
+                                 if o[0] == "ok"),
+        "decode replica rebuilt, generation + 1":
+            pool.replica(1).state == "healthy"
+            and pool.replica(1).generation == victim.generation + 1,
+    }
+    gaps = [x for i in in_place
+            for x in _gaps(dep.model, prompts[i], outs[i][1], "fp", device)]
+    checks["fallback streams teacher-forced"] = bool(gaps) and \
+        max(gaps) <= LOGIT_SLACK
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4h (b): {checks}; outs "
+                             f"{[o[:2] if o[0] == 'err' else 'ok' for o in outs]}")
+    res["decode_death"] = {"fallbacks": fallbacks,
+                           "decoded_in_place": len(in_place),
+                           "streamed_failed": len(failed),
+                           "teacher_forced_max_gap": max(gaps),
+                           "generation_after": pool.replica(1).generation}
+    print(f"phase 4h (b): decode replica killed mid-handoff: "
+          f"{fallbacks} handoffs fell back, {len(in_place)} decoded in "
+          f"place on the prefill replica (teacher-forced max gap "
+          f"{max(gaps):.4f}), {len(failed)} streamed failed typed, none "
+          f"lost, decode replica rebuilt at generation "
+          f"{pool.replica(1).generation}")
+    dep.shutdown()
+    del dep, pool, victim, hs, engines
+    free()
+    # (c) the watchdog wedges a hung replica
+    g4 = np.random.default_rng(seed)
+    g4.integers(0, cfg.vocab_size, 100)
+    prompts = [g4.integers(0, cfg.vocab_size, int(n)).tolist()
+               for n in g4.integers(16, 1537, size=16)][:8]
+    stall = 2.0
+    dep = LlamaDeployment(cfg, params, num_engine_replicas=2,
+                          engine_stall_deadline_s=stall, **kw)
+    pool = dep.engine()
+    wd = dep.watchdog()
+    flight = tempfile.mkdtemp()
+    wd.flight_dir = flight
+    for e in pool.engines():
+        e.submit(warm, 8).result()
+        e.wait_idle(60)
+    victim = pool.replica(1)
+    inj = FaultInjector()
+    victim.engine._injector = inj
+    state = _hold_then_arm(victim.engine,
+                           lambda: inj.hang("dispatch_decode"))
+    hs = [pool.submit(p, max_new_tokens=n_new) for p in prompts]
+    first = [h.replica_idx for h in hs]
+    state["queued"] = True
+    outs = [None] * len(hs)
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(hs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wedge = [e for e in wd.log if e["event"] == "wedged"]
+    held = list(victim.engine._wait) + [
+        s.req for s in victim.engine.slots if s is not None]
+    committed = [len(r.generated) for r in held]
+    inj.release_all()
+    del victim.engine.step
+    victim.engine._thread.join(timeout=30)
+    zombie_ok = (not victim.engine._thread.is_alive()
+                 and committed == [len(r.generated) for r in held])
+    victim.engine.shutdown()         # the cleanup deferred by the wedge
+    check_quiesced(victim.engine)
+    deadline = time.monotonic() + 60
+    while pool.replica(1).generation != victim.generation + 1:
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 4h (c): replica 1 not rebuilt")
+        time.sleep(0.01)
+    for e in pool.engines():
+        e.wait_idle(60)
+    check_pool_quiesced(pool)
+    bundle = (obs.load_flight_bundle(wedge[0]["bundle"])
+              if wedge and wedge[0].get("bundle") else {})
+    on1 = [i for i, r in enumerate(first) if r == 1]
+    failed = [i for i in on1 if outs[i][0] == "err"]
+    resub = [i for i in on1 if outs[i][0] == "ok"]
+    poll = wd.poll_interval_s
+    checks = {
+        "the hang fired mid-wave": state["armed"] and bool(inj.log),
+        "suspect, then wedged": [(e["event"], e["replica"])
+                                 for e in wd.log][:2]
+        == [("suspect", 1), ("wedged", 1)],
+        "wedged within the deadline + 2 polls": bool(wedge)
+        and wedge[0]["heartbeat_age_s"] <= stall + 2 * poll,
+        "the bundle names replica 1": bundle.get("reason") == "wedged-r1"
+        and bundle.get("extra", {}).get("replica") == 1,
+        "streamed ones failed typed": bool(failed) and all(
+            outs[i][1] == "EngineShutdown" and hs[i]._generated
+            for i in failed),
+        "unstreamed ones resubmitted to a survivor and complete":
+            bool(resub) and all(
+                len(outs[i][1]) == n_new and hs[i].resubmits == 1
+                and hs[i].replica_tag != f"1:{victim.generation}"
+                for i in resub),
+        "replica 0's own complete": all(outs[i][0] == "ok"
+                                        for i in range(8) if i not in on1),
+        "the zombie committed nothing": zombie_ok,
+        "replica 1 rebuilt": pool.replica(1).state == "healthy",
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4h (c): {checks}; log {wd.log}; outs "
+                             f"{[o[:2] if o[0] == 'err' else 'ok' for o in outs]}")
+    res["watchdog"] = {"detect_latency_s": wedge[0]["heartbeat_age_s"],
+                       "poll_interval_s": poll, "streamed_failed":
+                       len(failed), "resubmitted": len(resub),
+                       "resubmitted_to": [hs[i].replica_tag for i in resub],
+                       "stats": wd.stats()}
+    print(f"phase 4h (c): hang at replica 1's decode dispatch, watchdog "
+          f"(stall {stall} s, poll {poll} s): suspect -> wedged, detect "
+          f"latency (serve_pool_wedge_detect_latency_s) "
+          f"{wedge[0]['heartbeat_age_s']:.3f} s, bundle {bundle['reason']},"
+          f" {len(failed)} streamed failed typed, {len(resub)} resubmitted "
+          f"and complete (on {res['watchdog']['resubmitted_to']}), the "
+          f"zombie committed nothing, replica 1 rebuilt")
+    dep.shutdown()
+    shutil.rmtree(flight, ignore_errors=True)
+    del dep, pool, victim, hs, held
+    free()
+    # (d) the autoscaler: 1 -> 2 under a burst, back to 1 when idle
+    dep = LlamaDeployment(
+        cfg, params, num_engine_replicas=1, autoscale=True,
+        autoscale_max_replicas=2, autoscale_interval_s=0.1,
+        autoscale_policy={"cooldown_up_s": 0.0, "cooldown_down_s": 0.0,
+                          "idle_stable_s": 2.0}, **kw)
+    dep(warm)
+    pool = dep.engine()
+    scaler = dep.autoscaler()
+    builds = []
+    _timed(pool, "add_replica", builds)
+    pool.replica(0).engine.reset_latency_stats()
+    burst = [rand(n) for n in g.integers(512, 1025, size=24)]
+    n_ev = pool.events.total
+    t_burst = time.monotonic()
+    run = _arrivals(dep, burst, n_new, [0.0] * 16 + [0.15] * 8)
+    ev = pool.events.snapshot()
+    ev = ev[len(ev) - (pool.events.total - n_ev):]
+    routes = [e for e in ev if e[obs.ETYPE] == "route"]
+    first1 = next((e[obs.T] for e in routes if e[obs.SID] == 1), None)
+    by_tid = {e[obs.DATA]["trace_id"]: e[obs.SID] for e in routes}
+    deadline = time.monotonic() + 60
+    while pool.active_count() != 1:
+        if time.monotonic() > deadline:
+            raise AssertionError("phase 4h (d): the pool never shrank")
+        time.sleep(0.05)
+    for e in pool.engines():
+        e.wait_idle(60)
+    check_pool_quiesced(pool)        # the retired engine's too
+    retired = [r.engine for r in pool._replicas if r.state == "retired"]
+    st = scaler.stats()
+    moves = [(round(t - t_burst, 3), a, tg) for (t, a, tg), prev
+             in zip(scaler.timeline, [None] + scaler.timeline[:-1])
+             if prev is None or (a, tg) != prev[1:]]
+    before = [run["ttft"][i] for i in range(24)
+              if by_tid.get(f"r{i}") == 0
+              and (first1 is None or run["start"][i] < first1)]
+    after = [run["ttft"][i] for i in range(24)
+             if first1 is not None and run["start"][i] >= first1]
+    checks = {
+        "scaled 1 -> 2 -> 1": st["scale_ups"] >= 1
+        and st["scale_downs"] >= 1 and st["replicas_added"] >= 1
+        and pool.active_count() == 1,
+        "the second replica served": first1 is not None and bool(after),
+        "no request lost": len(run["outs"]) == 24,
+        "the retired engine's pages freed": len(retired) == 1 and all(
+            e.alloc.occupancy() == e.prefix_cache.cached_pages
+            and not any(e.slots) for e in retired),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4h (d): {checks}; {st}; {moves}")
+    res["autoscale"] = {
+        "stats": st, "timeline": moves,
+        "burst_to_second_route_s": first1 - t_burst,
+        "build_s": builds, "ttft_p50_before_s": float(np.median(before)),
+        "ttft_p50_after_s": float(np.median(after)),
+        "tok_s": run["tok_s"]}
+    a = res["autoscale"]
+    print(f"phase 4h (d): autoscale 1..2 on {smi}: decisions "
+          f"{st['scale_ups']} up / {st['scale_downs']} down, timeline "
+          f"(s, active, target) {moves}; burst -> replica 1's first route "
+          f"{a['burst_to_second_route_s']:.3f} s, engine build "
+          f"{[round(b, 3) for b in builds]} s; TTFT p50 before "
+          f"{a['ttft_p50_before_s'] * 1e3:.1f} ms, after "
+          f"{a['ttft_p50_after_s'] * 1e3:.1f} ms; 24 of 24 complete, "
+          f"the retired engine's pages freed")
+    dep.shutdown()
+    del dep, pool, scaler
+    free()
+    return res
+
+
 def _flash_inputs(seed, B, T, H, D, dtype, pad_to=None, Tk=None):
     g = np.random.default_rng(seed)
     out = []
@@ -4097,6 +4763,7 @@ def main(argv=None) -> int:
     engine_modes = phase_engine_modes(tl, args.seed)
     engine_faults = phase_engine_faults(tl, args.seed)
     pool_events = phase_pool_events(tl, args.seed)
+    pool_control = phase_pool_control(tl, args.seed)
     phase_generate_parity(tl, args.seed)
     print(f"phase 3 done at {time.monotonic() - t0:.1f} s")
     main_path, steps_fp = phase_main_path(tl, pa, args.seed, smi)
@@ -4120,6 +4787,9 @@ def main(argv=None) -> int:
     obs_pool = phase_obs_pool_path(tl, pa, args.seed, smi)
     print(f"phase 4g done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
+    control = phase_pool_control_path(tl, pa, args.seed, smi)
+    print(f"phase 4h done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
     k1["launches"] = main_path["k1_launches"]
@@ -4132,6 +4802,8 @@ def main(argv=None) -> int:
     k2["launches_lanes"] = faults_lanes["lanes"]["k2_launches"]
     k1["launches_pool"] = obs_pool["pool"]["k1_launches"]
     k2["launches_pool_int8"] = obs_pool["int8"]["k2_launches"]
+    k1["launches_disagg"] = \
+        control["disagg_ab"]["disaggregated"]["k1_launches"]
     # which split pass the served pools' decode steps run: the
     # tensor-core pass over bf16 pages on the fp pool (K1) and over int8
     # pages on the int8 pool (K2), in every layer
@@ -4181,6 +4853,8 @@ def main(argv=None) -> int:
                        "faults_lanes_path": faults_lanes,
                        "pool_events": pool_events,
                        "obs_pool_path": obs_pool,
+                       "pool_control": pool_control,
+                       "pool_control_path": control,
                        "train_main_path": train,
                        "llama_train_main_path": llama_train,
                        "total_s": time.monotonic() - t0}, f, indent=1)

@@ -147,7 +147,7 @@ def _record(pool, fakes, extra=None):
     rec = {"submits": [f.submits for f in fakes],
            "route_stats": dict(pool.route_stats),
            "pool_stats": pool.pool_stats(),
-           "events": [(e[2], e[4]) for e in pool.events.snapshot()]}
+           "events": [(e[2], e[4], e[5]) for e in pool.events.snapshot()]}
     rec.update(extra or {})
     return rec
 

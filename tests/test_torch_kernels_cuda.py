@@ -876,6 +876,39 @@ def test_engine_events_on_card_match_cpu(dev, tmp_path):
             "round"} <= set(kinds)
 
 
+def test_disagg_handoff_on_card_matches_cpu(dev):
+    """chip_smoke's phase 3 disaggregated case: one prefill and one
+    decode engine; on the card as on the CPU the same streams, pool
+    events, handoffs and pulls (the decode leg lands the prompt's full
+    pages from the prefill replica)."""
+    import chip_smoke
+    rec = [chip_smoke._disagg_case(_reduced_model(d), str(d), _POOL_WAVE,
+                                   16) for d in ("cpu", dev)]
+    assert rec[0] == rec[1]
+    assert (rec[1]["handoffs"], rec[1]["fallbacks"]) == (len(_POOL_WAVE),
+                                                         0)
+    assert rec[1]["pulls"]["pulled_pages"] == sum(
+        len(p) // 16 for p in _POOL_WAVE)
+
+
+def test_watchdog_wedge_on_card_matches_cpu(dev, tmp_path):
+    """chip_smoke's phase 3 watchdog case: a hang at replica 0's round 6
+    under a ``PoolWatchdog``; on the card as on the CPU the same routes,
+    outcomes, suspect -> wedged -> death sequence and counters, and the
+    released zombie commits nothing."""
+    import chip_smoke
+    rec = []
+    for d in ("cpu", dev):
+        flight = tmp_path / str(d).replace(":", "-")
+        flight.mkdir()
+        rec.append(chip_smoke._watchdog_case(_reduced_model(d), str(d),
+                                             _POOL_WAVE, 16, str(flight)))
+    assert rec[0] == rec[1]
+    assert rec[1]["log"] == [("suspect", 0), ("wedged", 0)]
+    assert rec[1]["zombie_committed_nothing"] and rec[1]["bundle"]
+    assert rec[1]["counters"]["wedged"] == 1
+
+
 # --------------------------------------------------------------------
 # Flash attention: K3, K4, K5
 # --------------------------------------------------------------------

@@ -194,7 +194,7 @@ def _record(pool, scaler, decisions, extra=None):
            "requested": list(getattr(prov, "requested", [])),
            "released": list(getattr(prov, "released", [])),
            "states": [r["state"] for r in pool.pool_stats()["replicas"]],
-           "events": [(e[2], e[4]) for e in pool.events.snapshot()]}
+           "events": [(e[2], e[4], e[5]) for e in pool.events.snapshot()]}
     rec.update(extra or {})
     return rec
 

@@ -149,7 +149,7 @@ def _record(fakes, pool, wd, trail, extra=None):
     rec = {"trail": trail, "counts": dict(wd.counts), "log": log,
            "stats": wd.stats(), "route_stats": dict(pool.route_stats),
            "pool_stats": pool.pool_stats(),
-           "events": [(e[2], e[3], e[4]) for e in pool.events.snapshot()],
+           "events": [(e[2], e[4], e[5]) for e in pool.events.snapshot()],
            "kills": [(f.force_kills, type(f.force_kill_err).__name__,
                       str(f.force_kill_err)) for f in fakes],
            "generations": [pool.replica(i).generation
