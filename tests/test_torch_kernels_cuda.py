@@ -903,6 +903,11 @@ def test_watchdog_wedge_on_card_matches_cpu(dev, tmp_path):
         flight.mkdir()
         rec.append(chip_smoke._watchdog_case(_reduced_model(d), str(d),
                                              _POOL_WAVE, 16, str(flight)))
+    for r in rec:
+        # the survivor may be suspected while a resubmit wakes it from
+        # idle, and must recover; whether it is depends on timing
+        alarms = r.pop("survivor_alarms")
+        assert alarms == ["suspect", "recovered"] * (len(alarms) // 2)
     assert rec[0] == rec[1]
     assert rec[1]["log"] == [("suspect", 0), ("wedged", 0)]
     assert rec[1]["zombie_committed_nothing"] and rec[1]["bundle"]

@@ -21,7 +21,9 @@ pool's suspect and wedged marks against the JAX package's, on the CPU.
 The reference file's chaos campaign (``tools/chaos_serve.py``) waits
 for the port's ``serve/chaos.py`` (ROADMAP.md, queue 1, item 9).
 """
+import importlib.util
 import os
+import pathlib
 import threading
 import time
 import types
@@ -558,3 +560,19 @@ def test_released_zombie_is_fenced(tiny):
         eng.shutdown()
     tfaults.check_quiesced(eng, expect_cached_pages=eng.prefix_cache
                            .cached_pages)
+
+
+def test_chip_smoke_pool_control_rehearses_on_the_cpu():
+    """chip_smoke phase 3's disaggregated and watchdog cases with the CPU
+    standing in for the card: the phase's own checks (the handoffs and
+    pulls, suspect -> wedged -> death, typed failures, the fenced
+    zombie) hold, so a card run fails only where the card differs."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    res = smoke.phase_pool_control(tl, 0, card_device="cpu")
+    assert res["disagg"]["handoffs"] == 8
+    assert res["disagg"]["pulls"]["pulled_pages"] == 8
+    assert res["watchdog"]["counters"]["wedged"] == 1
+    assert res["watchdog"]["failed_typed"] >= 1
