@@ -3361,6 +3361,33 @@ def _decode_steps(engines) -> int:
     return sum(e.stats["decode_steps"] for e in engines)
 
 
+def _hold_then_arm(eng, arm) -> dict:
+    """Shadow ``eng.step`` so the scheduler holds its rounds (outside
+    the engine lock) until ``state["queued"]`` is set, and calls
+    ``arm()`` at the first round boundary at which part of the work
+    there has streamed and part has not, recording both sets of request
+    ids. ``del eng.step`` restores it."""
+    state = {"queued": False, "armed": False, "streamed": set(),
+             "fresh": set()}
+    step = eng.step
+
+    def wrapped():
+        while not state["queued"]:
+            time.sleep(0.0005)
+        if not state["armed"]:
+            reqs = ([s.req for s in eng.slots if s is not None]
+                    + list(eng._wait))
+            done = {r.rid for r in reqs if r.generated}
+            fresh = {r.rid for r in reqs if not r.generated}
+            if done and fresh:
+                state.update(armed=True, streamed=done, fresh=fresh)
+                arm()
+        return step()
+
+    eng.step = wrapped
+    return state
+
+
 def _pool_kill_wave(model, pool, history, wave2, n_new: int,
                     device: str) -> dict:
     """Phase 4g (b)'s second wave: 4 requests per session (its history
@@ -3380,26 +3407,8 @@ def _pool_kill_wave(model, pool, history, wave2, n_new: int,
     eng = victim.engine
     inj = FaultInjector()
     eng._injector = inj
-    state = {"armed": False, "queued": False, "streamed": set(),
-             "unstreamed": set()}
-    step = eng.step
-
-    def step_then_maybe_kill():
-        # replica 1 holds its rounds (outside the engine lock) until
-        # the whole wave is routed: its admissions then start together
-        while not state["queued"]:
-            time.sleep(0.0005)
-        if not state["armed"]:
-            reqs = ([s.req for s in eng.slots if s is not None]
-                    + list(eng._wait))
-            done = {r.rid for r in reqs if r.generated}
-            fresh = {r.rid for r in reqs if not r.generated}
-            if done and fresh:
-                state.update(armed=True, streamed=done, unstreamed=fresh)
-                inj.kill_replica()        # fires at the top of this step
-        return step()
-
-    eng.step = step_then_maybe_kill
+    # the kill fires at the top of the step that arms it
+    state = _hold_then_arm(eng, inj.kill_replica)
     reqs = [(s, history[s] + wave2[s][k]) for k in range(4)
             for s in range(8)]
     hs, first = [], []
@@ -3434,7 +3443,7 @@ def _pool_kill_wave(model, pool, history, wave2, n_new: int,
     check_pool_quiesced(pool)
     failed = [i for i, o in enumerate(outs) if o[0] == "err"]
     resub = [i for i, (rep, rid) in enumerate(first)
-             if rep == 1 and rid in state["unstreamed"]]
+             if rep == 1 and rid in state["fresh"]]
     checks = {
         "the kill fired mid-wave": state["armed"] and bool(inj.log),
         "the streamed requests failed typed": sorted(failed) == sorted(
@@ -3453,7 +3462,7 @@ def _pool_kill_wave(model, pool, history, wave2, n_new: int,
             pool.replica(1).state == "healthy"
             and pool.replica(1).generation == victim.generation + 1,
     }
-    eng.step = step
+    del eng.step
     if not all(checks.values()):
         raise AssertionError(f"phase 4g (b) kill: {checks}; outs "
                              f"{[o[:2] if o[0] == 'err' else 'ok' for o in outs]}")
@@ -3774,33 +3783,6 @@ def _wait_transfers(pool, timeout_s: float = 60.0) -> None:
         time.sleep(0.01)
 
 
-def _hold_then_arm(eng, arm) -> dict:
-    """Shadow ``eng.step`` so the scheduler holds its rounds (outside
-    the engine lock) until ``state["queued"]`` is set, and calls
-    ``arm()`` at the first round boundary at which part of the work
-    there has streamed and part has not, recording both sets of request
-    ids. ``del eng.step`` restores it."""
-    state = {"queued": False, "armed": False, "streamed": set(),
-             "fresh": set()}
-    step = eng.step
-
-    def wrapped():
-        while not state["queued"]:
-            time.sleep(0.0005)
-        if not state["armed"]:
-            reqs = ([s.req for s in eng.slots if s is not None]
-                    + list(eng._wait))
-            done = {r.rid for r in reqs if r.generated}
-            fresh = {r.rid for r in reqs if not r.generated}
-            if done and fresh:
-                state.update(armed=True, streamed=done, fresh=fresh)
-                arm()
-        return step()
-
-    eng.step = wrapped
-    return state
-
-
 def phase_pool_control_path(tl, pa, seed: int, smi: str, cfg=None,
                             device: str = "cuda") -> dict:
     """Phase 4h: the pool's disaggregated roles, watchdog and autoscaler
@@ -3929,6 +3911,7 @@ def phase_pool_control_path(tl, pa, seed: int, smi: str, cfg=None,
                 whole.append(float((top - rows[torch.arange(len(mine)),
                                                tok]).max()))
             arm.update(parted=len(parting),
+                       parting_gaps=[round(x, 4) for x in parting],
                        parting_max_gap=max(parting, default=0.0),
                        parted_stream_max_gap=max(whole, default=0.0))
             if parting and max(parting) > LOGIT_SLACK:

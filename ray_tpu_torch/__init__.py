@@ -14,6 +14,9 @@ Slices landed so far, each on one card:
   ``ops.paged_attention`` (hand-written CUDA paged-decode kernels for
   fp and int8 pages); the engine's cross-replica KV pull
   (``serve.kv_migration`` over ``serve.fleet``) and hot weight swap;
+  the engine pool (``serve.engine_pool``) with its prefill/decode
+  roles, watchdog (``serve.watchdog``) and SLO autoscaler
+  (``serve.pool_autoscaler`` over ``autoscaler.node_provider``);
 - GPT-2 training: ``train.spmd`` ``make_train_step`` -> ``models.gpt2``
   -> ``ops.attention`` -> ``ops.flash_attention`` (hand-written CUDA
   flash-attention forward and backward kernels).
