@@ -1966,13 +1966,17 @@ def _default_loop_wave(tl, seed: int, vocab: int) -> list:
     return prompts
 
 
-def _run_wave(dep, prompts) -> tuple:
-    """Every prompt streamed by its own thread: (streams, token stamps,
-    wall seconds)."""
+def _run_wave(dep, prompts, gaps=None) -> tuple:
+    """Every prompt (token ids or a dict payload) streamed by its own
+    thread, thread i started ``gaps[i]`` seconds after thread i - 1 (no
+    ``gaps``: all at once): (streams, token stamps, wall seconds, each
+    thread's start)."""
     outs = [None] * len(prompts)
     stamps = [[] for _ in prompts]
+    starts = [None] * len(prompts)
 
     def stream(i):
+        starts[i] = time.monotonic()
         toks = []
         for t in dep.stream(prompts[i]):
             stamps[i].append(time.monotonic())
@@ -1982,13 +1986,15 @@ def _run_wave(dep, prompts) -> tuple:
     t0 = time.monotonic()
     threads = [threading.Thread(target=stream, args=(i,))
                for i in range(len(prompts))]
-    for t in threads:
+    for t, gap in zip(threads, gaps or [0.0] * len(threads)):
+        if gap:
+            time.sleep(gap)
         t.start()
     for t in threads:
         t.join(timeout=600)
     if any(t.is_alive() for t in threads):
         raise AssertionError("a streaming request did not finish")
-    return outs, stamps, time.monotonic() - t0
+    return outs, stamps, time.monotonic() - t0, starts
 
 
 def phase_default_loop_path(tl, pa, seed: int, smi: str) -> tuple:
@@ -2042,7 +2048,7 @@ def phase_default_loop_path(tl, pa, seed: int, smi: str) -> tuple:
         stats0 = dict(eng.stats)
         pa.paged_decode_attention.launches = 0
         pa.paged_decode_attention.launches_int8 = 0
-        outs, stamps, wall = _run_wave(dep, prompts)
+        outs, stamps, wall, _ = _run_wave(dep, prompts)
         launches = (pa.paged_decode_attention.launches,
                     pa.paged_decode_attention.launches_int8)
         del eng._dispatch_chunk_locked      # the probe's reference cycle
@@ -3717,46 +3723,22 @@ def phase_obs_pool_path(tl, pa, seed: int, smi: str, cfg=None,
 
 
 def _arrivals(dep, prompts, n_new: int, gaps) -> dict:
-    """Each prompt streamed through ``dep.stream`` by its own thread
-    (trace id ``r<i>``), thread i started ``gaps[i]`` seconds after
-    thread i - 1. Returns the streams, each request's start, TTFT and
-    time per output token, and tok/s over the wave."""
-    n = len(prompts)
-    outs, start = [None] * n, [None] * n
-    ttft, tpot = [None] * n, [None] * n
-
-    def run(i):
-        start[i] = time.monotonic()
-        got, stamps = [], []
-        for tok in dep.stream({"prompt_ids": prompts[i],
-                               "max_new_tokens": n_new,
-                               "trace_id": f"r{i}"}):
-            stamps.append(time.monotonic())
-            got.append(tok)
-        outs[i] = got
-        ttft[i] = stamps[0] - start[i]
-        if len(stamps) > 1:
-            tpot[i] = (stamps[-1] - stamps[0]) / (len(stamps) - 1)
-
-    threads = []
-    t0 = time.monotonic()
-    for i in range(n):
-        if gaps[i]:
-            time.sleep(gaps[i])
-        threads.append(threading.Thread(target=run, args=(i,)))
-        threads[-1].start()
-    for t in threads:
-        t.join(timeout=600)
-    wall = time.monotonic() - t0
+    """``_run_wave`` of the prompts (trace ids ``r<i>``, ``n_new`` tokens
+    each): the streams, each request's start and TTFT, TTFT p50 and p99,
+    time per output token p50 and tok/s over the wave."""
+    outs, stamps, wall, start = _run_wave(
+        dep, [{"prompt_ids": p, "max_new_tokens": n_new, "trace_id": f"r{i}"}
+              for i, p in enumerate(prompts)], gaps)
     if any(o is None or len(o) != n_new for o in outs):
         raise AssertionError(f"a request came back short or failed: "
                              f"{[None if o is None else len(o) for o in outs]}")
+    ttft = [st[0] - t for st, t in zip(stamps, start)]
+    tpot = [(st[-1] - st[0]) / (len(st) - 1) for st in stamps]
     return {"outs": outs, "start": start, "ttft": ttft,
-            "tok_s": n * n_new / wall, "wall_s": wall,
+            "tok_s": len(prompts) * n_new / wall, "wall_s": wall,
             "ttft_p50_s": float(np.percentile(ttft, 50)),
             "ttft_p99_s": float(np.percentile(ttft, 99)),
-            "tpot_p50_s": float(np.median([x for x in tpot
-                                           if x is not None]))}
+            "tpot_p50_s": float(np.median(tpot))}
 
 
 def _handoff_latencies(pool) -> list:

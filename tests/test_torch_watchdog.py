@@ -17,6 +17,8 @@ pool's suspect and wedged marks against the JAX package's, on the CPU.
   stall deadline, its unstreamed requests complete on replica 1 equal
   to JAX ``generate``, the bundle names it, and the released zombie is
   fenced (no token committed, the prefix cache untouched).
+- chip_smoke phase 3's disaggregated and watchdog cases, rehearsed with
+  the CPU standing in for the card.
 
 The reference file's chaos campaign (``tools/chaos_serve.py``) waits
 for the port's ``serve/chaos.py`` (ROADMAP.md, queue 1, item 9).
