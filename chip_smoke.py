@@ -7,9 +7,10 @@ sm_90a).
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g,
-4h, 2, 5, 6, 6b, 7, 7b, then 4d's profile: the host-timed serving phases come before
-any torch.profiler session, since a process that has run one launches
-kernels at a higher host cost for the rest of its life.
+4h, 4i, 2, 5, 6, 6b, 7, 7b, 7c, then 4d's profile: the host-timed
+serving phases come before any torch.profiler session, since a process
+that has run one launches kernels at a higher host cost for the rest of
+its life.
 
 1. Device report: name, count, and ``nvidia-smi``'s name and power
    limit. Builds the port's CUDA sources (K1 and K2, each with its
@@ -169,11 +170,14 @@ kernels at a higher host cost for the rest of its life.
    may precede a timed phase), torch.profiler's device time of one
    verify dispatch (16 rows x 5 tokens) against one decode step, on a
    fresh model and pool of this shape.
-4e. Cross-replica KV pull and the hot weight swap at full width: one
-   TinyLlama-1.1B bf16 model (random weights from ``--seed``) shared by
-   two ``LLMEngine``s on the card, each with 16 slots, 64-token pages,
-   513 pages and the prefix cache, once with an fp pool and once with
-   an int8 pool. The donor serves phase 4b's first wave (its 1024-token
+4e. Cross-replica KV pull and the hot weight swap at full width (phases
+   4e-4h run TinyLlama-1.1B's widths at 6 of its 22 layers,
+   ``EARLIER_POOL_LAYERS``, so that the script keeps inside its time
+   limit with phase 4i at full depth): one TinyLlama-1.1B bf16 model
+   (random weights from ``--seed``) shared by two ``LLMEngine``s on the
+   card, each with 16 slots, 64-token pages, 513 pages and the prefix
+   cache, once with an fp pool and once with an int8 pool. The donor
+   serves phase 4b's first wave (its 1024-token
    system prompt behind 4 of the 8). A fresh requester (warmed by one
    request) gets a request over that system prompt with a pull hint
    (its 16 ``path_hashes``) beside 4 background requests of 300-1200
@@ -305,6 +309,48 @@ kernels at a higher host cost for the rest of its life.
    none lost, the retired engine's pages free; prints the decisions,
    the timeline, the time from the burst to the new replica's first
    route, the engine's build time and TTFT p50 before and after.
+4i. Durable weights, the staged rollout and the batch tier at full
+   width: TinyLlama-1.1B bf16, payload A random from ``--seed`` and B
+   from ``--seed`` + 1, 16 slots, 64-token pages, 513 pages per engine.
+   Prints the temporary directory's free bytes. (a) ``publish_weights``
+   A and B (bytes; host seconds of the staging write, hash + fsync, the
+   manifest, the rename and the payload id), ``load_weights`` of B with
+   its deep verify (timed; the tensors equal B's), A republished into a
+   second directory with the same ``weights_id``; a third copy with its
+   tensor file truncated is refused ``InvalidCheckpointError`` and
+   ``fleet_weights()`` is unchanged. Then 4 parity probes of 8 tokens
+   from a lone engine serving the loaded B: seeded candidates (one
+   token repeated) whose every expected token leads the runner-up by
+   >= 0.5 logits, teacher-forced. (b) ``LlamaDeployment(num_engine_replicas=3,
+   prefix_cache=True)`` on A, ``WeightRolloutController(
+   canary_fraction=0.34, swap_mode="preempt")``: 24 requests of
+   512-token prompts, 64 new, 50 ms apart, once with no rollout and once
+   (fresh prompts of the same length) with the rollout A -> B started at
+   the 4th arrival: completed, transitions strictly increasing per
+   replica, 3 swaps (``canary_fraction`` 0.34 of 3: 2 canaries, then a
+   wave of 1), ``weights_mixed`` false, no failed request, and 4
+   requests sent after convergence (plus any of the trace whose first
+   token came after it) equal to the lone B engine's streams or parting
+   at a near-tie (0.1, teacher-forced); prints the rollout's wall time
+   and transitions, each replica's staging and pause ms, and each run's
+   tok/s, TTFT p50 and p99 and TPOT p50. (c) A rollout B -> C (layer 0's
+   ``wo`` negated): rolled back for parity, the fleet back on B, each
+   canary's generation up by 2, the other replica unswapped,
+   ``serve_weight_rollback_total`` and ``route_stats["weight_rollbacks"]``
+   1, a ``weight-rollback`` bundle naming the canary; prints the time
+   from the canary's swap to convergence; K1 22 x the pool's decode
+   steps over (b)-(c), K2 never. (d) The batch tier on one int8 engine
+   with the prefix cache: 64 seeded rows of 128-512 tokens, 64 new,
+   ``max_in_flight`` 32, under ``engine_kwargs_for_profile("latency")``
+   and ``("throughput")`` (each after a warm-up job; tok/s of each; rows
+   equal or parting at a near-tie, 0.1 over an int8 pool), then the
+   throughput arm again with ``checkpoint_every`` 8 through a target
+   whose ``submit`` raises after 40 calls (its streams in flight then
+   cancelled, as a dropped connection would), resumed from its manifest:
+   ``rows_resumed`` the committed rows, only the others submitted, no
+   row duplicated or missing, each equal to the uninterrupted arm's or
+   parting at a near-tie; prints each checkpoint write's ms; K2 22 x the
+   decode steps, K1 never.
 5. The flash-attention kernels against their plain versions on the
    card, each on the same inputs as its plain version: K3 (forward),
    K4 (dQ) and K5 (dK, dV) in fp32 (the scalar kernels) at T
@@ -362,15 +408,27 @@ kernels at a higher host cost for the rest of its life.
    ms per step, MFU (``llama_flops_per_token(cfg, 1024)`` against 989
    TFLOP/s) and peak device memory beside the card's name and power
    limit.
+7c. Phase 7's GPT-2-124M train step for 10 steps with
+   ``CheckpointManager(root, keep_last_k=2).save_async`` of the model's
+   and the AdamW optimizer's state dicts at step 5 (snapshot copied to
+   the host on the train thread, written while steps 6-10 run): prints
+   the step ms of steps 2-5, of steps 6-10 with the writer busy, and
+   phase 7's, the snapshot ms, the write's seconds and bytes. After
+   ``wait()``, ``latest_complete()`` restored into a fresh model and
+   optimizer must equal a copy taken on the card at step 5 bit for bit,
+   and its steps 6-7 must give the uninterrupted run's losses exactly
+   (every kernel of the step, K4 and K5 included, is deterministic).
 8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; K1's
    ``launches`` are phase 4's, ``launches_default_loop`` phase 4d's
    three arms, ``launches_kv_pull`` phase 4e's fp requester,
    ``launches_faults`` phase 4f (a)'s two waves, ``launches_pool``
    phase 4g (b)'s fp pool, ``launches_disagg`` phase 4h (a)'s split
-   arm, all on its decode replica; K2's ``launches``
+   arm, all on its decode replica, ``launches_rollout`` phase 4i
+   (b)-(c)'s pool; K2's ``launches``
    phase 4b's, ``launches_kv_pull`` phase 4e's int8 requester,
    ``launches_lanes`` phase 4f (b)'s backlog wave,
-   ``launches_pool_int8`` phase 4g (b)'s int8 pool; the flash rows
+   ``launches_pool_int8`` phase 4g (b)'s int8 pool, ``launches_batch``
+   phase 4i (d)'s batch engines; the flash rows
    at the GPT-2 shape with phase 7's launches, and under
    ``"llama_1_1b"`` at the TinyLlama shape with phase 7b's), then the
    ``{"ok": true, ...}`` line.
@@ -407,6 +465,7 @@ FLASH_BF16_O = (4e-3, 2.0 ** -7)   # one rounding of an fp32 result
 FLASH_BF16_GRAD = (1e-2, 2.0 ** -6)  # P and dS also rounded to bf16
 TRAIN_RTOL = 1e-4
 SPIN_CYCLES = 4_000_000            # ~2 ms at the H100's 1.6-2 GHz SM clock
+EARLIER_POOL_LAYERS = 6            # phases 4e-4h's depth (of 22)
 
 
 def _nvidia_smi() -> str:
@@ -1966,11 +2025,12 @@ def _default_loop_wave(tl, seed: int, vocab: int) -> list:
     return prompts
 
 
-def _run_wave(dep, prompts, gaps=None) -> tuple:
+def _run_wave(dep, prompts, gaps=None, hooks=None) -> tuple:
     """Every prompt (token ids or a dict payload) streamed by its own
     thread, thread i started ``gaps[i]`` seconds after thread i - 1 (no
-    ``gaps``: all at once): (streams, token stamps, wall seconds, each
-    thread's start)."""
+    ``gaps``: all at once), ``hooks[i]()`` called right after thread i
+    started: (streams, token stamps, wall seconds, each thread's
+    start)."""
     outs = [None] * len(prompts)
     stamps = [[] for _ in prompts]
     starts = [None] * len(prompts)
@@ -1986,10 +2046,13 @@ def _run_wave(dep, prompts, gaps=None) -> tuple:
     t0 = time.monotonic()
     threads = [threading.Thread(target=stream, args=(i,))
                for i in range(len(prompts))]
-    for t, gap in zip(threads, gaps or [0.0] * len(threads)):
+    for i, (t, gap) in enumerate(zip(threads,
+                                     gaps or [0.0] * len(threads))):
         if gap:
             time.sleep(gap)
         t.start()
+        if hooks and i in hooks:
+            hooks[i]()
     for t in threads:
         t.join(timeout=600)
     if any(t.is_alive() for t in threads):
@@ -2461,15 +2524,16 @@ def _swap_fp32_reduced(tl, seed: int) -> dict:
     return res
 
 
-def phase_kv_pull_swap(tl, pa, seed: int, smi: str) -> dict:
+def phase_kv_pull_swap(tl, pa, seed: int, smi: str, cfg=None) -> dict:
     """Phase 4e: cross-replica KV pull between two TinyLlama-1.1B
-    engines on the card (fp and int8 pools), then the hot weight swap
-    on the requester, then the fp32 checks at a reduced width."""
+    engines on the card (fp and int8 pools; ``cfg`` for another depth),
+    then the hot weight swap on the requester, then the fp32 checks at
+    a reduced width."""
     from ray_tpu_torch.serve import kv_migration as km
     from ray_tpu_torch.serve.engine import LLMEngine
     from ray_tpu_torch.serve.fleet import transport as fleet_transport
     from ray_tpu_torch.serve.prefix_cache import path_hashes
-    cfg = tl.tinyllama_1_1b()
+    cfg = cfg or tl.tinyllama_1_1b()
     n_new, Pg = 64, 64
     params = tl.init_params(cfg, seed=seed, device="cuda")
     model = tl.build_model(cfg, params, "cuda")
@@ -3722,13 +3786,13 @@ def phase_obs_pool_path(tl, pa, seed: int, smi: str, cfg=None,
     return res
 
 
-def _arrivals(dep, prompts, n_new: int, gaps) -> dict:
+def _arrivals(dep, prompts, n_new: int, gaps, hooks=None) -> dict:
     """``_run_wave`` of the prompts (trace ids ``r<i>``, ``n_new`` tokens
     each): the streams, each request's start and TTFT, TTFT p50 and p99,
     time per output token p50 and tok/s over the wave."""
     outs, stamps, wall, start = _run_wave(
         dep, [{"prompt_ids": p, "max_new_tokens": n_new, "trace_id": f"r{i}"}
-              for i, p in enumerate(prompts)], gaps)
+              for i, p in enumerate(prompts)], gaps, hooks)
     if any(o is None or len(o) != n_new for o in outs):
         raise AssertionError(f"a request came back short or failed: "
                              f"{[None if o is None else len(o) for o in outs]}")
@@ -4162,6 +4226,592 @@ def phase_pool_control_path(tl, pa, seed: int, smi: str, cfg=None,
     del dep, pool, scaler
     free()
     return res
+
+
+class _ModuleTimers:
+    """Shadow functions of modules (``{module: names}``) with wrappers
+    that add each call's host seconds to ``self.s[name]``; ``take()``
+    returns and zeroes them, ``restore()`` puts the functions back."""
+
+    def __init__(self, funcs: dict):
+        self.orig = [(mod, n, getattr(mod, n))
+                     for mod, names in funcs.items() for n in names]
+        self.s = {n: 0.0 for _m, n, _f in self.orig}
+        for mod, n, fn in self.orig:
+            setattr(mod, n, self._wrap(n, fn))
+
+    def _wrap(self, name, fn):
+        def wrapped(*args, **kw):
+            t = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.s[name] += time.perf_counter() - t
+        return wrapped
+
+    def take(self) -> dict:
+        out, self.s = self.s, dict.fromkeys(self.s, 0.0)
+        return out
+
+    def restore(self) -> None:
+        for mod, n, fn in self.orig:
+            setattr(mod, n, fn)
+
+
+def _publish_timed(wr, ck, timers, params, path, name: str) -> dict:
+    """``publish_weights`` of ``params`` (release tag ``name``) with its
+    host seconds by part: the staging write (``meta.pkl`` and the tensor
+    file), hash + fsync of every file, the manifest, the rename, and the
+    payload id's hash."""
+    timers.take()
+    t = time.perf_counter()
+    out, wid = wr.publish_weights(params, path, step=1,
+                                  extra={"release": name})
+    total = time.perf_counter() - t
+    s = timers.take()
+    hashing = s["_sha256"] + s["_fsync_file"]
+    part = {"staging_write_s": s["_write_payload"],
+            "hash_fsync_s": hashing,
+            "manifest_s": s["write_manifest"] - hashing,
+            "rename_s": s["_commit_dir"],
+            "weights_id_s": s["weights_id_from_payload"],
+            "total_s": total,
+            "bytes": sum(r["bytes"] for r in
+                         ck.load_manifest(out)["files"].values())}
+    return {"path": out, "weights_id": wid, **part}
+
+
+def _probe_margins(model, prompt, toks, device) -> float:
+    """The smallest lead of the expected token over the runner-up along
+    ``toks``, teacher-forced (``_teacher_forced_logits``) — or 0 when a
+    teacher-forced top-1 is not the expected token."""
+    rows = _teacher_forced_logits(model, prompt, toks, "fp", device)
+    top = rows.topk(2, dim=-1)
+    want = torch.tensor(toks, device=rows.device)
+    if not bool((top.indices[:, 0] == want).all()):
+        return 0.0
+    return float((top.values[:, 0] - top.values[:, 1]).min())
+
+
+def _pick_probes(lone, model, vocab: int, g, device, n_probe: int = 4,
+                 n_tok: int = 8, min_margin: float = 0.5) -> dict:
+    """``n_probe`` parity probes for the rollout controller: (prompt,
+    the ``n_tok`` tokens the lone engine serving the payload gives it),
+    taken from seeded candidates — one token repeated 32 to 128 times:
+    a random model's logits lead by ~0.13 at the median there, by ~0.03
+    after random ids (TinyLlama-1.1B, H100) — whose every expected token
+    leads the runner-up by ``min_margin`` teacher-forced, so that a
+    loaded canary's batch cannot flip one at a near-tie. Up to 8 rounds
+    of 32 candidates."""
+    chosen, margins = [], []
+    for _ in range(8):
+        cands = [[int(g.integers(0, vocab))] * int(g.integers(32, 129))
+                 for _j in range(32)]
+        hs = [lone.submit(p, n_tok) for p in cands]
+        for p, h in zip(cands, hs):
+            toks = h.result()
+            margins.append(_probe_margins(model, p, toks, device))
+            if margins[-1] >= min_margin and len(chosen) < n_probe:
+                chosen.append((p, toks, margins[-1]))
+        if len(chosen) == n_probe:
+            break
+    if len(chosen) < n_probe:
+        raise AssertionError(
+            f"phase 4i: {len(chosen)} of {len(margins)} candidate probes "
+            f"lead by >= {min_margin} at every token; the best "
+            f"{sorted(margins)[-8:]}")
+    return {"probes": [(p, t) for p, t, _m in chosen],
+            "margins": [m for _p, _t, m in chosen],
+            "candidates": len(margins),
+            "passing": sum(m >= min_margin for m in margins),
+            "median_margin": float(np.median(margins))}
+
+
+def _near_tie_parting(model, prompt, mine, twin, kv_dtype: str,
+                      device) -> tuple:
+    """Where ``mine`` parts from ``twin``: (index or None, the larger
+    teacher-forced gap to the top logit of the two tokens there)."""
+    if mine == twin:
+        return None, 0.0
+    j = next((k for k, (x, y) in enumerate(zip(mine, twin)) if x != y),
+             min(len(mine), len(twin)))
+    if j >= min(len(mine), len(twin)):
+        return j, float("inf")
+    row = _teacher_forced_logits(model, prompt, mine[:j + 1], kv_dtype,
+                                 device)[-1]
+    return j, max(float(row.max() - row[mine[j]]),
+                  float(row.max() - row[twin[j]]))
+
+
+def _replica_swap_timers(pool) -> dict:
+    """Per replica: its engine's staging and flip calls, timed."""
+    logs = {}
+    for i, eng in enumerate(pool.engines()):
+        logs[i] = {"stage": [], "flip": []}
+        _timed(eng, "_stage_weights", logs[i]["stage"])
+        _timed(eng, "_apply_swap_locked", logs[i]["flip"])
+    return logs
+
+
+def _rounded(per_replica: dict, nd: int) -> dict:
+    return {i: [round(x, nd) for x in v] for i, v in per_replica.items()}
+
+
+def _rollout_thread(ctl, kw: dict) -> tuple:
+    """``ctl.rollout(**kw)`` on its own thread: (thread, its record)."""
+    rec = {}
+
+    def run():
+        rec["t0"] = time.monotonic()
+        try:
+            rec["report"] = ctl.rollout(**kw)
+        except BaseException as e:  # noqa: BLE001 - re-raised by the caller
+            rec["error"] = e
+        rec["t1"] = time.monotonic()
+
+    t = threading.Thread(target=run, name="rollout")
+    return t, rec
+
+
+def phase_rollout_batch_path(tl, pa, seed: int, smi: str, cfg=None,
+                             device: str = "cuda",
+                             probe_margin: float = 0.5) -> dict:
+    """Phase 4i: durable weight payloads, the staged rollout over a pool
+    and the batch tier, at full width (TinyLlama-1.1B bf16 unless
+    ``cfg``; ``device="cpu"`` with a small fp32 ``cfg`` and
+    ``probe_margin=0`` rehearses it without a card: a narrow model's
+    logits rarely lead by 0.5, and fp32 on the CPU has no near-ties to
+    guard against)."""
+    from ray_tpu_torch.air import checkpoint as ck
+    from ray_tpu_torch.serve import batch_tier as bt
+    from ray_tpu_torch.serve import engine as seng
+    from ray_tpu_torch.serve import obs
+    from ray_tpu_torch.serve import weight_rollout as wr
+    from ray_tpu_torch.serve.faults import check_pool_quiesced, check_quiesced
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+    cfg = cfg or tl.tinyllama_1_1b()
+    n_layers, cuda = cfg.n_layers, device == "cuda"
+    n_new, Pg = 64, 64
+    knobs = dict(max_slots=16, page_size=Pg, n_pages=513, device=device)
+    g = np.random.default_rng(seed + 19)
+    root = tempfile.mkdtemp(prefix="chip_smoke_4i_")
+    free_bytes = shutil.disk_usage(root).free
+    print(f"phase 4i: {free_bytes / 1e9:.1f} GB free under {root}")
+    res = {"card": smi, "tmp_free_bytes": free_bytes}
+
+    def free():
+        if cuda:
+            torch.cuda.empty_cache()
+
+    def rand(n):
+        return g.integers(0, cfg.vocab_size, int(n)).tolist()
+
+    def rollbacks():
+        return sum(v for _k, v in
+                   seng._metrics()["weight_rollbacks"]._samples())
+
+    # (a) publish A and B, load B, republish A, a torn third copy
+    params_a = tl.init_params(cfg, seed=seed, device=device)
+    params_b = tl.init_params(cfg, seed=seed + 1, device=device)
+    timers = _ModuleTimers({
+        ck: ("_write_payload", "_sha256", "_fsync_file", "write_manifest",
+             "_commit_dir"),
+        wr: ("weights_id_from_payload",)})
+    try:
+        pub = {name: _publish_timed(wr, ck, timers, p,
+                                    os.path.join(root, name), name)
+               for name, p in (("A", params_a), ("B", params_b))}
+        t = time.perf_counter()
+        loaded_b, wid_b = wr.load_weights(pub["B"]["path"])
+        load_s = time.perf_counter() - t
+        load_parts = timers.take()
+        again = _publish_timed(wr, ck, timers, params_a,
+                               os.path.join(root, "A2"), "A")
+    finally:
+        timers.restore()
+    wid_a = pub["A"]["weights_id"]
+    same_b = all(torch.equal(loaded_b[k].to(device), v)
+                 for k, v in params_b.items())
+    checks = {"the loaded payload is B's id": wid_b == pub["B"]["weights_id"],
+              "the loaded tensors equal B's": same_b
+              and list(loaded_b) == list(params_b),
+              "A and B differ": wid_a != wid_b,
+              "A republished keeps its id": again["weights_id"] == wid_a}
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4i (a): {checks}")
+    res["publish"] = {k: {kk: vv for kk, vv in v.items() if kk != "path"}
+                      for k, v in {**pub, "A_again": again}.items()}
+    res["load"] = {"total_s": load_s,
+                   "deep_verify_s": load_parts["_sha256"],
+                   "weights_id_s": load_parts["weights_id_from_payload"]}
+    for name, p in res["publish"].items():
+        print(f"phase 4i (a): publish {name} ({p['bytes']} bytes, id "
+              f"{p['weights_id']}): staging write {p['staging_write_s']:.3f}"
+              f" s, hash + fsync {p['hash_fsync_s']:.3f} s, manifest "
+              f"{p['manifest_s']:.4f} s, rename {p['rename_s']:.4f} s, "
+              f"payload id {p['weights_id_s']:.3f} s, total "
+              f"{p['total_s']:.3f} s")
+    print(f"phase 4i (a): load_weights(B) {load_s:.3f} s (deep verify "
+          f"{res['load']['deep_verify_s']:.3f} s, payload id "
+          f"{res['load']['weights_id_s']:.3f} s); the tensors equal B's; "
+          f"A republished keeps id {wid_a}")
+    shutil.rmtree(pub["A"]["path"], ignore_errors=True)
+    shutil.rmtree(pub["B"]["path"], ignore_errors=True)
+    del params_b
+    free()
+
+    # the lone B engine: the probes' expected tokens
+    model_b = tl.build_model(cfg, loaded_b, device)
+    lone = seng.LLMEngine(model_b, prefix_cache=True, **knobs).start()
+    lone.submit(rand(100), 8).result()
+    picked = _pick_probes(lone, model_b, cfg.vocab_size, g, device,
+                          min_margin=probe_margin)
+    probes = picked["probes"]
+    res["probes"] = {k: v for k, v in picked.items() if k != "probes"}
+    res["probes"]["prompt_lens"] = [len(p) for p, _t in probes]
+    print(f"phase 4i: 4 probes of 8 tokens from the lone B engine, "
+          f"teacher-forced leads over the runner-up "
+          f"{[round(m, 3) for m in picked['margins']]} (>= {probe_margin}; "
+          f"{picked['passing']} of {picked['candidates']} candidates pass, "
+          f"median lead {picked['median_margin']:.4f})")
+
+    # (b) a green rollout A -> B under a chat front end's arrivals
+    dep = LlamaDeployment(cfg, params_a, num_engine_replicas=3,
+                          prefix_cache=True, max_new_tokens=n_new, **knobs)
+    pool = dep.engine()
+    for e in pool.engines():
+        e.submit(rand(100), 8).result()
+        e.wait_idle(60)
+        e.reset_latency_stats()
+    flight = os.path.join(root, "flight")
+    ctl = wr.WeightRolloutController(pool, canary_fraction=0.34,
+                                     probes=probes, swap_mode="preempt",
+                                     flight_dir=flight)
+    # the torn third copy is refused before any replica is touched
+    fleet0 = ctl.fleet_weights()
+    full = os.path.join(again["path"], "arrays", "tensors.pt")
+    os.truncate(full, os.path.getsize(full) - 4096)
+    try:
+        wr.load_weights(again["path"])
+        raise AssertionError("phase 4i (a): a truncated payload loaded")
+    except ck.InvalidCheckpointError as e:
+        torn_reason = e.reason
+    if ctl.fleet_weights() != fleet0 or "manifest says" not in torn_reason:
+        raise AssertionError(f"phase 4i (a): torn copy: {torn_reason}; "
+                             f"fleet {fleet0} -> {ctl.fleet_weights()}")
+    shutil.rmtree(again["path"], ignore_errors=True)
+    res["torn_copy_refused"] = torn_reason
+    print(f"phase 4i (a): a truncated third copy refused typed "
+          f"(InvalidCheckpointError: {torn_reason}), fleet unchanged "
+          f"{fleet0}")
+
+    engines = pool.engines()
+    steps0 = _decode_steps(engines)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
+    gaps = [0.0] + [0.05] * 23
+    traces = [[rand(512) for _ in range(24)] for _run in range(2)]
+    plain = _arrivals(dep, traces[0], n_new, gaps)
+    swap_logs = _replica_swap_timers(pool)
+    thread, rec = _rollout_thread(ctl, dict(
+        new_params=loaded_b, weights_id=wid_b, baseline_params=params_a,
+        baseline_weights_id=wid_a))
+    roll = _arrivals(dep, traces[1], n_new, gaps, hooks={3: thread.start})
+    thread.join(timeout=600)
+    for e in engines:
+        e.wait_idle(60)
+        del e._stage_weights, e._apply_swap_locked
+    if "error" in rec or thread.is_alive():
+        raise AssertionError(f"phase 4i (b): the rollout raised "
+                             f"{rec.get('error')!r}")
+    report = rec["report"]
+    t_done = rec["t1"]
+    late = [i for i in range(24)
+            if roll["start"][i] + roll["ttft"][i] > t_done]
+    post = traces[1][:4]
+    post_outs = _run_wave(dep, [{"prompt_ids": p, "max_new_tokens": n_new}
+                                for p in post])[0]
+    agg = pool.load_report()
+    per_rep = {}
+    for tr in report["transitions"]:
+        per_rep.setdefault(tr["idx"], []).append(tr["to"])
+    checks = {
+        "completed": report["status"] == "completed",
+        "transitions strictly increasing per replica": all(
+            b > a for v in per_rep.values() for a, b in zip(v, v[1:]))
+        and all(tr["to"] > tr["from"] for tr in report["transitions"]),
+        "3 swaps": pool.route_stats["weight_swaps"] == 3,
+        "weights not mixed": agg["weights_mixed"] is False,
+        "the fleet on B": {w for _g, w in ctl.fleet_weights().values()}
+        == {wid_b},
+        "no failed request": all(len(o) == n_new for o in
+                                 plain["outs"] + roll["outs"] + post_outs),
+        "a weight-rollout-done bundle": any(
+            b.startswith("weight-rollout-done") for b in os.listdir(flight)),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4i (b): {checks}; {report}")
+    res["green"] = {
+        "wall_s": t_done - rec["t0"], "canary": report["canary"],
+        "waves": report["waves"], "transitions": report["transitions"],
+        "generation": report["generation"],
+        "staging_ms": {i: [x * 1e3 for x in v["stage"]]
+                       for i, v in swap_logs.items()},
+        "pause_ms": {i: [x * 1e3 for x in v["flip"]]
+                     for i, v in swap_logs.items()},
+        "weight_swaps": pool.route_stats["weight_swaps"],
+        "late_requests": late,
+        "arms": {name: {k: run[k] for k in ("tok_s", "wall_s", "ttft_p50_s",
+                                             "ttft_p99_s", "tpot_p50_s")}
+                 for name, run in (("no_rollout", plain),
+                                   ("rollout", roll))}}
+
+    # (c) a red rollout B -> C: C negates layer 0's attention output
+    bad = dict(loaded_b)
+    key = "layers.0.attention.wo.weight"
+    bad[key] = -loaded_b[key]
+    wid_c = wr.weights_id_from_payload({"release": "C", "params": bad})
+    gens0 = {i: pool.replica(i).engine.weight_generation for i in range(3)}
+    swaps0 = {i: pool.replica(i).engine.stats["weight_swaps"]
+              for i in range(3)}
+    n_ev, rb0 = pool.events.total, rollbacks()
+    red = ctl.rollout(bad, weights_id=wid_c, baseline_params=loaded_b,
+                      baseline_weights_id=wid_b)
+    ev = pool.events.snapshot()
+    ev = ev[len(ev) - (pool.events.total - n_ev):]
+    k_launch = (pa.paged_decode_attention.launches,
+                pa.paged_decode_attention.launches_int8)
+    steps = _decode_steps(engines) - steps0
+    t_swap = next((e[obs.T] for e in ev if e[obs.ETYPE] == "weight_swap"
+                   and e[obs.DATA]["weights_id"] == wid_c), None)
+    t_conv = next((e[obs.T] for e in ev
+                   if e[obs.ETYPE] == "weight_source"), None)
+    bundles = [os.path.join(flight, b) for b in sorted(os.listdir(flight))
+               if b.startswith("weight-rollback")]
+    bundle = obs.load_flight_bundle(bundles[0]) if bundles else {}
+    touched = set(red["canary"])
+    checks = {
+        "rolled back for parity": red["status"] == "rolled_back"
+        and "parity" in red["rollback_reason"]
+        and None not in (t_swap, t_conv),
+        "the fleet converged on B": red["rollback"]["converged"] and {
+            w for _g, w in ctl.fleet_weights().values()} == {wid_b},
+        "each canary's generation advanced twice": all(
+            pool.replica(i).engine.weight_generation == gens0[i] + 2
+            for i in touched),
+        "untouched replicas did not swap": all(
+            pool.replica(i).engine.stats["weight_swaps"] == swaps0[i]
+            for i in range(3) if i not in touched),
+        "serve_weight_rollback_total 1": rollbacks() - rb0 == 1,
+        "route_stats weight_rollbacks 1":
+            pool.route_stats["weight_rollbacks"] == 1,
+        "a weight-rollback bundle names the canary": len(bundles) == 1
+        and f"canary replica {red['canary'][0]}"
+        in bundle.get("extra", {}).get("reason", ""),
+    }
+    if cuda:
+        checks["K1 22 x the pool's decode steps, K2 never"] = \
+            steps > 0 and k_launch == (n_layers * steps, 0)
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4i (c): {checks}; {red}")
+    res["red"] = {"canary": red["canary"], "reason": red["rollback_reason"],
+                  "probe_failures": len(red["probe_failures"]),
+                  "canary_swap_to_convergence_s": t_conv - t_swap,
+                  "transitions": red["transitions"]}
+    res["k1_launches"], res["k2_launches"] = k_launch
+    res["pool_decode_steps"] = steps
+    # the requests admitted after convergence against the lone B engine
+    lone_outs = [h.result() for h in [lone.submit(p, n_new) for p in
+                                      post + [traces[1][i] for i in late]]]
+    partings = []
+    for p, mine, twin in zip(post + [traces[1][i] for i in late],
+                             post_outs + [roll["outs"][i] for i in late],
+                             lone_outs):
+        j, gap = _near_tie_parting(model_b, p, mine, twin, "fp", device)
+        if j is not None:
+            partings.append((j, gap))
+    if any(gap > INT8_LOGIT_SLACK for _j, gap in partings):
+        raise AssertionError(f"phase 4i (b): a request served after "
+                             f"convergence parts from the lone B engine "
+                             f"{partings}")
+    res["green"]["after_convergence"] = {
+        "compared": len(lone_outs), "parted": len(partings),
+        "parting_gaps": [round(gap, 4) for _j, gap in partings]}
+    for e in engines:
+        e.wait_idle(60)
+    check_pool_quiesced(pool)
+    dep.shutdown()
+    for name, a in res["green"]["arms"].items():
+        print(f"phase 4i (b) {name}: TinyLlama-1.1B bf16 on {smi}, 3 "
+              f"replicas, 24 requests (512-token prompts, 64 new) 50 ms "
+              f"apart: {a['tok_s']:.1f} tok/s, TTFT p50 "
+              f"{a['ttft_p50_s'] * 1e3:.1f} ms p99 "
+              f"{a['ttft_p99_s'] * 1e3:.1f} ms, TPOT p50 "
+              f"{a['tpot_p50_s'] * 1e3:.2f} ms")
+    gr = res["green"]
+    print(f"phase 4i (b): rollout A -> B from the 4th arrival: "
+          f"{gr['wall_s']:.3f} s, canary {gr['canary']}, waves "
+          f"{gr['waves']}, transitions "
+          f"{[(t['idx'], t['from'], t['to']) for t in gr['transitions']]}, "
+          f"staging ms {_rounded(gr['staging_ms'], 1)}, pause ms "
+          f"{_rounded(gr['pause_ms'], 2)}, "
+          f"weight_swaps {gr['weight_swaps']}, weights_mixed False, no "
+          f"failed request; after convergence "
+          f"{gr['after_convergence']['compared']} requests against the "
+          f"lone B engine: {gr['after_convergence']['parted']} part, at "
+          f"near-ties {gr['after_convergence']['parting_gaps']}")
+    print(f"phase 4i (c): rollout B -> C (layer 0's wo negated): rolled "
+          f"back ({res['red']['reason']}), the fleet on B, canary swap -> "
+          f"convergence {res['red']['canary_swap_to_convergence_s']:.3f} s,"
+          f" serve_weight_rollback_total +1, a weight-rollback bundle; K1 "
+          f"{k_launch[0]} = {n_layers} x {steps} decode steps over (b)-(c)")
+    lone.shutdown()
+    del dep, pool, engines, ctl, lone, bad, params_a
+    free()
+
+    # (d) the batch tier on one int8 engine with the prefix cache
+    corpus = [rand(n) for n in g.integers(128, 513, size=64)]
+    warm_rows = [rand(n) for n in g.integers(128, 513, size=4)]
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
+    arms, batch_engines = {}, []
+    for name in ("latency", "throughput"):
+        eng = seng.LLMEngine(model_b, kv_dtype="int8", prefix_cache=True,
+                             **knobs, **bt.engine_kwargs_for_profile(name))
+        eng.start()
+        batch_engines.append(eng)
+        bt.run_batch_job(eng, warm_rows, max_new_tokens=8,
+                         job_id=f"warm-{name}")
+        job = bt.BatchInferenceJob(eng, corpus, max_new_tokens=n_new,
+                                   max_in_flight=32, job_id=name)
+        t = time.monotonic()
+        outs = job.run()
+        wall = time.monotonic() - t
+        arms[name] = {"outs": outs, "tok_s": len(corpus) * n_new / wall,
+                      "wall_s": wall, "stats": dict(job.stats)}
+    thr = batch_engines[1]
+    partings = []
+    for p, a, b in zip(corpus, arms["latency"]["outs"],
+                       arms["throughput"]["outs"]):
+        j, gap = _near_tie_parting(model_b, p, a, b, "int8", device)
+        if j is not None:
+            partings.append((j, gap))
+    ckdir = os.path.join(root, "batch-ck")
+    writes = []
+    crash = _CrashingTarget(thr, 40)
+    job = bt.BatchInferenceJob(crash, corpus, max_new_tokens=n_new,
+                               max_in_flight=32, checkpoint_dir=ckdir,
+                               checkpoint_every=8, job_id="resume")
+    _timed(job, "_write_checkpoint", writes)
+    try:
+        job.run()
+        raise AssertionError("phase 4i (d): the crashing target never "
+                             "crashed")
+    except RuntimeError as e:
+        if "simulated" not in str(e):
+            raise
+    for h in crash.handles:        # the dead driver's streams drop
+        h.cancel()
+    thr.wait_idle(120)
+    committed = ck.Checkpoint.from_directory(ckdir).to_dict()["completed"]
+    counting = _CountingTarget(thr)
+    job = bt.BatchInferenceJob(counting, corpus, max_new_tokens=n_new,
+                               max_in_flight=32, checkpoint_dir=ckdir,
+                               checkpoint_every=8, job_id="resume")
+    _timed(job, "_write_checkpoint", writes)
+    resumed = job.run()
+    for eng in batch_engines:
+        eng.wait_idle(60)
+    k_batch = (pa.paged_decode_attention.launches,
+               pa.paged_decode_attention.launches_int8)
+    steps = _decode_steps(batch_engines)
+    rest = [i for i in range(len(corpus)) if i not in committed]
+    resume_partings = []
+    for i, (p, a, b) in enumerate(zip(corpus, resumed,
+                                      arms["throughput"]["outs"])):
+        j, gap = _near_tie_parting(model_b, p, a, b, "int8", device)
+        if j is not None:
+            resume_partings.append((i, j, gap))
+    checks = {
+        "every row complete in both arms": all(
+            len(o) == n_new for a in arms.values() for o in a["outs"]),
+        "the arms agree or part at near-ties": all(
+            gap <= INT8_LOGIT_SLACK for _j, gap in partings),
+        "rows committed before the crash": 0 < len(committed) < len(corpus),
+        "rows_resumed == the committed rows":
+            job.stats["rows_resumed"] == len(committed),
+        "the resumed run submits only the others": sorted(
+            map(tuple, counting.submitted)) == sorted(
+            tuple(corpus[i]) for i in rest),
+        "no row duplicated or missing": len(resumed) == len(corpus)
+        and len(counting.submitted) == len(rest),
+        "resumed rows equal the uninterrupted arm's or part at near-ties":
+            all(gap <= INT8_LOGIT_SLACK for _i, _j, gap in resume_partings),
+    }
+    if cuda:
+        checks["K2 22 x the decode steps, K1 never"] = \
+            steps > 0 and k_batch == (0, n_layers * steps)
+    for eng in batch_engines:
+        eng.shutdown()
+        check_quiesced(eng)
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4i (d): {checks}; partings "
+                             f"{partings}, {resume_partings}")
+    res["batch"] = {
+        "arms": {k: {kk: vv for kk, vv in v.items() if kk != "outs"}
+                 for k, v in arms.items()},
+        "profile_partings": [round(gap, 4) for _j, gap in partings],
+        "committed": len(committed), "resubmitted": len(rest),
+        "resume_partings": [(i, round(gap, 4))
+                            for i, _j, gap in resume_partings],
+        "checkpoint_write_ms": [x * 1e3 for x in writes],
+        "decode_steps": steps}
+    res["k2_launches_batch"] = k_batch[1]
+    b = res["batch"]
+    print(f"phase 4i (d): batch tier on one int8 engine + prefix cache, 64 "
+          f"rows of 128-512 tokens, 64 new, max_in_flight 32, on {smi}: "
+          f"latency profile {b['arms']['latency']['tok_s']:.1f} tok/s, "
+          f"throughput profile {b['arms']['throughput']['tok_s']:.1f} "
+          f"tok/s; {len(partings)} rows part between the profiles, at "
+          f"near-ties {b['profile_partings']}; crash after 40 submits: "
+          f"{b['committed']} rows committed, the resume submitted the "
+          f"{b['resubmitted']} others, none duplicated or missing, "
+          f"{len(resume_partings)} part from the uninterrupted arm at "
+          f"near-ties; checkpoint writes "
+          f"{[round(x, 2) for x in b['checkpoint_write_ms']]} ms; K2 "
+          f"{k_batch[1]} = {n_layers} x {steps} decode steps")
+    shutil.rmtree(root, ignore_errors=True)
+    del model_b, loaded_b, batch_engines, thr
+    free()
+    return res
+
+
+class _CrashingTarget:
+    """An engine whose ``submit`` raises after ``crash_after`` calls: a
+    batch driver's crash with rows committed and rows in flight (kept in
+    ``handles``, so that the crash can cancel them as a dropped
+    connection would)."""
+
+    def __init__(self, eng, crash_after: int):
+        self._eng, self._left, self.handles = eng, crash_after, []
+
+    def submit(self, *a, **kw):
+        if self._left <= 0:
+            raise RuntimeError("simulated driver crash")
+        self._left -= 1
+        self.handles.append(self._eng.submit(*a, **kw))
+        return self.handles[-1]
+
+
+class _CountingTarget:
+    """An engine that records every prompt submitted through it."""
+
+    def __init__(self, eng):
+        self._eng, self.submitted = eng, []
+
+    def submit(self, prompt, **kw):
+        self.submitted.append(list(prompt))
+        return self._eng.submit(prompt, **kw)
 
 
 def _flash_inputs(seed, B, T, H, D, dtype, pad_to=None, Tk=None):
@@ -4731,6 +5381,117 @@ def phase_llama_train_main_path(tl, fa, seed: int, smi: str) -> dict:
     return res
 
 
+def phase_train_checkpoint(fa, seed: int, smi: str, step_ms_phase7: float,
+                           cfg=None, B: int = 24, T: int = 1024,
+                           device: str = "cuda") -> dict:
+    """Phase 7c: phase 7's GPT-2-124M train step for 10 steps, with an
+    asynchronous checkpoint of the model's and the AdamW optimizer's
+    state dicts taken at step 5 and written while steps 6-10 run; then a
+    restore into a fresh model and optimizer, held bit for bit to a copy
+    taken on the card at step 5, whose steps 6-7 must give the
+    uninterrupted run's losses (``cfg``, ``B``, ``T`` and
+    ``device="cpu"`` rehearse it without a card)."""
+    from ray_tpu_torch.air import checkpoint as ck
+    from ray_tpu_torch.air.checkpoint_manager import CheckpointManager
+    from ray_tpu_torch.models import gpt2
+    from ray_tpu_torch.train import spmd
+    cfg = cfg or gpt2.gpt2_124m()
+    cuda = device == "cuda"
+    batch = {"ids": np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(B, T + 1), dtype=np.int32)}
+    state, step, b = _trainer(cfg, gpt2.init_params(cfg, seed, device),
+                              batch, device, 3e-4)
+    root = tempfile.mkdtemp(prefix="chip_smoke_7c_")
+    mgr = CheckpointManager(root, keep_last_k=2)
+    losses = []
+
+    def window(n):
+        nonlocal state
+        t = time.perf_counter()
+        ms = []
+        for _ in range(n):
+            state, m = step(state, b)
+            ms.append(m["loss"])
+        losses.extend(float(x) for x in ms)      # waits for the device
+        return (time.perf_counter() - t) / n * 1e3
+
+    window(1)                                    # step 1: warm
+    before_ms = window(4)                        # steps 2-5
+    ref_model = {k: v.detach().clone()
+                 for k, v in state.params.state_dict().items()}
+    ref_opt = {i: {k: v.clone() for k, v in s.items()} for i, s in
+               state.opt_state.state_dict()["state"].items()}
+    done_at = []
+    t_save = time.perf_counter()
+    handle = mgr.save_async({"model": state.params.state_dict(),
+                             "optimizer": state.opt_state.state_dict(),
+                             "step": 5}, 5)
+    snapshot_ms = (time.perf_counter() - t_save) * 1e3
+    stamp = threading.Thread(target=lambda: (
+        handle.wait(), done_at.append(time.perf_counter())))
+    stamp.start()
+    busy_ms = window(5)                          # steps 6-10, writer busy
+    busy_to_the_end = not handle.done()
+    mgr.wait(600)
+    stamp.join(60)
+    write_s = done_at[0] - t_save
+    manifest = ck.load_manifest(handle.path)
+    payload_bytes = sum(r["bytes"] for r in manifest["files"].values())
+    del state
+    if cuda:
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    data = mgr.latest_complete().to_dict()
+    model = gpt2.build_model(cfg, gpt2.init_params(cfg, seed + 7, device),
+                             device)
+    model.load_state_dict(data["model"])
+    opt = spmd.adamw(3e-4, weight_decay=0.1)(model.parameters())
+    opt.load_state_dict(data["optimizer"])
+    restore_s = time.perf_counter() - t
+    mgr.close()
+    got_opt = opt.state_dict()["state"]
+    mismatched = [k for k, v in model.state_dict().items()
+                  if not torch.equal(v, ref_model[k])]
+    mismatched += [f"opt {i} {k}" for i, s in ref_opt.items()
+                   for k, v in s.items()
+                   if not torch.equal(got_opt[i][k].to(v.device), v)]
+    restored = spmd.TrainState(params=model, opt_state=opt, step=5)
+    after = []
+    for _ in range(2):
+        restored, m = step(restored, b)
+        after.append(float(m["loss"]))
+    checks = {
+        "every tensor equals the card copy of step 5": not mismatched
+        and len(ref_model) == len(model.state_dict())
+        and len(ref_opt) == len(got_opt),
+        "steps 6-7 from the restore give the uninterrupted losses":
+            after == losses[5:7],
+        "losses finite": all(np.isfinite(losses + after)),
+        "step 5 committed": manifest["step"] == 5 and data["step"] == 5,
+    }
+    shutil.rmtree(root, ignore_errors=True)
+    if not all(checks.values()):
+        raise AssertionError(f"phase 7c: {checks}; mismatched "
+                             f"{mismatched[:8]}; losses {losses} restored "
+                             f"{after}")
+    res = {"card": smi, "step_ms_before": before_ms,
+           "step_ms_writer_busy": busy_ms, "step_ms_phase7": step_ms_phase7,
+           "writer_busy_through_step_10": busy_to_the_end,
+           "snapshot_ms": snapshot_ms, "write_s": write_s,
+           "payload_bytes": payload_bytes, "restore_s": restore_s,
+           "losses": losses, "restored_losses": after}
+    print(f"phase 7c: GPT-2-124M train, batch {B} x T {T}, on {smi}: "
+          f"save_async of the model + AdamW state at step 5 "
+          f"({payload_bytes} bytes): snapshot {snapshot_ms:.1f} ms on the "
+          f"train thread, committed {write_s:.2f} s later (writer busy "
+          f"through step 10: {busy_to_the_end}); step ms {before_ms:.2f} "
+          f"(steps 2-5), {busy_ms:.2f} with the writer busy (steps 6-10), "
+          f"phase 7 {step_ms_phase7:.2f}; restore {restore_s:.2f} s, every "
+          f"tensor equals the card copy of step 5, steps 6-7 from the "
+          f"restore {after} == uninterrupted {losses[5:7]}")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4817,17 +5578,26 @@ def main(argv=None) -> int:
     default_loop = phase_default_loop_path(tl, pa, args.seed, smi)
     print(f"phase 4d done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    kv_pull = phase_kv_pull_swap(tl, pa, args.seed, smi)
+    # phases 4e-4h run TinyLlama-1.1B's widths at a cut depth, so that
+    # the script, with phase 4i at full depth, keeps inside its time
+    # limit on a slow host too
+    shallow = tl.tinyllama_1_1b(n_layers=EARLIER_POOL_LAYERS)
+    print(f"phases 4e-4h: TinyLlama-1.1B widths at {shallow.n_layers} of "
+          f"its {tl.tinyllama_1_1b().n_layers} layers")
+    kv_pull = phase_kv_pull_swap(tl, pa, args.seed, smi, cfg=shallow)
     print(f"phase 4e done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    faults_lanes = phase_faults_lanes_path(tl, pa, args.seed, smi)
+    faults_lanes = phase_faults_lanes_path(tl, pa, args.seed, smi, cfg=shallow)
     print(f"phase 4f done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    obs_pool = phase_obs_pool_path(tl, pa, args.seed, smi)
+    obs_pool = phase_obs_pool_path(tl, pa, args.seed, smi, cfg=shallow)
     print(f"phase 4g done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    control = phase_pool_control_path(tl, pa, args.seed, smi)
+    control = phase_pool_control_path(tl, pa, args.seed, smi, cfg=shallow)
     print(f"phase 4h done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    rollout = phase_rollout_batch_path(tl, pa, args.seed, smi)
+    print(f"phase 4i done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
@@ -4843,6 +5613,8 @@ def main(argv=None) -> int:
     k2["launches_pool_int8"] = obs_pool["int8"]["k2_launches"]
     k1["launches_disagg"] = \
         control["disagg_ab"]["disaggregated"]["k1_launches"]
+    k1["launches_rollout"] = rollout["k1_launches"]
+    k2["launches_batch"] = rollout["k2_launches_batch"]
     # which split pass the served pools' decode steps run: the
     # tensor-core pass over bf16 pages on the fp pool (K1) and over int8
     # pages on the int8 pool (K2), in every layer
@@ -4871,6 +5643,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     llama_train = phase_llama_train_main_path(tl, fa, args.seed, smi)
     print(f"phase 7b done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    train_ckpt = phase_train_checkpoint(fa, args.seed, smi, train["step_ms"])
+    print(f"phase 7c done at {time.monotonic() - t0:.1f} s")
     default_loop.update(phase_verify_device_time(tl, args.seed, smi))
     for row in flash:
         row["launches"] = train["launches"][row["name"]]
@@ -4894,6 +5669,8 @@ def main(argv=None) -> int:
                        "obs_pool_path": obs_pool,
                        "pool_control": pool_control,
                        "pool_control_path": control,
+                       "rollout_batch_path": rollout,
+                       "train_checkpoint": train_ckpt,
                        "train_main_path": train,
                        "llama_train_main_path": llama_train,
                        "total_s": time.monotonic() - t0}, f, indent=1)

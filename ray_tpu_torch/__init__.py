@@ -16,7 +16,9 @@ Slices landed so far, each on one card:
   (``serve.kv_migration`` over ``serve.fleet``) and hot weight swap;
   the engine pool (``serve.engine_pool``) with its prefill/decode
   roles, watchdog (``serve.watchdog``) and SLO autoscaler
-  (``serve.pool_autoscaler`` over ``autoscaler.node_provider``);
+  (``serve.pool_autoscaler`` over ``autoscaler.node_provider``); the
+  staged weight rollout (``serve.weight_rollout``) and the batch tier
+  (``serve.batch_tier``) over durable checkpoints (``air``);
 - GPT-2 training: ``train.spmd`` ``make_train_step`` -> ``models.gpt2``
   -> ``ops.attention`` -> ``ops.flash_attention`` (hand-written CUDA
   flash-attention forward and backward kernels).

@@ -156,6 +156,7 @@ RETRIES_TOTAL = "serve_engine_retries_total"
 BATCH_TOKENS_TOTAL = "serve_batch_tokens_total"
 BATCH_PREEMPTED_TOTAL = "serve_batch_preempted_total"
 WEIGHT_SWAP_TOTAL = "serve_weight_swap_total"
+WEIGHT_ROLLBACK_TOTAL = "serve_weight_rollback_total"
 WEIGHT_GENERATION_GAUGE = "serve_weight_generation"
 KV_BYTES_TOTAL = "serve_kv_bytes_total"
 
@@ -163,8 +164,8 @@ _METRICS: Optional[dict] = None
 
 
 def _metrics() -> dict:
-    """Lazy metric singletons of the lifecycle, the lanes and the
-    weight swap (the reference's names), re-created if a
+    """Lazy metric singletons of the lifecycle, the lanes, the weight
+    swap and its rollback (the reference's names), re-created if a
     ``clear_registry()`` dropped them."""
     global _METRICS
     if (_METRICS is None or metrics.registry().get(SHED_TOTAL)
@@ -196,6 +197,11 @@ def _metrics() -> dict:
                 WEIGHT_SWAP_TOTAL, "In-place hot weight swaps applied "
                 "(monotonic generation-fence flips between scheduler "
                 "rounds)"),
+            "weight_rollbacks": metrics.Counter(
+                WEIGHT_ROLLBACK_TOTAL, "Fleet rollout rollbacks: a "
+                "canaried generation failed its health/parity gates "
+                "and the controller re-installed the old payload "
+                "under a fresh generation"),
             "weight_generation": metrics.Gauge(
                 WEIGHT_GENERATION_GAUGE,
                 "Weight generation currently serving on each replica "

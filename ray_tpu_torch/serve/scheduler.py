@@ -1,9 +1,8 @@
 """Own copy of the pure step planner of ``ray_tpu/serve/scheduler.py``
 (``SlotView``, ``PrefillGrant``, ``SpecGrant``, ``StepPlan``,
 ``plan_step``), with its speculative-decoding lane, stale-frontier
-cap, KV-pull phase, priority lanes and replica roles, without its
-named scheduler profiles, which wait for the batch tier (ROADMAP.md,
-queue 1, item 7).
+cap, KV-pull phase, priority lanes, replica roles and named scheduler
+profiles (``SCHEDULER_PROFILES``, ``scheduler_profile``).
 
 One scheduling round of the continuous-batching engine
 (serve/engine.py) is planned here, device-free: given a host-side
@@ -97,6 +96,48 @@ def role_plan_caps(role, *, page_size, decode_chunk, prefill_budget,
         caps["prefill_budget"] = max(1, min(prefill_budget,
                                             page_size + 1))
     return caps
+
+
+# Named knob presets for the two serving regimes. Pure data (the
+# import guard above applies): the engine/deployment layer maps these
+# onto its constructor knobs (serve/batch_tier.py
+# ``engine_kwargs_for_profile``); the planner itself reads nothing here.
+#
+# - ``latency``: the defaults the online path has always run —
+#   short decode cadence, bounded admission queue, moderate prefill
+#   chunks so TTFT stays flat under interleave.
+# - ``throughput``: offline batch inference with no TTFT SLO — deep
+#   (unbounded) admission queue, large prefill chunks so prompt
+#   processing amortizes dispatch overhead, longer decode run-ahead.
+#   ``max_queued=None`` is deliberate: the batch driver bounds its own
+#   in-flight window (serve/batch_tier.py), so the engine queue depth
+#   is the driver's concurrency knob, not a shed boundary.
+SCHEDULER_PROFILES = {
+    "latency": {
+        "decode_chunk": 4,
+        "prefill_chunk": 256,
+        "max_run_ahead": 256,
+        "max_queued": 2,
+    },
+    "throughput": {
+        "decode_chunk": 16,
+        "prefill_chunk": 512,
+        "max_run_ahead": 512,
+        "max_queued": None,
+    },
+}
+
+
+def scheduler_profile(name):
+    """Knob preset for ``name`` ('latency' | 'throughput'): a fresh
+    dict the caller may mutate. Unknown names raise — a silently
+    defaulted profile would hide a typo'd deployment config."""
+    try:
+        return dict(SCHEDULER_PROFILES[name])
+    except KeyError:
+        raise ValueError(
+            f"unknown scheduler profile {name!r}; expected one of "
+            f"{sorted(SCHEDULER_PROFILES)}") from None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,8 +1,8 @@
 """Import boundary of the port: ``ray_tpu_torch``, ``chip_smoke.py``
 and the ``tools/torch_*.py`` profilers import no JAX (``jax``,
-``jaxlib``, ``flax``) and nothing of the JAX package ``ray_tpu``; the
-port's entry points run on the card unless the caller asks for the
-CPU.
+``jaxlib``, ``flax``, ``orbax``) and nothing of the JAX package
+``ray_tpu``; the port's entry points run on the card unless the caller
+asks for the CPU.
 
 - static: AST-walk every port module and chip_smoke.py;
 - dynamic: import every port module (and chip_smoke) in a subprocess
@@ -22,7 +22,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "ray_tpu_torch"
-FORBIDDEN = {"jax", "jaxlib", "flax", "ray_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "orbax", "ray_tpu"}
 
 
 def _port_files():
@@ -65,7 +65,7 @@ def test_port_planner_imports_within_contract():
 def test_port_modules_import_with_jax_blocked():
     prog = f"""
 import importlib, json, pkgutil, sys
-for name in ("jax", "jaxlib", "flax"):
+for name in ("jax", "jaxlib", "flax", "orbax"):
     sys.modules[name] = None          # any import of them now fails
 sys.path.insert(0, {str(ROOT)!r})
 import ray_tpu_torch
@@ -105,7 +105,11 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.serve.watchdog",
                  "ray_tpu_torch.serve.pool_autoscaler",
-                 "ray_tpu_torch.autoscaler.node_provider"):
+                 "ray_tpu_torch.autoscaler.node_provider",
+                 "ray_tpu_torch.air.checkpoint",
+                 "ray_tpu_torch.air.checkpoint_manager",
+                 "ray_tpu_torch.serve.weight_rollout",
+                 "ray_tpu_torch.serve.batch_tier"):
         assert name in res["modules"]
 
 

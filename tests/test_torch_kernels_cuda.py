@@ -1255,3 +1255,90 @@ def test_gpt2_bf16_train_step_on_card(dev):
                    sd, batch, dev, 1)
     assert abs(flash[0][0] - dense[0][0]) < 1e-2
     assert abs(flash[0][1] - dense[0][1]) < 0.02 * dense[0][1]
+
+
+def test_bf16_payload_published_from_the_card_swaps_in_token_identically(
+        dev, tmp_path):
+    """A bf16 state dict on the card, published and loaded back (CPU
+    tensors), swapped into an engine serving other weights: the engine
+    then gives the same tokens as an engine built on the same weights
+    directly, K1 on every decode step."""
+    from ray_tpu_torch.models.llama import build_model, init_params, \
+        llama_tiny
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.weight_rollout import (load_weights,
+                                                    publish_weights,
+                                                    weights_id_from_payload)
+    cfg = llama_tiny(dtype=torch.bfloat16, dim=128, n_heads=2,
+                     n_kv_heads=1, max_seq_len=256)   # head_dim 64
+    sd = init_params(cfg, 3, dev)
+    path, wid = publish_weights(sd, str(tmp_path / "w"), step=1,
+                                extra={"release": "r1"})
+    loaded, wid2 = load_weights(path)
+    assert wid2 == wid == weights_id_from_payload(
+        {"release": "r1", "params": {k: v.cpu() for k, v in sd.items()}})
+    assert all(v.device.type == "cpu" and v.dtype == sd[k].dtype
+               and torch.equal(v, sd[k].cpu()) for k, v in loaded.items())
+    prompts = [list(range(1, 20)), list(range(40, 47)), [5] * 33]
+    knobs = dict(max_slots=4, page_size=8, n_pages=128, device=dev)
+    direct = LLMEngine(build_model(cfg, sd, dev), **knobs)
+    hs = [direct.submit(p, 16) for p in prompts]
+    while direct.step():
+        pass
+    want = [h.result() for h in hs]
+    eng = LLMEngine(build_model(cfg, init_params(cfg, 4, dev), dev), **knobs)
+    assert eng.swap_weights(loaded, weights_id=wid) == 1
+    before = pa.paged_decode_attention.launches
+    hs = [eng.submit(p, 16) for p in prompts]
+    while eng.step():
+        pass
+    assert [h.result() for h in hs] == want
+    assert eng.weights_id == wid
+    assert pa.paged_decode_attention.launches - before == \
+        cfg.n_layers * eng.stats["decode_steps"]
+
+
+def test_save_async_of_cuda_parameters_under_an_in_place_update(
+        dev, tmp_path):
+    """CUDA parameters and AdamW moments saved asynchronously, then
+    updated in place by ``optimizer.step()`` while the writer is held:
+    the committed bytes are the step's, bit for bit."""
+    import threading
+    from ray_tpu_torch.air.checkpoint_manager import CheckpointManager
+    torch.manual_seed(0)
+    model = torch.nn.Linear(64, 32).to(dev)
+    opt = torch.optim.AdamW(model.parameters(), lr=0.1)
+    x = torch.randn(16, 64, device=dev)
+
+    def train():
+        opt.zero_grad()
+        model(x).square().mean().backward()
+        opt.step()
+
+    train()
+    # clones: ``.cpu()`` of the optimizer's host-side step is itself
+    want = {k: v.cpu().clone() for k, v in model.state_dict().items()}
+    want_opt = {i: {k: v.cpu().clone() for k, v in s.items()}
+                for i, s in opt.state_dict()["state"].items()}
+    gate = threading.Event()
+    mgr = CheckpointManager(str(tmp_path),
+                            pre_commit_hook=lambda s: gate.wait(30))
+    try:
+        h = mgr.save_async({"model": model.state_dict(),
+                            "optimizer": opt.state_dict()}, 1)
+        for _ in range(3):
+            train()
+        torch.cuda.synchronize(dev)
+        assert not torch.equal(model.weight.cpu(), want["weight"])
+        gate.set()
+        assert h.wait(30) and h.committed
+        got = mgr.latest_complete().to_dict()
+    finally:
+        gate.set()
+        mgr.close()
+    for k, v in want.items():
+        assert got["model"][k].device.type == "cpu"
+        assert torch.equal(got["model"][k], v)
+    for i, s in want_opt.items():
+        for k, v in s.items():
+            assert torch.equal(got["optimizer"]["state"][i][k], v)
