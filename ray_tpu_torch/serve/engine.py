@@ -968,6 +968,7 @@ class LLMEngine:
         self.events.append("weight_swap", data={
             "generation": gen, "weights_id": wid, "mode": mode,
             "preempted": preempted, "prefix_pages_evicted": evicted})
+        self._hb = time.monotonic()
 
     def load_report(self) -> Dict[str, Any]:
         """Compact load snapshot: free capacity, per-lane queue

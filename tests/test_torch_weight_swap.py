@@ -17,6 +17,7 @@ pinned pages, which leave the pool with their last pin, where the
 reference's would keep them matchable (ROADMAP.md, queue 3).
 """
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -134,6 +135,30 @@ def test_preempt_swap_matches_reference(tiny, same):
         assert rec["got"][:k] == rec["before"]
         assert rec["got"][k:] == _run(make(w1), prompt + rec["before"],
                                       12 - k)
+
+
+def _flip_heartbeat(make, w0, _w1):
+    """A preempt-mode flip on the caller's thread stamps the heartbeat,
+    as a round does. The heartbeat is first aged by an hour, as an
+    engine whose scheduler has been idle that long would have it; the
+    stamp is then held against a clock reading taken just before the
+    swap, whatever the time between them."""
+    eng = make()
+    _run(eng, [3, 1, 4, 1, 5, 9, 2, 6], 4)
+    eng._hb -= 3600.0
+    before = time.monotonic()
+    eng.swap_weights(w0, weights_id="v2", mode="preempt")
+    age = eng.load_report()["heartbeat_age_s"]
+    after = time.monotonic()
+    eng.shutdown()
+    # the report's own clock reading lies in [before, after], so a
+    # heartbeat stamped at or after `before` is at most this old
+    return age <= after - before
+
+
+def test_preempt_flip_refreshes_the_heartbeat(tiny):
+    assert {pkg: _flip_heartbeat(*tiny[pkg]) for pkg in tiny} == \
+        {"jax": True, "torch": True}
 
 
 def _fence_monotonic(make, w0, _w1):
