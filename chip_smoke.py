@@ -1164,6 +1164,62 @@ def _gated_engine():
     return _Gated
 
 
+class _FakeClock:
+    """A clock that moves only by ``advance``."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self) -> float:
+        return self.t
+
+    def advance(self, dt: float) -> None:
+        self.t += dt
+
+
+def _clocked_engine(cls, clock):
+    """``cls`` (an ``LLMEngine`` class) whose ``load_report`` ages the
+    heartbeat on ``clock``: each stamp of ``_hb`` also reads ``clock``,
+    and ``heartbeat_age_s`` is ``clock()`` less that reading. On a
+    ``_FakeClock`` the engine looks stalled only as far as the clock is
+    advanced, however slow the host's rounds."""
+
+    class _Clocked(cls):
+        @property
+        def _hb(self):
+            return self._hb_wall
+
+        @_hb.setter
+        def _hb(self, t):
+            self._hb_wall = t
+            self._hb_clock = clock()
+
+        def _report_locked(self, digest: bool = True):
+            rpt = super()._report_locked(digest)
+            rpt["heartbeat_age_s"] = clock() - self._hb_clock
+            return rpt
+
+    return _Clocked
+
+
+def _tick_wedge(wd, clock, victim, plan, timeout_s: float = 120.0) -> None:
+    """Drive ``wd`` through a wedge of ``victim``, whose heartbeat ages
+    on ``clock`` (a ``_FakeClock``; the other replicas' on clocks that
+    never move, so that a resubmit landing on an idle survivor finds it
+    HEALTHY): once ``plan`` (a hang) holds the victim's scheduler with
+    work queued, advance the clock to the suspect age and tick, then to
+    the stall deadline and tick."""
+    end = time.monotonic() + timeout_s
+    while not (plan.fired and victim.load_report()["has_work"]):
+        if time.monotonic() > end:
+            raise AssertionError("the hang never engaged")
+        time.sleep(0.01)
+    clock.advance(wd.suspect_after_s)
+    wd.tick()
+    clock.advance(wd.stall_deadline_s - wd.suspect_after_s)
+    wd.tick()
+
+
 def _pool_kill_case(model, device: str, prompts, n: int) -> dict:
     """Phase 3's pool case on ``device``: a pool of two engines (fp32,
     4 slots, the lockstep loop), every prompt routed before any round,
@@ -1337,8 +1393,13 @@ def _watchdog_case(model, device: str, prompts, n: int, flight_dir: str
     """Phase 3's watchdog case on ``device``: a pool of two engines
     (fp32, 4 slots, the lockstep loop, every readback taken in the CPU's
     round), every prompt routed before any round, a ``hang`` at replica
-    0's step in its round 6 and a ``PoolWatchdog`` (stall deadline 1 s,
-    10 ms polls) started with the rounds. Returns the routes, each
+    0's step in its round 6 and a ``PoolWatchdog`` (stall deadline 1 s):
+    on the card polling every 10 ms on the wall clock from the start of
+    the rounds; on the CPU, whose rounds under a loaded host can take
+    as long as the deadline, ticked on a ``_FakeClock`` that replica 0's
+    heartbeat reads too (replica 1's a clock that never moves), advanced
+    only once the hang holds replica 0 (``_tick_wedge``). Returns the
+    routes, each
     request's outcome (error types only: their messages carry the
     measured stall), the pool's events up to the death and the rest
     counted, the watchdog's log of replica 0, and the counters, after
@@ -1351,18 +1412,24 @@ def _watchdog_case(model, device: str, prompts, n: int, flight_dir: str
     from ray_tpu_torch.serve.faults import (FaultInjector,
                                             check_pool_quiesced)
     from ray_tpu_torch.serve.watchdog import PoolWatchdog
+    clock = _FakeClock() if device == "cpu" else None
     gated = _gated_engine()
+    classes = [gated, gated]
+    if clock is not None:
+        classes = [_clocked_engine(gated, clock),
+                   _clocked_engine(gated, _FakeClock())]
     inj = FaultInjector()
-    inj.hang("step", round=6)
+    hang = inj.hang("step", round=6)
 
     def factory(idx):
-        return gated(model, max_slots=4, page_size=16, n_pages=64, chunk=2,
+        return classes[idx](model, max_slots=4, page_size=16, n_pages=64, chunk=2,
                      prefill_chunk=16, seed=idx, overlap=False,
                      fault_injector=inj if idx == 0 else None,
                      device=device)
 
     pool = EnginePool(factory, 2)
     wd = PoolWatchdog(pool, stall_deadline_s=1.0, poll_interval_s=0.01,
+                      time_fn=clock or time.monotonic,
                       flight_dir=flight_dir)
     victim = pool.replica(0).engine
     try:
@@ -1371,7 +1438,8 @@ def _watchdog_case(model, device: str, prompts, n: int, flight_dir: str
             routes = [h.replica_idx for h in hs]
             for eng in pool.engines():
                 eng.go()
-            wd.run()
+            if clock is None:
+                wd.run()
             outs = [None] * len(hs)
 
             def read(i):
@@ -1385,6 +1453,8 @@ def _watchdog_case(model, device: str, prompts, n: int, flight_dir: str
                        for i in range(len(hs))]
             for t in threads:
                 t.start()
+            if clock is not None:
+                _tick_wedge(wd, clock, victim, hang)
             for t in threads:
                 t.join(timeout=120)
         held = list(victim._wait) + [s.req for s in victim.slots

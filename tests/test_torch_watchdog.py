@@ -448,15 +448,23 @@ def tiny():
     return types.SimpleNamespace(model=tmodel, want=want)
 
 
-def _warm_factory(tiny, inj_for):
+def _smoke():
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+def _warm_factory(tiny, inj_for, cls_for=lambda idx: teng.LLMEngine):
     """Warmed port engines: the pool's replicas join with their first
     rounds behind them."""
     def factory(idx):
-        eng = teng.LLMEngine(tiny.model, max_slots=2, page_size=8,
-                             n_pages=64, chunk=4, temperature=0.0,
-                             seed=idx, prefix_cache=True,
-                             admit_timeout_s=0.5,
-                             fault_injector=inj_for(idx), device="cpu")
+        eng = cls_for(idx)(tiny.model, max_slots=2, page_size=8,
+                  n_pages=64, chunk=4, temperature=0.0,
+                  seed=idx, prefix_cache=True,
+                  admit_timeout_s=0.5,
+                  fault_injector=inj_for(idx), device="cpu")
         eng.start()
         eng.submit([3, 1, 4, 1], max_new_tokens=4).result()
         eng.submit([3, 1, 4, 1, 5, 9], max_new_tokens=4).result()
@@ -466,18 +474,28 @@ def _warm_factory(tiny, inj_for):
 
 
 def test_injected_hang_escalates_to_death_within_deadline(tiny, tmp_path):
+    """The watchdog and replica 0's heartbeat run on one fake clock
+    (chip_smoke's ``_clocked_engine``), which moves only once the hang
+    holds replica 0; replica 1's heartbeat reads a clock that never
+    moves. On a loaded host a round of the survivor can take as long as
+    the deadline on the wall clock."""
+    smoke = _smoke()
+    clock = smoke._FakeClock()
+    classes = [smoke._clocked_engine(teng.LLMEngine, c)
+               for c in (clock, smoke._FakeClock())]
     stall = 1.0
     inj = tfaults.FaultInjector()
     pool = tpool.EnginePool(
-        _warm_factory(tiny, lambda idx: inj if idx == 0 else None), 2)
+        _warm_factory(tiny, lambda idx: inj if idx == 0 else None,
+                      classes.__getitem__), 2)
     watchdog = twd.PoolWatchdog(pool, stall_deadline_s=stall,
-                                poll_interval_s=0.05,
-                                flight_dir=str(tmp_path)).run()
+                                poll_interval_s=0.05, time_fn=clock,
+                                flight_dir=str(tmp_path))
     try:
         prompts = [[3, 1, 4, 1, 10 + i, 20 + i] for i in range(6)]
         want = [tiny.want(p, 12) for p in prompts]
-        inj.hang("step")
-        t0 = time.monotonic()
+        hang = inj.hang("step")
+        t0 = clock()
         results = [None] * len(prompts)
 
         def consume(i, h):
@@ -491,11 +509,8 @@ def test_injected_hang_escalates_to_death_within_deadline(tiny, tmp_path):
                    for i, h in enumerate(handles)]
         for t in threads:
             t.start()
-        deadline = time.monotonic() + stall + 10.0
-        while (watchdog.counts["wedged"] < 1
-               and time.monotonic() < deadline):
-            time.sleep(0.01)
-        detect_s = time.monotonic() - t0
+        smoke._tick_wedge(watchdog, clock, pool.replica(0).engine, hang)
+        detect_s = clock() - t0
         assert watchdog.counts["wedged"] == 1, detect_s
         assert detect_s < stall + 3.0
         (wedge,) = [e for e in watchdog.log if e["event"] == "wedged"]
@@ -569,11 +584,7 @@ def test_chip_smoke_pool_control_rehearses_on_the_cpu():
     standing in for the card: the phase's own checks (the handoffs and
     pulls, suspect -> wedged -> death, typed failures, the fenced
     zombie) hold, so a card run fails only where the card differs."""
-    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
-    spec = importlib.util.spec_from_file_location("chip_smoke", path)
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
-    res = smoke.phase_pool_control(tl, 0, card_device="cpu")
+    res = _smoke().phase_pool_control(tl, 0, card_device="cpu")
     assert res["disagg"]["handoffs"] == 8
     assert res["disagg"]["pulls"]["pulled_pages"] == 8
     assert res["watchdog"]["counters"]["wedged"] == 1
