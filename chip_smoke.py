@@ -7,7 +7,7 @@ sm_90a).
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g,
-4h, 4i, 2, 5, 6, 6b, 7, 7b, 7c, then 4d's profile: the host-timed
+4h, 4i, 8, 2, 5, 6, 6b, 7, 7b, 7c, then 4d's profile: the host-timed
 serving phases come before any torch.profiler session, since a process
 that has run one launches kernels at a higher host cost for the rest of
 its life.
@@ -311,7 +311,9 @@ its life.
    route, the engine's build time and TTFT p50 before and after.
 4i. Durable weights, the staged rollout and the batch tier at full
    width: TinyLlama-1.1B bf16, payload A random from ``--seed`` and B
-   from ``--seed`` + 1, 16 slots, 64-token pages, 513 pages per engine.
+   from ``--seed`` + 1, 16 slots, 64-token pages, 513 pages per engine;
+   (a) at full depth, (b)-(d) on the payloads' first 6 layers
+   (``EARLIER_POOL_LAYERS``, as 4e-4h), each under its own payload id.
    Prints the temporary directory's free bytes. (a) ``publish_weights``
    A and B (bytes; host seconds of the staging write, hash + fsync, the
    manifest, the rename and the payload id), ``load_weights`` of B with
@@ -418,19 +420,44 @@ its life.
    optimizer must equal a copy taken on the card at step 5 bit for bit,
    and its steps 6-7 must give the uninterrupted run's losses exactly
    (every kernel of the step, K4 and K5 included, is deterministic).
-8. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; K1's
+8. The RLHF loop (``ray_tpu_torch.rl``) at TinyLlama-1.1B's widths
+   and 6 of its layers (``EARLIER_POOL_LAYERS``), bf16 on fp32 masters
+   (random weights from ``--seed``), after 4i: first, at ``llama_tiny``
+   fp32, two ``RolloutLearner`` updates on one fixed batch of length
+   128 card (fp32 flash kernels) vs CPU, loss, pg_loss and entropy
+   within 1e-4 relative. Then one ``LLMEngine`` (16 slots, 64-token
+   pages, ``capture_logprobs=True``, temperature 1, no eos) feeding a
+   ``RolloutLearner`` (ppo, Adam 1e-5) through ``RLHFLoop``: 16 prompts
+   of 96 tokens a round, 32 new tokens (L = 128, so the learner's
+   attention takes flash), staleness bound 1, overlapped,
+   ``keep_last_k=1``: (1) 3 rounds; (2) 2 rounds with the generator
+   killed mid round 1; (3) 2 rounds with the learner killed before round
+   1's commit, then attempt 2's resume. Checks: every ledger holds each
+   round once, staleness <= 1, one generator restart, the resume at
+   round 1 with ``resync_weights_id == recovered_weights_id``, the
+   engine's final payload the one that sampled the last batch (the last
+   round's publish is never synced: no round follows it), every loss
+   finite, overlap observed, and in (1) K1 once per layer on every
+   decode step (K2 never) and K3, K4, K5 and the delta pass once per
+   layer per update. Prints per round the generation and learner walls,
+   the generator's weight sync, publish and commit seconds, and each
+   learner update's seconds, ``generator_utilization``,
+   ``overlap_observed``, the launch counts, and the resume's restore
+   seconds.
+9. The ``{"kernels": [...]}`` line (K1, K2, K3, K4, K5; K1's
    ``launches`` are phase 4's, ``launches_default_loop`` phase 4d's
    three arms, ``launches_kv_pull`` phase 4e's fp requester,
    ``launches_faults`` phase 4f (a)'s two waves, ``launches_pool``
    phase 4g (b)'s fp pool, ``launches_disagg`` phase 4h (a)'s split
    arm, all on its decode replica, ``launches_rollout`` phase 4i
-   (b)-(c)'s pool; K2's ``launches``
+   (b)-(c)'s pool, ``launches_rl`` phase 8 (1)'s engine; K2's ``launches``
    phase 4b's, ``launches_kv_pull`` phase 4e's int8 requester,
    ``launches_lanes`` phase 4f (b)'s backlog wave,
    ``launches_pool_int8`` phase 4g (b)'s int8 pool, ``launches_batch``
    phase 4i (d)'s batch engines; the flash rows
-   at the GPT-2 shape with phase 7's launches, and under
-   ``"llama_1_1b"`` at the TinyLlama shape with phase 7b's), then the
+   at the GPT-2 shape with phase 7's launches and ``launches_rl``
+   phase 8 (1)'s learner's, and under ``"llama_1_1b"`` at the TinyLlama
+   shape with phase 7b's), then the
    ``{"ok": true, ...}`` line.
 
 Exits non-zero, printing no result, when no CUDA device is visible.
@@ -4443,15 +4470,24 @@ def _rollout_thread(ctl, kw: dict) -> tuple:
     return t, rec
 
 
+def _first_layers(sd, n: int) -> dict:
+    """The state dict of a Llama cut to its first ``n`` layers."""
+    return {k: v for k, v in sd.items()
+            if not k.startswith("layers.") or int(k.split(".")[1]) < n}
+
+
 def phase_rollout_batch_path(tl, pa, seed: int, smi: str, cfg=None,
                              device: str = "cuda",
-                             probe_margin: float = 0.5) -> dict:
+                             probe_margin: float = 0.5,
+                             cut_layers: int = None) -> dict:
     """Phase 4i: durable weight payloads, the staged rollout over a pool
     and the batch tier, at full width (TinyLlama-1.1B bf16 unless
     ``cfg``; ``device="cpu"`` with a small fp32 ``cfg`` and
     ``probe_margin=0`` rehearses it without a card: a narrow model's
     logits rarely lead by 0.5, and fp32 on the CPU has no near-ties to
-    guard against)."""
+    guard against). With ``cut_layers``, (a) publishes and loads the
+    full-depth payloads and (b)-(d) serve their first ``cut_layers``
+    layers."""
     from ray_tpu_torch.air import checkpoint as ck
     from ray_tpu_torch.serve import batch_tier as bt
     from ray_tpu_torch.serve import engine as seng
@@ -4528,6 +4564,17 @@ def phase_rollout_batch_path(tl, pa, seed: int, smi: str, cfg=None,
     shutil.rmtree(pub["A"]["path"], ignore_errors=True)
     shutil.rmtree(pub["B"]["path"], ignore_errors=True)
     del params_b
+    if cut_layers is not None:
+        # (b)-(d) at a cut depth: A and B cut to their first layers,
+        # each under the id publish_weights would give the cut payload
+        cfg = dataclasses.replace(cfg, n_layers=cut_layers)
+        n_layers = cut_layers
+        params_a = _first_layers(params_a, n_layers)
+        loaded_b = _first_layers(loaded_b, n_layers)
+        wid_a, wid_b = (wr.weights_id_from_payload({"params": p})
+                        for p in (params_a, loaded_b))
+        res["cut_layers"] = n_layers
+        print(f"phase 4i (b)-(d): the payloads' first {n_layers} layers")
     free()
 
     # the lone B engine: the probes' expected tokens
@@ -5562,6 +5609,280 @@ def phase_train_checkpoint(fa, seed: int, smi: str, step_ms_phase7: float,
     return res
 
 
+RL_LEARNER_RTOL = 1e-4             # fp32 learner stats, card vs CPU
+
+
+def _rl_batch(tl, cfg, seed: int, B: int, plen: int, n_new: int):
+    """A scored rollout batch of ``B`` prompts of ``plen`` tokens and
+    ``n_new``-token completions, all seeded; behavior logprobs near a
+    policy's (normal around -log(vocab))."""
+    from ray_tpu_torch.rl import RolloutBatch
+    g = np.random.default_rng(seed + 29)
+    return RolloutBatch(
+        batch_id="round-0", round_idx=0,
+        prompts=g.integers(0, cfg.vocab_size, (B, plen)).tolist(),
+        completions=g.integers(0, cfg.vocab_size, (B, n_new)).tolist(),
+        logprobs=(g.normal(-np.log(cfg.vocab_size), 0.3, (B, n_new))
+                  ).tolist(),
+        weights_id="w0", generation=0,
+        rewards=g.normal(0.5, 1.0, B).tolist())
+
+
+def _rl_learner_parity(tl, seed: int, card: str) -> list:
+    """Two updates of one ``RolloutLearner`` (``llama_tiny`` fp32, ppo,
+    entropy 0.01) on one fixed batch whose length is 128 (flash on the
+    card: its fp32 kernels), on ``card`` and on the CPU: loss, pg_loss
+    and entropy within ``RL_LEARNER_RTOL`` relative."""
+    from ray_tpu_torch.rl import RolloutLearner
+    cfg = tl.llama_tiny(dtype=torch.float32)
+    sd = tl.init_params(cfg, seed, device="cpu")
+    batch = _rl_batch(tl, cfg, seed, 4, 96, 32)
+    runs = {}
+    for d in ("cpu", card):
+        learner = RolloutLearner(cfg, sd, algo="ppo", lr=1e-3,
+                                 entropy_coef=0.01, device=d)
+        runs[d] = [[s[k] for k in ("loss", "pg_loss", "entropy")]
+                   for s in (learner.update(batch), learner.update(batch))]
+    np.testing.assert_allclose(runs[card], runs["cpu"], rtol=RL_LEARNER_RTOL,
+                               atol=1e-6)
+    return runs[card]
+
+
+def _rl_round_lines(stats: dict) -> list:
+    """Per round: generation and learner walls, the generator's weight
+    sync, publish and commit seconds."""
+    out = []
+    for e in stats["timeline"]:
+        out.append({"round": e["round"],
+                    "gen_s": e.get("gen_end", 0.0) - e.get("gen_start", 0.0),
+                    "learn_s": e.get("learn_end", 0.0)
+                    - e.get("learn_start", 0.0),
+                    "sync_s": e.get("sync_s"), "publish_s": e.get("publish_s"),
+                    "commit_s": e.get("commit_s")})
+    return out
+
+
+def phase_rl_loop(tl, pa, fa, seed: int, smi: str, cfg=None,
+                  device: str = "cuda", rounds: int = 3, B: int = 16,
+                  plen: int = 96, n_new: int = 32) -> dict:
+    """Phase 8: the RLHF loop (``ray_tpu_torch.rl``) at TinyLlama-1.1B's
+    widths and ``EARLIER_POOL_LAYERS`` layers (``cfg``, ``device="cpu"``
+    and smaller ``B`` rehearse it without a card), bf16 on fp32 masters,
+    random weights from ``seed``. One ``LLMEngine`` (16 slots, 64-token
+    pages, ``capture_logprobs``, temperature 1, no eos) and a
+    ``RolloutLearner`` (ppo, Adam 1e-5); ``B`` prompts of ``plen``
+    tokens a round, ``n_new`` new tokens, so L = 128 and the learner's
+    attention takes flash. (1) ``rounds`` rounds, staleness bound 1,
+    overlapped, ``keep_last_k=1``; (2) a loop of 2 rounds whose
+    generator dies mid round 1; (3) a loop of 2 rounds whose learner
+    dies before round 1's commit, then its resume (attempt 2). Checks
+    every ledger holds each round once, staleness <= 1, the restart,
+    the resume round and ``resync_weights_id == recovered_weights_id``,
+    the engine's final payload the last batch's, finite losses, and on
+    the card K1 per layer on every decode step and K3, K4, K5 and the
+    delta pass once per layer per update in (1). First, at
+    ``llama_tiny`` fp32, the learner's first two updates card vs CPU."""
+    from ray_tpu_torch.rl import (GeneratorKilled, RLHFLoop,
+                                  RolloutGenerator, RolloutLearner)
+    from ray_tpu_torch.serve.engine import LLMEngine
+    cuda = device == "cuda"
+    res = {"card": smi}
+    if cuda:
+        res["learner_card_vs_cpu"] = _rl_learner_parity(tl, seed, device)
+        print(f"phase 8: RolloutLearner llama_tiny fp32, L 128 (fp32 flash "
+              f"on the card), 2 updates: (loss, pg_loss, entropy) card "
+              f"{res['learner_card_vs_cpu']} == CPU within "
+              f"{RL_LEARNER_RTOL} rel")
+    cfg = cfg or tl.tinyllama_1_1b(n_layers=EARLIER_POOL_LAYERS)
+    if plen + n_new > cfg.max_seq_len:
+        raise ValueError("prompt + completion exceed the model's context")
+    t0 = time.monotonic()
+    # fp32 draws for the fp32 masters; the engine serves them in bf16
+    sd = tl.init_params(dataclasses.replace(cfg, dtype=cfg.param_dtype),
+                        seed, device=device)
+    eng = LLMEngine(tl.build_model(cfg, sd, device), max_slots=16,
+                    page_size=64, n_pages=64, temperature=1.0, eos_id=-1,
+                    seed=seed, capture_logprobs=True, device=device).start()
+    eng.submit(list(range(1, plen + 1)), max_new_tokens=8).result()
+    gen = RolloutGenerator(eng, max_new_tokens=n_new)
+    root = tempfile.mkdtemp(prefix="chip_smoke_8_")
+    half = cfg.vocab_size // 2
+
+    def prompts_fn(r):
+        g = np.random.default_rng(seed + 1000 + r)
+        return g.integers(0, cfg.vocab_size, (B, plen)).tolist()
+
+    def reward_fn(_prompt, completion):
+        # a rule a policy can learn: the share of low-id tokens
+        return sum(1 for t in completion if t < half) / max(len(completion),
+                                                            1)
+
+    updates = []
+
+    def learner():
+        lrn = RolloutLearner(cfg, sd, algo="ppo", lr=1e-5, device=device)
+        update = lrn.update
+
+        def timed(batch):
+            t = time.monotonic()
+            out = update(batch)          # .item() waits for the card
+            updates.append(dict(out, update_s=time.monotonic() - t))
+            return out
+
+        lrn.update = timed
+        return lrn
+
+    def loop(name, n_rounds, lrn, **kw):
+        d = os.path.join(root, name)
+        return RLHFLoop(gen, lrn, reward_fn, prompts_fn, rounds=n_rounds,
+                        staleness_bound=1, overlap=True,
+                        ckpt_dir=os.path.join(d, "ckpt"),
+                        publish_dir=os.path.join(d, "pub"), keep_last_k=1,
+                        **kw)
+
+    def audit(stats, n_rounds, where):
+        want = [f"round-{i}" for i in range(n_rounds)]
+        checks = {
+            "each round once": sorted(stats["ledger"]) == want,
+            "staleness <= 1": stats["max_staleness"] <= 1,
+            "the engine ends on the last batch's payload":
+            stats["final_weights_id"]
+            == stats["batch_log"][-1]["weights_id"],
+        }
+        if not all(checks.values()):
+            raise AssertionError(f"phase 8 {where}: {checks}\n{stats}")
+
+    kernels = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+               fa.flash_bwd_dkv)
+    try:
+        res["setup_s"] = time.monotonic() - t0
+        # (1) the overlapped loop
+        lrn = learner()
+        steps0 = eng.stats["decode_steps"]
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_attention.launches_int8 = 0
+        for kern in kernels:
+            kern.launches = 0
+        stats = loop("main", rounds, lrn).run()
+        launches = {"paged_decode_attention":
+                    pa.paged_decode_attention.launches,
+                    "paged_decode_attention_int8":
+                    pa.paged_decode_attention.launches_int8}
+        launches.update({k.__name__: k.launches for k in kernels})
+        steps = eng.stats["decode_steps"] - steps0
+        audit(stats, rounds, "(1)")
+        losses = [u["loss"] for u in updates]
+        per_update = cfg.n_layers * rounds
+        checks = {"losses finite": len(losses) == rounds
+                  and all(np.isfinite(losses)),
+                  "overlap observed": stats["overlap_observed"]}
+        if cuda:
+            checks.update({
+                "K1 per layer on every decode step, K2 never":
+                steps > 0 and launches["paged_decode_attention"]
+                == cfg.n_layers * steps
+                and launches["paged_decode_attention_int8"] == 0,
+                "K3, K4, K5 and the delta pass per layer per update": [
+                    launches[k.__name__] for k in kernels]
+                == [per_update] * 4})
+        if not all(checks.values()):
+            raise AssertionError(f"phase 8 (1): {checks}\nlaunches "
+                                 f"{launches}, {steps} decode steps")
+        res["main"] = {
+            "rounds": _rl_round_lines(stats), "wall_s": stats["wall_s"],
+            "generator_utilization": stats["generator_utilization"],
+            "overlap_observed": stats["overlap_observed"],
+            "max_staleness": stats["max_staleness"],
+            "reward_curve": stats["reward_curve"], "losses": losses,
+            "update_s": [u["update_s"] for u in updates],
+            "launches": launches, "decode_steps": steps,
+            "tokens_per_round": B * n_new,
+            "final_weights_id": stats["final_weights_id"]}
+        for line in res["main"]["rounds"]:
+            print(f"phase 8 (1) round {line['round']}: generation "
+                  f"{line['gen_s']:.3f} s, learner {line['learn_s']:.3f} s, "
+                  f"weight sync {line['sync_s']:.3f} s, publish "
+                  f"{line['publish_s']:.3f} s, commit {line['commit_s']:.3f}"
+                  f" s")
+        print(f"phase 8 (1): {rounds} rounds of {B} x ({plen} + {n_new}) "
+              f"tokens on {smi}: wall {stats['wall_s']:.3f} s, "
+              f"generator_utilization "
+              f"{stats['generator_utilization']:.4f}, overlap_observed "
+              f"{stats['overlap_observed']}, max staleness "
+              f"{stats['max_staleness']}, losses {losses}, learner "
+              f"updates {[round(u['update_s'], 4) for u in updates]} s, "
+              f"rewards "
+              f"{stats['reward_curve']}; launches {launches} over {steps} "
+              f"decode steps ({cfg.n_layers} layers)")
+        shutil.rmtree(os.path.join(root, "main"), ignore_errors=True)
+
+        # (2) the generator dies mid round 1 and is restarted there
+        killed = []
+
+        def mid_round(r):
+            if r == 1 and not killed:
+                killed.append(r)
+                raise GeneratorKilled("chaos: died mid round 1")
+
+        stats = loop("gen_kill", 2, learner(),
+                     generator_mid_round_hook=mid_round).run()
+        audit(stats, 2, "(2)")
+        if killed != [1] or stats["generator_restarts"] != 1:
+            raise AssertionError(f"phase 8 (2): killed {killed}, restarts "
+                                 f"{stats['generator_restarts']}")
+        res["generator_kill"] = {"rounds": _rl_round_lines(stats),
+                                 "wall_s": stats["wall_s"],
+                                 "generator_restarts": 1}
+        print(f"phase 8 (2): the generator killed mid round 1, restarted "
+              f"once, ledger {stats['ledger']}, wall {stats['wall_s']:.3f} "
+              f"s")
+        shutil.rmtree(os.path.join(root, "gen_kill"), ignore_errors=True)
+
+        # (3) the learner dies before round 1's commit; attempt 2 resumes
+        ctl = os.path.join(root, "ctl")
+
+        def kill(step):
+            if step == 1:
+                raise RuntimeError("chaos: learner killed pre-commit")
+
+        try:
+            loop("learner_kill", 2, learner(), control_dir=ctl, attempt=1,
+                 learner_kill_hook=kill).run()
+            raise AssertionError("phase 8 (3): the killed loop completed")
+        except RuntimeError as e:
+            if "pre-commit" not in str(e):
+                raise
+        lrn2 = learner()
+        stats = loop("learner_kill", 2, lrn2, control_dir=ctl,
+                     attempt=2).run()
+        audit(stats, 2, "(3)")
+        checks = {"resumed at round 1": stats["resumed"]
+                  and stats["start_round"] == 1,
+                  "re-synced to the recovered payload":
+                  stats["recovered_weights_id"]
+                  == stats["resync_weights_id"],
+                  "2 updates": lrn2.update_count == 2}
+        if not all(checks.values()):
+            raise AssertionError(f"phase 8 (3): {checks}\n{stats}")
+        res["learner_kill"] = {"rounds": _rl_round_lines(stats),
+                               "restore_s": stats["restore_s"],
+                               "recovered_weights_id":
+                               stats["recovered_weights_id"]}
+        print(f"phase 8 (3): the learner killed before round 1's commit; "
+              f"attempt 2 resumed at round 1 in {stats['restore_s']:.3f} s "
+              f"(find, load and set the learner state), re-synced to the "
+              f"recovered payload {stats['recovered_weights_id']}, ledger "
+              f"{stats['ledger']}")
+    finally:
+        eng.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+    if not all(np.isfinite([u["loss"] for u in updates])):
+        raise AssertionError(f"phase 8: a loss is not finite: {updates}")
+    res["total_s"] = time.monotonic() - t0
+    print(f"phase 8: {res['total_s']:.1f} s")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5666,8 +5987,12 @@ def main(argv=None) -> int:
     control = phase_pool_control_path(tl, pa, args.seed, smi, cfg=shallow)
     print(f"phase 4h done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    rollout = phase_rollout_batch_path(tl, pa, args.seed, smi)
+    rollout = phase_rollout_batch_path(tl, pa, args.seed, smi,
+                                       cut_layers=shallow.n_layers)
     print(f"phase 4i done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    rl = phase_rl_loop(tl, pa, fa, args.seed, smi, cfg=shallow)
+    print(f"phase 8 done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     k1 = phase_kernels(pa, args.seed)
     k2 = phase_kernels(pa, args.seed, int8=True)
@@ -5685,6 +6010,7 @@ def main(argv=None) -> int:
         control["disagg_ab"]["disaggregated"]["k1_launches"]
     k1["launches_rollout"] = rollout["k1_launches"]
     k2["launches_batch"] = rollout["k2_launches_batch"]
+    k1["launches_rl"] = rl["main"]["launches"]["paged_decode_attention"]
     # which split pass the served pools' decode steps run: the
     # tensor-core pass over bf16 pages on the fp pool (K1) and over int8
     # pages on the int8 pool (K2), in every layer
@@ -5721,6 +6047,7 @@ def main(argv=None) -> int:
         row["launches"] = train["launches"][row["name"]]
         row["llama_1_1b"]["launches"] = \
             llama_train["launches"][row["name"]]
+        row["launches_rl"] = rl["main"]["launches"][row["name"]]
     kernels = {"kernels": [k1, k2] + flash}
     if args.out:
         with open(args.out, "w") as f:
@@ -5740,6 +6067,7 @@ def main(argv=None) -> int:
                        "pool_control": pool_control,
                        "pool_control_path": control,
                        "rollout_batch_path": rollout,
+                       "rl_loop": rl,
                        "train_checkpoint": train_ckpt,
                        "train_main_path": train,
                        "llama_train_main_path": llama_train,

@@ -1342,3 +1342,75 @@ def test_save_async_of_cuda_parameters_under_an_in_place_update(
     for i, s in want_opt.items():
         for k, v in s.items():
             assert torch.equal(got["optimizer"]["state"][i][k], v)
+
+
+# --------------------------------------------------------------------
+# The RL learner and generator
+# --------------------------------------------------------------------
+
+def _rl_batch(vocab, B, plen, n_new, seed=0):
+    from ray_tpu_torch.rl import RolloutBatch
+    g = np.random.default_rng(seed)
+    return RolloutBatch(
+        batch_id="round-0", round_idx=0,
+        prompts=g.integers(0, vocab, (B, plen)).tolist(),
+        completions=g.integers(0, vocab, (B, n_new)).tolist(),
+        logprobs=g.normal(-np.log(vocab), 0.3, (B, n_new)).tolist(),
+        weights_id="w0", generation=0,
+        rewards=g.normal(0.5, 1.0, B).tolist())
+
+
+def test_rl_learner_update_runs_the_flash_kernels(dev):
+    """``RolloutLearner`` at ``llama_tiny`` bf16 on fp32 masters, L = 96
+    + 32 = 128: attention ``"auto"`` takes flash on the card, so each
+    update launches K3, K4, K5 and the delta pass once per layer; three
+    updates on one batch give finite losses that fall."""
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.rl import RolloutLearner
+    cfg = tl.llama_tiny()
+    sd = tl.init_params(dataclasses.replace(cfg, dtype=cfg.param_dtype), 0,
+                        device=dev)
+    learner = RolloutLearner(cfg, sd, algo="ppo", lr=1e-2, device=dev)
+    batch = _rl_batch(cfg.vocab_size, 4, 96, 32)
+    kernels = (fa.flash_fwd, fa.flash_bwd_delta, fa.flash_bwd_dq,
+               fa.flash_bwd_dkv)
+    for kern in kernels:
+        kern.launches = 0
+    losses = [learner.update(batch)["loss"] for _ in range(3)]
+    assert [k.launches for k in kernels] == [3 * cfg.n_layers] * 4
+    assert np.isfinite(losses).all()
+    assert losses[-1] < losses[0], losses
+    assert {p.dtype for p in learner.model.parameters()} == {torch.float32}
+
+
+def test_rl_sync_weights_from_a_learner_installs_its_payload(dev, tmp_path):
+    """A learner's state dict, published, swaps into an engine on the
+    card through ``RolloutGenerator.sync_weights``: the engine serves
+    the published ``weights_id`` at the next generation, and its next
+    batch is stamped with it."""
+    from ray_tpu_torch.models import llama as tl
+    from ray_tpu_torch.rl import RolloutGenerator, RolloutLearner
+    from ray_tpu_torch.serve.engine import LLMEngine
+    from ray_tpu_torch.serve.weight_rollout import publish_weights
+    cfg = tl.llama_tiny()
+    sd = tl.init_params(dataclasses.replace(cfg, dtype=cfg.param_dtype), 0,
+                        device=dev)
+    learner = RolloutLearner(cfg, sd, lr=1e-2, device=dev)
+    learner.update(_rl_batch(cfg.vocab_size, 4, 8, 4))
+    host = learner.host_params()
+    _path, wid = publish_weights(host, str(tmp_path / "pub"), step=1)
+    eng = LLMEngine(tl.build_model(cfg, sd, dev), max_slots=4, page_size=16,
+                    n_pages=64, temperature=1.0, capture_logprobs=True,
+                    device=dev).start()
+    try:
+        gen = RolloutGenerator(eng, max_new_tokens=4)
+        g0 = eng.weight_generation
+        assert gen.sync_weights(host, weights_id=wid) == g0 + 1
+        assert gen.weights_stamp() == (g0 + 1, wid)
+        batch = gen.generate([[1, 2, 3, 4]] * 2, round_idx=1)
+        assert (batch.weights_id, batch.generation) == (wid, g0 + 1)
+        assert all(len(lp) == 4 for lp in batch.logprobs)
+        want = tl.build_model(cfg, host, dev).tok_embeddings
+        assert torch.equal(eng.model.tok_embeddings, want)
+    finally:
+        eng.shutdown()

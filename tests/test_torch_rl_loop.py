@@ -8,11 +8,15 @@ staleness bound allows it, the bound is enforced on both sides
 (generator blocks; consumption raises), and both chaos kills —
 generator mid-round, learner pre-commit — recover with exactly-once
 rollout accounting and the generator re-synced to the recovered
-payload (same bytes, same ``weights_id``). Sampling draws from a
+payload (same bytes, same ``weights_id``). Last, chip_smoke's phase 8
+rehearsed with the CPU standing in for the card. Sampling draws from a
 ``torch.Generator``, so rewards and published ids differ from the JAX
 loop's; what these hold is structural: the ledger, batch ids,
 staleness, the resume round, restarts and the id equalities.
 """
+import importlib.util
+import pathlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,6 +25,8 @@ import torch
 
 from ray_tpu.models import llama as jl
 from ray_tpu_torch.models import llama as tl
+from ray_tpu_torch.ops import flash_attention as fa
+from ray_tpu_torch.ops import paged_attention as pa
 from ray_tpu_torch.rl import (DuplicateRollout, GeneratorKilled, RLHFLoop,
                               RolloutBatch, RolloutGenerator, RolloutLearner,
                               StalenessViolation)
@@ -104,9 +110,8 @@ def test_generation_overlaps_slow_learner_step(stack, tmp_path):
     assert stats["max_staleness"] <= 1
     assert all(b["weights_id"] for b in stats["batch_log"])
     _audit(stats["ledger"], ROUNDS)
-    # the engine ends on the last published payload: the last round's
-    # publish is never synced (no round follows), so the engine serves
-    # the one before it, which sampled the last batch
+    # the engine ends on the payload that sampled the last batch: the
+    # last round's publish is never synced, since no round follows it
     assert stats["final_weights_id"] == stats["batch_log"][-1]["weights_id"]
     assert all(np.isfinite(stats["reward_curve"]))
     assert {"publish_s", "commit_s", "sync_s"} <= set(tl_[0])
@@ -212,3 +217,23 @@ def test_superseded_attempt_cannot_commit(stack, tmp_path):
     with AttemptFence(ctl, 2):
         with pytest.raises(StaleGeneration):
             loop.run()
+
+
+def test_chip_smoke_rl_phase_rehearses_on_the_cpu():
+    """chip_smoke phase 8 at ``llama_tiny`` fp32 and 4 prompts a round on
+    the CPU: its loops, chaos kills and checks hold (the kernel counts
+    are the card's only), and its learner parity runs."""
+    path = pathlib.Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    stats = smoke._rl_learner_parity(tl, 0, "cpu")
+    assert np.isfinite(stats).all() and len(stats) == 2
+    res = smoke.phase_rl_loop(tl, pa, fa, 0, "cpu",
+                              cfg=tl.llama_tiny(dtype=torch.float32),
+                              device="cpu", B=4)
+    assert len(res["main"]["rounds"]) == 3
+    assert res["main"]["overlap_observed"]
+    assert res["main"]["decode_steps"] > 0
+    assert res["generator_kill"]["generator_restarts"] == 1
+    assert res["learner_kill"]["restore_s"] > 0
