@@ -1392,7 +1392,7 @@ def test_rl_sync_weights_from_a_learner_installs_its_payload(dev, tmp_path):
     from ray_tpu_torch.rl import RolloutGenerator, RolloutLearner
     from ray_tpu_torch.serve.engine import LLMEngine
     from ray_tpu_torch.serve.weight_rollout import publish_weights
-    cfg = tl.llama_tiny()
+    cfg = tl.llama_tiny(dim=256)      # head_dim 64, as K1 takes it
     sd = tl.init_params(dataclasses.replace(cfg, dtype=cfg.param_dtype), 0,
                         device=dev)
     learner = RolloutLearner(cfg, sd, lr=1e-2, device=dev)
