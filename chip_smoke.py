@@ -5612,31 +5612,23 @@ def phase_train_checkpoint(fa, seed: int, smi: str, step_ms_phase7: float,
 RL_LEARNER_RTOL = 1e-4             # fp32 learner stats, card vs CPU
 
 
-def _rl_batch(tl, cfg, seed: int, B: int, plen: int, n_new: int):
-    """A scored rollout batch of ``B`` prompts of ``plen`` tokens and
-    ``n_new``-token completions, all seeded; behavior logprobs near a
-    policy's (normal around -log(vocab))."""
-    from ray_tpu_torch.rl import RolloutBatch
-    g = np.random.default_rng(seed + 29)
-    return RolloutBatch(
-        batch_id="round-0", round_idx=0,
-        prompts=g.integers(0, cfg.vocab_size, (B, plen)).tolist(),
-        completions=g.integers(0, cfg.vocab_size, (B, n_new)).tolist(),
-        logprobs=(g.normal(-np.log(cfg.vocab_size), 0.3, (B, n_new))
-                  ).tolist(),
-        weights_id="w0", generation=0,
-        rewards=g.normal(0.5, 1.0, B).tolist())
-
-
 def _rl_learner_parity(tl, seed: int, card: str) -> list:
     """Two updates of one ``RolloutLearner`` (``llama_tiny`` fp32, ppo,
     entropy 0.01) on one fixed batch whose length is 128 (flash on the
     card: its fp32 kernels), on ``card`` and on the CPU: loss, pg_loss
     and entropy within ``RL_LEARNER_RTOL`` relative."""
-    from ray_tpu_torch.rl import RolloutLearner
+    from ray_tpu_torch.rl import RolloutBatch, RolloutLearner
     cfg = tl.llama_tiny(dtype=torch.float32)
     sd = tl.init_params(cfg, seed, device="cpu")
-    batch = _rl_batch(tl, cfg, seed, 4, 96, 32)
+    # behavior logprobs near a policy's: normal around -log(vocab)
+    g = np.random.default_rng(seed + 29)
+    V, B, plen, n_new = cfg.vocab_size, 4, 96, 32
+    batch = RolloutBatch(
+        batch_id="round-0", round_idx=0,
+        prompts=g.integers(0, V, (B, plen)).tolist(),
+        completions=g.integers(0, V, (B, n_new)).tolist(),
+        logprobs=g.normal(-np.log(V), 0.3, (B, n_new)).tolist(),
+        weights_id="w0", generation=0, rewards=g.normal(0.5, 1.0, B).tolist())
     runs = {}
     for d in ("cpu", card):
         learner = RolloutLearner(cfg, sd, algo="ppo", lr=1e-3,
