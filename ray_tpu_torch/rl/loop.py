@@ -3,7 +3,7 @@ update -> publish -> swap, with round N+1's decode overlapping round
 N's learner step.
 
 Topology (Podracer's sebulba split): a generator thread drives the
-serving engine on ``LANE_BATCH``; the driver thread scores each batch
+serving engine on ``LANE_BATCH``; the main thread scores each batch
 with a pluggable reward fn, steps the learner (rl/learner.py), then
 publishes the new payload durably (``publish_weights`` of host copies
 of the learner's state dict — the manifest checkpoint a restarted
@@ -15,7 +15,7 @@ would mix policies inside a batch's captured behavior logprobs.
 Staleness is bounded on BOTH sides: the generator blocks before
 starting round r until ``r - consumed_round <= staleness_bound``
 (it may run at most ``staleness_bound`` rounds ahead — 0 degenerates
-to the serialized loop), and the driver re-checks at consumption that
+to the serialized loop), and the main thread re-checks at consumption that
 the batch's weights lag the learner by at most ``staleness_bound``
 updates, raising ``StalenessViolation`` otherwise (the bound is an
 invariant, not a hint).
@@ -185,7 +185,7 @@ class RLHFLoop:
                              gen_end=self._now())
                     self._cond.notify_all()
                 r += 1
-        except BaseException as e:  # noqa: BLE001 - handed to driver
+        except BaseException as e:  # noqa: BLE001 - handed to run()
             with self._cond:
                 self._gen_error = (e, r)
                 self._cond.notify_all()
@@ -210,7 +210,7 @@ class RLHFLoop:
             self.generator_restarts += 1
             self._start_generator(err_round)
 
-    # ----------------------------------------------------------- driver
+    # ------------------------------------------------------ main thread
 
     def _consume(self, r: int, batch, synced_update: int) -> None:
         if batch.batch_id in self.ledger:

@@ -5,7 +5,7 @@ only (``GEN_FILE``, ``StaleGeneration``, ``generation``, ``fence``,
 committing.
 
 The file holds the newest STARTED attempt id (a monotonic token the
-driver assigns). Every loop fences its own attempt at start, and any
+caller assigns). Every loop fences its own attempt at start, and any
 loop whose attempt is older than the file's raises ``StaleGeneration``
 — per round and from its ``CheckpointManager`` pre-commit hook, so a
 zombie can never commit a checkpoint. The chaos schedule, the injector
@@ -61,7 +61,7 @@ def check_generation(control_dir: str, attempt: int) -> None:
 
 class AttemptFence:
     """Context-manager packaging of the GENERATION-file fence for loops
-    outside the trainer (the RLHF driver in ``ray_tpu_torch.rl``):
+    outside the trainer (the RLHF loop in ``ray_tpu_torch.rl``):
     entering records this attempt as started (``fence``); ``check()``
     is the per-round / pre-commit gate and raises ``StaleGeneration``
     once a newer attempt has fenced."""
