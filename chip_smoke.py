@@ -172,8 +172,8 @@ its life.
    fresh model and pool of this shape.
 4e. Cross-replica KV pull and the hot weight swap at full width (phases
    4e-4h run TinyLlama-1.1B's widths at 6 of its 22 layers,
-   ``EARLIER_POOL_LAYERS``, so that the script keeps inside its time
-   limit with phase 4i at full depth): one TinyLlama-1.1B bf16 model
+   ``EARLIER_POOL_LAYERS``, as 4i (b)-(d) and 8, so that the script
+   keeps inside its time limit on a slow host): one TinyLlama-1.1B bf16 model
    (random weights from ``--seed``) shared by two ``LLMEngine``s on the
    card, each with 16 slots, 64-token pages, 513 pages and the prefix
    cache, once with an fp pool and once with an int8 pool. The donor
@@ -492,7 +492,7 @@ FLASH_BF16_O = (4e-3, 2.0 ** -7)   # one rounding of an fp32 result
 FLASH_BF16_GRAD = (1e-2, 2.0 ** -6)  # P and dS also rounded to bf16
 TRAIN_RTOL = 1e-4
 SPIN_CYCLES = 4_000_000            # ~2 ms at the H100's 1.6-2 GHz SM clock
-EARLIER_POOL_LAYERS = 6            # phases 4e-4h's depth (of 22)
+EARLIER_POOL_LAYERS = 6            # 4e-4h, 4i (b)-(d) and 8: depth (of 22)
 
 
 def _nvidia_smi() -> str:
@@ -1229,18 +1229,24 @@ def _clocked_engine(cls, clock):
     return _Clocked
 
 
-def _tick_wedge(wd, clock, victim, plan, timeout_s: float = 120.0) -> None:
+def _await_hang(victim, plan, timeout_s: float = 120.0) -> None:
+    """Wait until ``plan`` (a hang) holds ``victim``'s scheduler with
+    work queued."""
+    end = time.monotonic() + timeout_s
+    while not (plan.fired and victim.load_report()["has_work"]):
+        if time.monotonic() > end:
+            raise AssertionError("the hang never engaged")
+        time.sleep(0.01)
+
+
+def _tick_wedge(wd, clock, victim, plan) -> None:
     """Drive ``wd`` through a wedge of ``victim``, whose heartbeat ages
     on ``clock`` (a ``_FakeClock``; the other replicas' on clocks that
     never move, so that a resubmit landing on an idle survivor finds it
     HEALTHY): once ``plan`` (a hang) holds the victim's scheduler with
     work queued, advance the clock to the suspect age and tick, then to
     the stall deadline and tick."""
-    end = time.monotonic() + timeout_s
-    while not (plan.fired and victim.load_report()["has_work"]):
-        if time.monotonic() > end:
-            raise AssertionError("the hang never engaged")
-        time.sleep(0.01)
+    _await_hang(victim, plan)
     clock.advance(wd.suspect_after_s)
     wd.tick()
     clock.advance(wd.stall_deadline_s - wd.suspect_after_s)
@@ -4478,16 +4484,15 @@ def _first_layers(sd, n: int) -> dict:
 
 def phase_rollout_batch_path(tl, pa, seed: int, smi: str, cfg=None,
                              device: str = "cuda",
-                             probe_margin: float = 0.5,
-                             cut_layers: int = None) -> dict:
+                             probe_margin: float = 0.5) -> dict:
     """Phase 4i: durable weight payloads, the staged rollout over a pool
     and the batch tier, at full width (TinyLlama-1.1B bf16 unless
     ``cfg``; ``device="cpu"`` with a small fp32 ``cfg`` and
     ``probe_margin=0`` rehearses it without a card: a narrow model's
     logits rarely lead by 0.5, and fp32 on the CPU has no near-ties to
-    guard against). With ``cut_layers``, (a) publishes and loads the
-    full-depth payloads and (b)-(d) serve their first ``cut_layers``
-    layers."""
+    guard against). (a) publishes and loads payloads of ``cfg``'s
+    depth; (b)-(d) serve their first ``EARLIER_POOL_LAYERS`` layers
+    (all of a model no deeper)."""
     from ray_tpu_torch.air import checkpoint as ck
     from ray_tpu_torch.serve import batch_tier as bt
     from ray_tpu_torch.serve import engine as seng
@@ -4496,7 +4501,7 @@ def phase_rollout_batch_path(tl, pa, seed: int, smi: str, cfg=None,
     from ray_tpu_torch.serve.faults import check_pool_quiesced, check_quiesced
     from ray_tpu_torch.serve.llm import LlamaDeployment
     cfg = cfg or tl.tinyllama_1_1b()
-    n_layers, cuda = cfg.n_layers, device == "cuda"
+    cuda = device == "cuda"
     n_new, Pg = 64, 64
     knobs = dict(max_slots=16, page_size=Pg, n_pages=513, device=device)
     g = np.random.default_rng(seed + 19)
@@ -4564,17 +4569,16 @@ def phase_rollout_batch_path(tl, pa, seed: int, smi: str, cfg=None,
     shutil.rmtree(pub["A"]["path"], ignore_errors=True)
     shutil.rmtree(pub["B"]["path"], ignore_errors=True)
     del params_b
-    if cut_layers is not None:
-        # (b)-(d) at a cut depth: A and B cut to their first layers,
-        # each under the id publish_weights would give the cut payload
-        cfg = dataclasses.replace(cfg, n_layers=cut_layers)
-        n_layers = cut_layers
-        params_a = _first_layers(params_a, n_layers)
-        loaded_b = _first_layers(loaded_b, n_layers)
-        wid_a, wid_b = (wr.weights_id_from_payload({"params": p})
-                        for p in (params_a, loaded_b))
-        res["cut_layers"] = n_layers
-        print(f"phase 4i (b)-(d): the payloads' first {n_layers} layers")
+    # (b)-(d) at a cut depth: A and B cut to their first layers, each
+    # under the id publish_weights would give the cut payload
+    n_layers = min(cfg.n_layers, EARLIER_POOL_LAYERS)
+    cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    params_a = _first_layers(params_a, n_layers)
+    loaded_b = _first_layers(loaded_b, n_layers)
+    wid_a, wid_b = (wr.weights_id_from_payload({"params": p})
+                    for p in (params_a, loaded_b))
+    res["cut_layers"] = n_layers
+    print(f"phase 4i (b)-(d): the payloads' first {n_layers} layers")
     free()
 
     # the lone B engine: the probes' expected tokens
@@ -5655,16 +5659,15 @@ def _rl_round_lines(stats: dict) -> list:
 
 
 def phase_rl_loop(tl, pa, fa, seed: int, smi: str, cfg=None,
-                  device: str = "cuda", rounds: int = 3, B: int = 16,
-                  plen: int = 96, n_new: int = 32) -> dict:
+                  device: str = "cuda", B: int = 16) -> dict:
     """Phase 8: the RLHF loop (``ray_tpu_torch.rl``) at TinyLlama-1.1B's
     widths and ``EARLIER_POOL_LAYERS`` layers (``cfg``, ``device="cpu"``
     and smaller ``B`` rehearse it without a card), bf16 on fp32 masters,
     random weights from ``seed``. One ``LLMEngine`` (16 slots, 64-token
     pages, ``capture_logprobs``, temperature 1, no eos) and a
-    ``RolloutLearner`` (ppo, Adam 1e-5); ``B`` prompts of ``plen``
-    tokens a round, ``n_new`` new tokens, so L = 128 and the learner's
-    attention takes flash. (1) ``rounds`` rounds, staleness bound 1,
+    ``RolloutLearner`` (ppo, Adam 1e-5); ``B`` prompts of 96 tokens a
+    round, 32 new tokens, so L = 128 and the learner's attention takes
+    flash. (1) 3 rounds, staleness bound 1,
     overlapped, ``keep_last_k=1``; (2) a loop of 1 round whose
     generator dies mid round; (3) a loop of 2 rounds whose learner
     dies before round 1's commit, then its resume (attempt 2). Checks
@@ -5678,6 +5681,7 @@ def phase_rl_loop(tl, pa, fa, seed: int, smi: str, cfg=None,
                                   RolloutGenerator, RolloutLearner)
     from ray_tpu_torch.serve.engine import LLMEngine
     cuda = device == "cuda"
+    rounds, plen, n_new = 3, 96, 32
     res = {"card": smi}
     if cuda:
         res["learner_card_vs_cpu"] = _rl_learner_parity(tl, seed, device)
@@ -5962,9 +5966,9 @@ def main(argv=None) -> int:
     default_loop = phase_default_loop_path(tl, pa, args.seed, smi)
     print(f"phase 4d done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    # phases 4e-4h run TinyLlama-1.1B's widths at a cut depth, so that
-    # the script, with phase 4i at full depth, keeps inside its time
-    # limit on a slow host too
+    # phases 4e-4h, 4i (b)-(d) and 8 run TinyLlama-1.1B's widths at a
+    # cut depth, so that the script keeps inside its time limit on a
+    # slow host too
     shallow = tl.tinyllama_1_1b(n_layers=EARLIER_POOL_LAYERS)
     print(f"phases 4e-4h: TinyLlama-1.1B widths at {shallow.n_layers} of "
           f"its {tl.tinyllama_1_1b().n_layers} layers")
@@ -5980,8 +5984,7 @@ def main(argv=None) -> int:
     control = phase_pool_control_path(tl, pa, args.seed, smi, cfg=shallow)
     print(f"phase 4h done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
-    rollout = phase_rollout_batch_path(tl, pa, args.seed, smi,
-                                       cut_layers=shallow.n_layers)
+    rollout = phase_rollout_batch_path(tl, pa, args.seed, smi)
     print(f"phase 4i done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     rl = phase_rl_loop(tl, pa, fa, args.seed, smi, cfg=shallow)

@@ -476,13 +476,15 @@ def _warm_factory(tiny, inj_for, cls_for=lambda idx: teng.LLMEngine):
 def test_injected_hang_escalates_to_death_within_deadline(tiny, tmp_path):
     """The watchdog and replica 0's heartbeat run on one fake clock
     (chip_smoke's ``_clocked_engine``), which moves only once the hang
-    holds replica 0; replica 1's heartbeat reads a clock that never
-    moves. On a loaded host a round of the survivor can take as long as
-    the deadline on the wall clock."""
+    holds replica 0, in quarters of the deadline: HEALTHY before half
+    of it, SUSPECT from half, WEDGED at the deadline and not before.
+    Replica 1's heartbeat reads a clock that never moves. On a loaded
+    host a round of the survivor can take as long as the deadline on
+    the wall clock."""
     smoke = _smoke()
-    clock = smoke._FakeClock()
+    clock = FakeClock()
     classes = [smoke._clocked_engine(teng.LLMEngine, c)
-               for c in (clock, smoke._FakeClock())]
+               for c in (clock, FakeClock())]
     stall = 1.0
     inj = tfaults.FaultInjector()
     pool = tpool.EnginePool(
@@ -509,10 +511,17 @@ def test_injected_hang_escalates_to_death_within_deadline(tiny, tmp_path):
                    for i, h in enumerate(handles)]
         for t in threads:
             t.start()
-        smoke._tick_wedge(watchdog, clock, pool.replica(0).engine, hang)
-        detect_s = clock() - t0
-        assert watchdog.counts["wedged"] == 1, detect_s
-        assert detect_s < stall + 3.0
+        smoke._await_hang(pool.replica(0).engine, hang)
+        seen = []
+        for _ in range(4):
+            clock.advance(stall / 4)
+            watchdog.tick()
+            seen.append((clock() - t0, pool.replica(0).state,
+                         watchdog.counts["wedged"]))
+        assert seen == [(0.25 * stall, tpool.HEALTHY, 0),
+                        (0.5 * stall, tpool.SUSPECT, 0),
+                        (0.75 * stall, tpool.SUSPECT, 0),
+                        (stall, tpool.DEAD, 1)], seen
         (wedge,) = [e for e in watchdog.log if e["event"] == "wedged"]
         assert wedge["heartbeat_age_s"] >= stall * 0.9
         bundle = tobs.load_flight_bundle(wedge["bundle"])
