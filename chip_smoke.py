@@ -2,12 +2,13 @@
 builds, serves and trains on one NVIDIA GPU (written for an H100,
 sm_90a).
 
-    python3 chip_smoke.py [--seed N] [--out results.json]
+    python3 chip_smoke.py [--seed N] [--out results.json] [--only 4j]
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g,
-4h, 4i, 8, 2, 5, 6, 6b, 7, 7b, 7c, then 4d's profile: the host-timed
+4h, 4j, 4i, 8, 2, 5, 6, 6b, 7, 7b, 7c, then 4d's profile (``--only 4j``:
+phase 1's build, then 4j alone, and no result lines): the host-timed
 serving phases come before any torch.profiler session, since a process
 that has run one launches kernels at a higher host cost for the rest of
 its life.
@@ -309,6 +310,36 @@ its life.
    none lost, the retired engine's pages free; prints the decisions,
    the timeline, the time from the burst to the new replica's first
    route, the engine's build time and TTFT p50 before and after.
+4j. The fleet control plane at TinyLlama-1.1B's widths, 6 layers
+   (``EARLIER_POOL_LAYERS``), bf16 random weights from ``--seed``, 16
+   slots, 64-token pages, 513 pages per engine, the prefix cache. (a)
+   ``LlamaDeployment(fleet=2)`` in this process (a loopback directory,
+   two agents, the router): 4g's warm-up (with ``echo_replica``: r0 or
+   r1 at generation 0) and the first turn of its 8 sessions; both
+   members served, ``serve_stats()`` counts 2 replicas, K1 6 x the
+   members' decode steps and K2 never. (b) a directory process (5 s
+   leases) and two agent processes (``python -m
+   ray_tpu_torch.serve.fleet.agent --model tinyllama --layers 6 --seed
+   S --no-build``), each started with ``subprocess.Popen`` from this
+   script's directory (never forked: this process holds a CUDA context),
+   its output into a file, ``READY <port>`` read from it within 180 s;
+   the agents load the libraries phase 1 built. Free card memory
+   falls by at least both agents' weights once they are ``READY``; the
+   warm-up prompt gives each agent the greedy tokens of an engine this
+   process builds from the same seed. A ``FleetRouter`` here (sockets,
+   a 20 ms poll) serves 4g's 8 sessions x 3 turns (every request its 32
+   tokens), then 4g's kill wave with a SIGKILL of one agent process at
+   the token that leaves half of its wave with none delivered: the
+   zero-delivery requests resubmit once and complete on the
+   survivor, the partly delivered ones fail typed ``EngineShutdown``
+   (unless the tokens in hand at the kill finish them), the survivor admits each of its routes once, the directory confirms
+   the death. Every child is reaped (terminate, wait, kill) in a
+   ``finally`` before the phase returns, and free card memory comes
+   back within 0.5 GB of its value before the spawn. Prints each
+   agent's seconds to ``READY``, (b)'s tok/s and TTFT p50 beside 4g
+   (b)'s pool and one engine, routes and affinity hits, resubmissions
+   and the seconds from the kill to the confirmed death. No check bounds
+   a latency.
 4i. Durable weights, the staged rollout and the batch tier at full
    width: TinyLlama-1.1B bf16, payload A random from ``--seed`` and B
    from ``--seed`` + 1, 16 slots, 64-token pages, 513 pages per engine;
@@ -449,7 +480,8 @@ its life.
    three arms, ``launches_kv_pull`` phase 4e's fp requester,
    ``launches_faults`` phase 4f (a)'s two waves, ``launches_pool``
    phase 4g (b)'s fp pool, ``launches_disagg`` phase 4h (a)'s split
-   arm, all on its decode replica, ``launches_rollout`` phase 4i
+   arm, all on its decode replica, ``launches_fleet`` phase 4j (a)'s
+   loopback fleet, ``launches_rollout`` phase 4i
    (b)-(c)'s pool, ``launches_rl`` phase 8 (1)'s engine; K2's ``launches``
    phase 4b's, ``launches_kv_pull`` phase 4e's int8 requester,
    ``launches_lanes`` phase 4f (b)'s backlog wave,
@@ -469,6 +501,7 @@ import collections
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -3474,19 +3507,20 @@ def _check_obs_arm(obs, arm: dict) -> dict:
             "emits": emits, "chrome_spans": spans}
 
 
-def _session_traffic(vocab: int, seed: int) -> tuple:
-    """Phase 4g (b)'s traffic, from ``default_rng(seed + 11)``: 8
-    sessions, each with its own 512-token system prompt; 3 turns of a
-    32-token user message; then a second wave of 4 more 32-token
-    messages per session."""
+def _session_traffic(vocab: int, seed: int, system: int = 512,
+                     turn: int = 32) -> tuple:
+    """Phase 4g (b)'s traffic, from ``default_rng(seed + 11)``: a
+    100-token warm-up prompt; 8 sessions, each with its own ``system``
+    (512) token system prompt; 3 turns of a ``turn`` (32) token user
+    message; then a second wave of 4 more messages per session."""
     g = np.random.default_rng(seed + 11)
 
     def rand(n):
         return g.integers(0, vocab, int(n)).tolist()
 
-    systems = [rand(512) for _ in range(8)]
-    turns = [[rand(32) for _ in range(8)] for _ in range(3)]
-    wave2 = [[rand(32) for _ in range(4)] for _ in range(8)]
+    systems = [rand(system) for _ in range(8)]
+    turns = [[rand(turn) for _ in range(8)] for _ in range(3)]
+    wave2 = [[rand(turn) for _ in range(4)] for _ in range(8)]
     return rand(100), systems, turns, wave2
 
 
@@ -4328,6 +4362,436 @@ def phase_pool_control_path(tl, pa, seed: int, smi: str, cfg=None,
     dep.shutdown()
     del dep, pool, scaler
     free()
+    return res
+
+
+FLEET_READY_S = 180.0              # a cold agent: torch, CUDA, weights, warm-up
+FLEET_LEASE_TTL_S = 5.0            # 4j's directory: wide for a busy host
+FLEET_MEM_SLACK = 0.5e9            # card memory back within this, reaped
+FLEET_POLL_S = 0.02                # the router's poll period per stream
+
+
+class _FleetProcs:
+    """Phase 4j's child processes. Each is started with
+    ``subprocess.Popen([python, "-m", module, ...])`` from the directory
+    holding this script (never forked: this process holds a CUDA
+    context, which a forked child cannot use), its stdout and stderr
+    into one file under ``tmp`` (a pipe nobody drains blocks the child
+    at 64 KB, and the children must never write to this script's
+    output); ``ready`` reads ``READY <port>`` from that file. ``reap``
+    terminates, waits, then kills every child, whether or not it has
+    exited already."""
+
+    def __init__(self, tmp: str):
+        self.tmp = tmp
+        self.procs = {}
+
+    def start(self, name: str, module: str, args) -> None:
+        log = os.path.join(self.tmp, f"{name}.log")
+        with open(log, "wb") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-u", "-m", module, *map(str, args)],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdin=subprocess.DEVNULL, stdout=out,
+                stderr=subprocess.STDOUT)
+        self.procs[name] = (proc, log, time.monotonic())
+
+    def ready(self, name: str, timeout_s: float = FLEET_READY_S) -> tuple:
+        """(port, seconds from the start to ``READY``)."""
+        proc, log, t0 = self.procs[name]
+        while True:
+            with open(log, "rb") as f:
+                m = re.search(rb"^READY (\d+)\s*$", f.read(), re.M)
+            if m:
+                return int(m.group(1)), time.monotonic() - t0
+            if proc.poll() is not None:
+                raise RuntimeError(f"{name} exited with {proc.returncode} "
+                                   f"before READY")
+            if time.monotonic() - t0 > timeout_s:
+                raise TimeoutError(f"{name}: no READY in {timeout_s:.0f} s")
+            time.sleep(0.05)
+
+    def kill(self, name: str) -> None:
+        """SIGKILL ``name`` and reap it."""
+        proc = self.procs[name][0]
+        proc.kill()
+        proc.wait(timeout=60)
+
+    def alive(self) -> list:
+        return [n for n, (p, _, _) in self.procs.items() if p.poll() is None]
+
+    def tails(self, n: int = 30) -> str:
+        out = []
+        for name, (proc, log, _) in self.procs.items():
+            with open(log, "rb") as f:
+                lines = f.read().decode(errors="replace").splitlines()
+            out.append(f"--- {name} (exit {proc.poll()}), last {n} lines:")
+            out.extend(lines[-n:])
+        return "\n".join(out)
+
+    def reap(self) -> None:
+        for proc, _, _ in self.procs.values():
+            if proc.poll() is None:
+                proc.terminate()
+        for proc, _, _ in self.procs.values():
+            try:
+                proc.wait(timeout=20)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=20)
+
+
+class _RouterStreams:
+    """``LlamaDeployment.stream``'s surface over a ``FleetRouter``, what
+    ``_run_sessions`` drives."""
+
+    def __init__(self, router):
+        self.router = router
+
+    def stream(self, payload):
+        h = self.router.submit(payload["prompt_ids"],
+                               max_new_tokens=payload["max_new_tokens"],
+                               session_id=payload.get("session_id"))
+        yield from h.stream()
+
+
+def _agent_client(port: int):
+    from ray_tpu_torch.serve.fleet.agent import AgentClient
+    from ray_tpu_torch.serve.fleet.transport import SocketTransport
+    return AgentClient(SocketTransport(("127.0.0.1", port)), timeout_s=60.0)
+
+
+def _agent_tokens(port: int, prompt, n_new: int, key: str) -> list:
+    """One greedy request straight to the agent on ``port``."""
+    c = _agent_client(port)
+    rid = c.submit(key, prompt, n_new)["rid"]
+    deadline = time.monotonic() + 300
+    while time.monotonic() < deadline:
+        r = c.poll(rid)
+        if r["error"] is not None:
+            raise AssertionError(f"phase 4j: the agent on {port}: "
+                                 f"{r['error']}")
+        if r["done"]:
+            return r["tokens"]
+        time.sleep(0.01)
+    raise AssertionError(f"phase 4j: the agent on {port} never finished")
+
+
+def _routes(router) -> dict:
+    from ray_tpu_torch.serve import obs
+    return dict(collections.Counter(
+        e[obs.SID] for e in router.events.snapshot()
+        if e[obs.ETYPE] == "route"))
+
+
+def _fleet_kill_wave(router, procs, victim: str, history, wave2,
+                     n_new: int) -> dict:
+    """Phase 4g (b)'s second wave through the router: 4 requests per
+    session, sticky to the session's agent. A consumer receiving one of
+    the victim's tokens SIGKILLs the victim's process there and then
+    (a watcher thread could wait for the GIL too long and find the wave
+    done) at the token that leaves just half of the victim's requests
+    with none delivered: of those, a request whose tokens were in flight
+    at the kill may still come back with some, but not half the wave.
+    Returns the handles and their outcomes."""
+    from ray_tpu_torch.serve import obs
+    reqs = [(s, history[s] + wave2[s][k]) for k in range(4)
+            for s in range(8)]
+    hs = [router.submit(p, max_new_tokens=n_new, session_id=f"s{s}")
+          for s, p in reqs]
+    mine = [i for i, h in enumerate(hs) if h.replica_idx == victim]
+    if not mine or len(mine) == len(hs):
+        raise AssertionError(f"phase 4j (b): {len(mine)} of the wave's "
+                             f"{len(hs)} requests on {victim}")
+    outs = [None] * len(hs)
+    kill = {"t": None}
+    lock = threading.Lock()
+
+    def ripe() -> bool:
+        zero = sum(1 for j in mine if not hs[j]._generated)
+        return 0 < 2 * zero <= len(mine)
+
+    def consume(i):
+        try:
+            for _tok in hs[i].stream():
+                if i in mine and kill["t"] is None:
+                    with lock:
+                        if kill["t"] is None and ripe():
+                            kill["t"] = time.monotonic()
+                            procs.kill(victim)
+            outs[i] = ("ok", list(hs[i]._generated))
+        except Exception as e:  # noqa: BLE001 - the record names the type
+            outs[i] = ("err", type(e).__name__, str(e))
+
+    threads = [threading.Thread(target=consume, args=(i,))
+               for i in range(len(hs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    if kill["t"] is None or any(o is None for o in outs):
+        raise AssertionError(f"phase 4j (b): the kill never stood mid-wave "
+                             f"or a request never ended (kill at "
+                             f"{kill['t']}, {sum(o is None for o in outs)} "
+                             f"open)")
+    dead = [e for e in router.events.snapshot()
+            if e[obs.ETYPE] == "member_dead" and e[obs.SID] == victim]
+    return {"hs": hs, "outs": outs, "mine": mine,
+            "confirm_s": dead[0][obs.T] - kill["t"] if dead else None}
+
+
+def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
+                     device: str = "cuda", agent_model: str = "tinyllama",
+                     sizes=None) -> dict:
+    """Phase 4j: the fleet control plane. (a) the loopback knob in this
+    process; (b) a directory process and two agent processes under 4g's
+    session trace and its kill wave, through a ``FleetRouter`` here.
+    ``pool_4g`` holds 4g (b)'s figures, printed beside (b)'s (None: 4g
+    did not run). On the
+    card TinyLlama-1.1B's widths at ``cfg``'s depth (default
+    ``EARLIER_POOL_LAYERS``), agents of ``--model tinyllama``;
+    ``device="cpu"`` with ``cfg`` llama_tiny fp32, ``agent_model="tiny"``
+    and small ``sizes`` rehearses it."""
+    import gc
+
+    from ray_tpu_torch.serve import obs
+    from ray_tpu_torch.serve.errors import EngineShutdown
+    from ray_tpu_torch.serve.fleet.agent import model_engine_factory
+    from ray_tpu_torch.serve.fleet.directory import DirectoryClient
+    from ray_tpu_torch.serve.fleet.router import FleetRouter
+    from ray_tpu_torch.serve.fleet.transport import SocketTransport
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+    cfg = cfg or tl.tinyllama_1_1b(n_layers=EARLIER_POOL_LAYERS)
+    cuda = device == "cuda"
+    z = dict(system=512, turn=32, n_new=32, max_slots=16, page_size=64,
+             n_pages=513, chunk=8)
+    z.update(sizes or {})
+    n_new = z["n_new"]
+    knobs = dict(max_slots=z["max_slots"], page_size=z["page_size"],
+                 n_pages=z["n_pages"])
+    engine_kw = dict(knobs, chunk=z["chunk"], seed=seed, device=device,
+                     no_build=cuda,
+                     layers=cfg.n_layers)
+    warm, systems, turns, wave2 = _session_traffic(
+        cfg.vocab_size, seed, z["system"], z["turn"])
+    res = {"card": smi}
+    t_phase = time.monotonic()
+
+    def free():
+        gc.collect()
+        if cuda:
+            torch.cuda.empty_cache()
+
+    # (a) the loopback knob in this process
+    t0 = time.monotonic()
+    params = tl.init_params(cfg, seed=seed, device=device)
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    dep = LlamaDeployment(cfg, params, fleet=2, prefix_cache=True,
+                          max_new_tokens=n_new, device=device, **knobs)
+    echo = dep({"prompt_ids": warm, "echo_replica": True})
+    router = dep.engine()
+    agents = list(dep._fleet_agents.values())
+    steps0 = sum(a.engine.stats["decode_steps"] for a in agents)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.launches_int8 = 0
+    turn1 = _run_sessions(dep, systems, turns[:1], n_new)
+    k_launch = (pa.paged_decode_attention.launches,
+                pa.paged_decode_attention.launches_int8)
+    steps = sum(a.engine.stats["decode_steps"] for a in agents) - steps0
+    routes = _routes(router)
+    replicas = dep.serve_stats()["engine"]["replicas"]
+    checks = {
+        "both members served": sorted(routes) == ["r0", "r1"],
+        "echo_replica names r0 or r1 at generation 0":
+            echo["replica"] in ("r0:0", "r1:0")
+            and len(echo["ids"]) == len(warm) + n_new,
+        "serve_stats: 2 replicas": replicas == 2,
+    }
+    if cuda:
+        checks[f"K1 {cfg.n_layers} x decode steps, K2 never"] = \
+            steps > 0 and k_launch == (cfg.n_layers * steps, 0)
+    dep.shutdown()
+    del dep, router, agents, params
+    free()
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4j (a): {checks}; routes {routes}, "
+                             f"launches {k_launch}, steps {steps}")
+    res["loopback"] = {"routes": routes, "echo": echo["replica"],
+                       "tok_s": turn1["tok_s"],
+                       "ttft_p50_s": turn1["ttft_p50_s"],
+                       "k1_launches": k_launch[0], "decode_steps": steps,
+                       "s": time.monotonic() - t0}
+    lb = res["loopback"]
+    print(f"phase 4j (a): LlamaDeployment(fleet=2, prefix_cache=True) on "
+          f"{smi}, 4g's warm-up and the first turn of its 8 sessions: "
+          f"routes {routes}, echo_replica {lb['echo']}, "
+          f"{lb['tok_s']:.1f} tok/s, TTFT p50 {lb['ttft_p50_s'] * 1e3:.1f} "
+          f"ms; K1 {lb['k1_launches']} = {cfg.n_layers} x {steps} decode "
+          f"steps, K2 0; {lb['s']:.1f} s")
+
+    # (b) the reference tokens from an engine of this process, built as
+    # the agents build theirs; it stays allocated until the end, so the
+    # card's free memory moves only with the children
+    ref_eng = model_engine_factory(agent_model, **engine_kw)(0)
+    want = ref_eng.submit(warm, max_new_tokens=n_new).result()
+    ref_eng.shutdown()
+    free()
+    mem0 = torch.cuda.mem_get_info()[0] if cuda else None
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_4j_")
+    procs = _FleetProcs(tmp)
+    router = None
+    try:
+        t0 = time.monotonic()
+        procs.start("directory", "ray_tpu_torch.serve.fleet.directory",
+                    ["--lease-ttl-s", FLEET_LEASE_TTL_S])
+        dport, _ = procs.ready("directory")
+        agent_args = ["--directory-port", dport, "--model", agent_model,
+                      "--layers", cfg.n_layers, "--seed", seed,
+                      "--max-slots", z["max_slots"],
+                      "--page-size", z["page_size"],
+                      "--n-pages", z["n_pages"], "--chunk", z["chunk"],
+                      "--device", device]
+        if cuda:
+            agent_args.append("--no-build")
+        names = ("a0", "a1")
+        for name in names:
+            procs.start(name, "ray_tpu_torch.serve.fleet.agent",
+                        ["--replica-id", name] + agent_args)
+        ports, ready_s = {}, {}
+        for name in names:
+            ports[name], ready_s[name] = procs.ready(name)
+        mem1 = torch.cuda.mem_get_info()[0] if cuda else None
+        got = {name: _agent_tokens(ports[name], warm, n_new, f"warm-{name}")
+               for name in names}
+        t_up = time.monotonic() - t0
+        dc = DirectoryClient(SocketTransport(("127.0.0.1", dport)),
+                             timeout_s=30.0)
+        router = FleetRouter(
+            dc, lambda addr: SocketTransport((addr[1], int(addr[2]))),
+            seed=seed, call_timeout_s=30.0,
+            transport_patience_s=12 * FLEET_LEASE_TTL_S,
+            poll_interval_s=FLEET_POLL_S)
+        t0 = time.monotonic()
+        run = _run_sessions(_RouterStreams(router), systems, turns, n_new)
+        t_trace = time.monotonic() - t0
+        trace_routes = _routes(router)
+        hits = sum(1 for e in router.events.snapshot()
+                   if e[obs.ETYPE] == "route" and e[obs.DATA]["pages"] > 0)
+        victim = "a1" if trace_routes.get("a1") else "a0"
+        survivor = "a0" if victim == "a1" else "a1"
+        t0 = time.monotonic()
+        kill = _fleet_kill_wave(router, procs, victim, run["history"],
+                                wave2, n_new)
+        t_kill = time.monotonic() - t0
+        outs, hs, mine = kill["outs"], kill["hs"], set(kill["mine"])
+        resub = [i for i in mine if outs[i][0] == "ok"
+                 and hs[i].resubmits == 1]
+        failed = [i for i in mine if outs[i][0] == "err"]
+        survivor_counters = _agent_client(ports[survivor]).stats()[
+            "counters"]
+        dstats = dc.stats()
+        members = {m["replica_id"] for m in dc.snapshot()["members"]}
+        routes = _routes(router)
+        checks = {
+            "the agents ran on the card: free memory fell by their "
+            "weights": not cuda or mem0 - mem1 >= 2 * weight_bytes,
+            "each agent's warm-up tokens equal this process's engine's":
+                all(got[n] == want for n in names),
+            "every trace request completed with its tokens":
+                run["tokens"] == 3 * 8 * n_new,
+            "the kill landed mid-wave: part of the victim's wave had "
+            "delivered tokens, part had not": bool(resub)
+                and len(resub) < len(mine),
+            "zero-delivery requests resubmitted once, complete on the "
+            "survivor": all(
+                hs[i].replica_idx == survivor and len(outs[i][1]) == n_new
+                for i in resub),
+            "streamed requests failed typed EngineShutdown": all(
+                outs[i][1] == EngineShutdown.__name__
+                and 0 < len(hs[i]._generated) < n_new for i in failed),
+            "the victim's other requests completed before the kill": all(
+                outs[i][0] == "ok" and hs[i].resubmits == 0
+                and len(outs[i][1]) == n_new
+                for i in mine - set(resub) - set(failed)),
+            "the survivor's requests completed": all(
+                outs[i][0] == "ok" and len(outs[i][1]) == n_new
+                and hs[i].resubmits == 0
+                for i in range(len(hs)) if i not in mine),
+            "none served twice: the survivor admitted each route once":
+                survivor_counters["submits"] == routes.get(survivor, 0) + 1,
+            "the directory confirmed the death":
+                dstats["counters"]["confirmed_dead"] == 1
+                and victim not in members and survivor in members
+                and kill["confirm_s"] is not None,
+        }
+        if not all(checks.values()):
+            raise AssertionError(
+                f"phase 4j (b): {checks}; outs "
+                f"{[o[:2] if o[0] == 'err' else 'ok' for o in outs]}, "
+                f"routes {routes}, survivor {survivor_counters}, "
+                f"directory {dstats['counters']}")
+    except BaseException:
+        print(f"phase 4j: the children's output:\n{procs.tails()}",
+              file=sys.stderr)
+        raise
+    finally:
+        if router is not None:
+            router.shutdown()
+        procs.reap()
+        shutil.rmtree(tmp, ignore_errors=True)
+    left = procs.alive()
+    mem2 = None
+    if cuda:
+        deadline = time.monotonic() + 60
+        while True:
+            free()
+            mem2 = torch.cuda.mem_get_info()[0]
+            if mem2 >= mem0 - FLEET_MEM_SLACK or time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    if left or (cuda and mem2 < mem0 - FLEET_MEM_SLACK):
+        raise AssertionError(f"phase 4j (b): children alive {left}; free "
+                             f"card memory {mem0} before the spawn, {mem2} "
+                             f"after the reaping")
+    del ref_eng
+    free()
+    res["processes"] = {
+        "ready_s": ready_s, "up_s": t_up, "tok_s": run["tok_s"],
+        "ttft_p50_s": run["ttft_p50_s"], "trace_s": t_trace,
+        "routes": trace_routes, "affinity_hits": hits,
+        "kill_wave_s": t_kill, "victim": victim, "on_victim": len(mine),
+        "resubmitted": len(resub), "streamed_failed": len(failed),
+        "done_before_kill": len(mine) - len(resub) - len(failed),
+        "requeues": router.counters["requeues"],
+        "confirm_dead_s": kill["confirm_s"],
+        "mem_agents_gb": (mem0 - mem1) / 1e9 if cuda else None,
+        "mem_returned_gb": (mem2 - mem0) / 1e9 if cuda else None,
+        "weight_bytes": weight_bytes, "pool_4g": pool_4g}
+    res["s"] = time.monotonic() - t_phase
+    p = res["processes"]
+    mem = (f"; card memory: the agents took {p['mem_agents_gb']:.2f} GB "
+           f"(weights 2 x {weight_bytes / 1e9:.2f}), "
+           f"{p['mem_returned_gb']:+.2f} GB after the reaping"
+           if cuda else "")
+    beside = ("4g (b) not run" if pool_4g is None else
+              f"4g (b)'s in-process pool {pool_4g['tok_s']:.1f} tok/s, "
+              f"{pool_4g['ttft_p50_s'] * 1e3:.1f} ms / one engine "
+              f"{pool_4g['one_engine_tok_s']:.1f} tok/s, "
+              f"{pool_4g['one_engine_ttft_p50_s'] * 1e3:.1f} ms")
+    print(f"phase 4j (b): a directory process and 2 agent processes on "
+          f"{smi}, READY in "
+          f"{', '.join(f'{k} {v:.1f} s' for k, v in ready_s.items())}; "
+          f"8 sessions x 3 turns through a FleetRouter (poll "
+          f"{FLEET_POLL_S * 1e3:.0f} ms): {p['tok_s']:.1f} tok/s, TTFT p50 "
+          f"{p['ttft_p50_s'] * 1e3:.1f} ms / {beside}; routes {p['routes']}, "
+          f"affinity hits {hits}; SIGKILL of {victim} mid-wave: "
+          f"{p['streamed_failed']} streamed failed typed, "
+          f"{p['done_before_kill']} done before it, "
+          f"{p['resubmitted']} resubmitted and complete of "
+          f"{p['on_victim']} there ({p['requeues']} resubmissions), the "
+          f"death confirmed {p['confirm_dead_s']:.2f} s after the kill"
+          f"{mem}; up {t_up:.1f} s, trace {t_trace:.1f} s, kill wave "
+          f"{t_kill:.1f} s; phase {res['s']:.1f} s")
     return res
 
 
@@ -5885,6 +6349,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every result to this JSON file")
+    ap.add_argument("--only", choices=("4j",), default=None,
+                    help="build the kernels, run this phase alone and "
+                         "print no result lines")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is visible", file=sys.stderr)
@@ -5947,6 +6414,14 @@ def main(argv=None) -> int:
     # The host-timed phases (4, 4b) run before any torch.profiler
     # session: after one, the process launches kernels at a higher host
     # cost for the rest of its life.
+    if args.only == "4j":
+        fleet = phase_fleet_path(tl, pa, args.seed, smi, None)
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump({"card": smi, "fleet_path": fleet,
+                           "total_s": time.monotonic() - t0}, f, indent=1)
+        print(f"total {time.monotonic() - t0:.1f} s")
+        return 0
     phase_engine_parity(tl, args.seed)
     engine_modes = phase_engine_modes(tl, args.seed)
     engine_faults = phase_engine_faults(tl, args.seed)
@@ -5984,6 +6459,10 @@ def main(argv=None) -> int:
     control = phase_pool_control_path(tl, pa, args.seed, smi, cfg=shallow)
     print(f"phase 4h done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
+    fleet = phase_fleet_path(tl, pa, args.seed, smi, obs_pool["pool"],
+                             cfg=shallow)
+    print(f"phase 4j done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
     rollout = phase_rollout_batch_path(tl, pa, args.seed, smi)
     print(f"phase 4i done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
@@ -6004,6 +6483,7 @@ def main(argv=None) -> int:
     k2["launches_pool_int8"] = obs_pool["int8"]["k2_launches"]
     k1["launches_disagg"] = \
         control["disagg_ab"]["disaggregated"]["k1_launches"]
+    k1["launches_fleet"] = fleet["loopback"]["k1_launches"]
     k1["launches_rollout"] = rollout["k1_launches"]
     k2["launches_batch"] = rollout["k2_launches_batch"]
     k1["launches_rl"] = rl["main"]["launches"]["paged_decode_attention"]
@@ -6062,6 +6542,7 @@ def main(argv=None) -> int:
                        "obs_pool_path": obs_pool,
                        "pool_control": pool_control,
                        "pool_control_path": control,
+                       "fleet_path": fleet,
                        "rollout_batch_path": rollout,
                        "rl_loop": rl,
                        "train_checkpoint": train_ckpt,

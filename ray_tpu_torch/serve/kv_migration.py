@@ -100,10 +100,11 @@ def new_stats() -> Dict[str, int]:
 
 
 class KVDonor:
-    """Transfer table + export surface over ONE engine (the
-    reference's ``ReplicaAgent`` RPC handlers and in-process pool
-    adapter drive it; here any ``call`` seam does, e.g.
-    ``loopback_call``).
+    """Transfer table + export surface over ONE engine: the fleet
+    agent's ``kv_pull_*`` RPC handlers drive it (serve/fleet/agent.py),
+    and so does any ``call`` seam, e.g. ``loopback_call``.
+    ``chunk_delay_s`` stretches every chunk export (a chaos seam: a
+    harness can kill a donor process mid-pull).
 
     The engine contract (serve/engine.py): ``kv_pin_prefix(hashes)``
     pins and returns the longest resident page run,
@@ -113,10 +114,14 @@ class KVDonor:
 
     def __init__(self, engine, *, pin_ttl_s: float = 30.0,
                  max_chunk_bytes: Optional[int] = None,
+                 chunk_delay_s: float = 0.0,
                  time_fn: Callable[[], float] = time.monotonic):
         self._engine = engine
         self._pin_ttl_s = float(pin_ttl_s)
         self._max_chunk_bytes = max_chunk_bytes
+        # chaos seam: stretch each chunk export so a harness can kill
+        # the donor process deterministically MID-pull
+        self.chunk_delay_s = float(chunk_delay_s)
         self._time = time_fn
         self._lock = threading.Lock()
         self._seq = 0
@@ -188,6 +193,8 @@ class KVDonor:
                     f"chunk {chunk_idx} out of range for {xfer_id!r}")
             lo = int(chunk_idx) * xfer["per_chunk"]
             pages = xfer["pages"][lo:lo + xfer["per_chunk"]]
+        if self.chunk_delay_s > 0:
+            time.sleep(self.chunk_delay_s)
         blobs = self._engine.kv_export_pages(pages)
         return {"chunk_idx": int(chunk_idx),
                 "pages": [[[base64.b64encode(b).decode("ascii")

@@ -34,8 +34,18 @@ with a ``PoolAutoscaler`` (serve/pool_autoscaler.py), one per side of
 a disaggregated pool over its ``RolePoolView``.
 ``engine_stall_deadline_s`` on a pool adds a ``PoolWatchdog``
 (serve/watchdog.py) that wedges and rebuilds a replica whose scheduler
-stops making progress. The fleet and tensor parallelism of the
-reference are not ported yet (ROADMAP.md, queue 1, items 8 and 9).
+stops making progress.
+
+``fleet=N`` (N > 0) serves through a loopback fleet instead of a pool
+(serve/fleet/): a ``FleetDirectory`` with ``fleet_lease_ttl_s`` leases,
+N lease-renewing ``ReplicaAgent``s of one engine each, and a
+``FleetRouter`` as the deployment's engine object, the control plane
+that ``python -m ray_tpu_torch.serve.fleet.agent`` runs across
+processes. A dict payload with ``"echo_replica": true`` names the
+replica incarnation that served it (``replica_id:generation`` in a
+fleet, ``idx:generation`` in a pool, ``0:0`` for one engine). Tensor
+parallelism and the fleet's autoscaling are not ported yet (ROADMAP.md,
+queue 1, items 8 and 9).
 """
 from __future__ import annotations
 
@@ -109,6 +119,9 @@ class LlamaDeployment:
     autoscale_interval_s: the autoscaler's tick period.
     autoscale_provider: its ``ReplicaCapacityProvider`` (default
         ``ImmediateCapacityProvider``; one shared by both sides).
+    fleet: serve through a loopback fleet of this many agents (0: off;
+        exclusive with ``num_engine_replicas > 1`` and ``disaggregate``).
+    fleet_lease_ttl_s: the fleet directory's lease TTL.
     disaggregate: serve through prefill and decode replicas (needs
         ``prefix_cache``); ``prefill_replicas`` and ``decode_replicas``
         (default 1 each) set the split and so the pool's width.
@@ -147,6 +160,7 @@ class LlamaDeployment:
                  decode_replicas: Optional[int] = None,
                  kv_pull_deadline_s: Optional[float] = None,
                  kv_pull_backoff_s: Optional[float] = None,
+                 fleet: int = 0, fleet_lease_ttl_s: float = 2.0,
                  device=None):
         # every knob is checked here, in the reference's order, before
         # the model is built
@@ -167,6 +181,27 @@ class LlamaDeployment:
             raise ValueError(
                 "engine_stall_deadline_s must be > 0 (or None)")
         self.watchdog_interval_s = watchdog_interval_s
+        if fleet < 0:
+            raise ValueError("fleet must be >= 0")
+        if fleet and num_engine_replicas > 1:
+            raise ValueError("fleet= and num_engine_replicas>1 are "
+                             "exclusive: the fleet IS the replica set")
+        if fleet and autoscale:
+            if autoscale_provider is not None:
+                raise ValueError(
+                    "fleet+autoscale builds its own agent provider "
+                    "(tickets provision fleet agents); autoscale_provider "
+                    "is not accepted")
+            if self.autoscale_max_replicas < fleet:
+                raise ValueError("autoscale_max_replicas must be >= fleet")
+            raise NotImplementedError(
+                "fleet= with autoscale=True needs the fleet's agent "
+                "provider, which waits for the fleet's second slice "
+                "(ROADMAP.md, queue 1, item 9)")
+        self.fleet = int(fleet)
+        self.fleet_lease_ttl_s = float(fleet_lease_ttl_s)
+        self._fleet_agents: Dict[str, Any] = {}
+        self._fleet_directory = None
         # junk pull knobs fail here, at construction
         validate_pull_knobs(kv_pull_deadline_s, kv_pull_backoff_s)
         self.kv_pull_deadline_s = kv_pull_deadline_s
@@ -179,6 +214,11 @@ class LlamaDeployment:
             raise ValueError("prefill_replicas/decode_replicas require "
                              "disaggregate=True")
         if disaggregate:
+            if fleet:
+                raise ValueError(
+                    "disaggregate=True and fleet= are exclusive: fleet "
+                    "members carry role metadata but the router serves "
+                    "them unified")
             if not prefix_cache:
                 raise ValueError(
                     "disaggregate=True requires prefix_cache=True (the "
@@ -228,14 +268,16 @@ class LlamaDeployment:
 
     def engine(self):
         """The replica's engine (or, with more than one replica,
-        ``autoscale`` or ``disaggregate``, its ``EnginePool``), built
-        and started at first use with the pool's autoscalers and
-        watchdog. Locked: two first requests racing here must not
-        allocate two pools."""
+        ``autoscale`` or ``disaggregate``, its ``EnginePool``; with
+        ``fleet``, the fleet's ``FleetRouter``), built and started at
+        first use with the pool's autoscalers and watchdog. Locked: two
+        first requests racing here must not allocate two pools."""
         with self._engine_lock:
             if self._engine is None:
                 from ray_tpu_torch.serve.engine import LLMEngine
-                if (self.num_engine_replicas > 1 or self.autoscale
+                if self.fleet:
+                    self._engine = self._build_fleet(LLMEngine)
+                elif (self.num_engine_replicas > 1 or self.autoscale
                         or self.disaggregate):
                     self._engine = self._build_pool(LLMEngine)
                 else:
@@ -297,6 +339,36 @@ class LlamaDeployment:
                 poll_interval_s=self.watchdog_interval_s).run()
         return pool
 
+    def _build_fleet(self, engine_cls):
+        """The loopback fleet: a directory, ``fleet`` agents ``r0``,
+        ``r1``, ... (one engine each, the one of agent i drawing with
+        seed i, as a pool's replica i does), and the router over them."""
+        from ray_tpu_torch.serve.fleet.agent import ReplicaAgent
+        from ray_tpu_torch.serve.fleet.directory import (DirectoryClient,
+                                                         FleetDirectory)
+        from ray_tpu_torch.serve.fleet.router import FleetRouter
+        from ray_tpu_torch.serve.fleet.transport import LoopbackTransport
+        self._fleet_directory = FleetDirectory(
+            lease_ttl_s=self.fleet_lease_ttl_s)
+        dc = DirectoryClient(LoopbackTransport(
+            self._fleet_directory.handle))
+        agents = self._fleet_agents
+
+        def tf(addr):
+            # a loopback agent advertises ["loopback", replica_id]
+            return LoopbackTransport(agents[addr[1]].handle)
+
+        for i in range(self.fleet):
+            def factory(gen, _i=i):
+                return engine_cls(self.model, temperature=self.temperature,
+                                  seed=_i, device=self.device,
+                                  **self._engine_opts)
+
+            agents[f"r{i}"] = ReplicaAgent(
+                f"r{i}", factory, dc,
+                stall_deadline_s=self.engine_stall_deadline_s).start()
+        return FleetRouter(dc, tf)
+
     def autoscaler(self):
         """The attached ``PoolAutoscaler`` (None before the lazy engine
         is built or without ``autoscale``); a disaggregated deployment
@@ -309,8 +381,9 @@ class LlamaDeployment:
         return self._watchdog
 
     def shutdown(self) -> None:
-        """Stop the autoscalers and the watchdog, then the engine or
-        pool (if built); in-flight requests fail typed."""
+        """Stop the autoscalers and the watchdog, then the engine, pool
+        or fleet router and the fleet's agents (if built); in-flight
+        requests fail typed."""
         with self._engine_lock:
             scalers = self._autoscaler
             if not isinstance(scalers, dict):
@@ -321,6 +394,8 @@ class LlamaDeployment:
                 self._watchdog.stop()
             if self._engine is not None:
                 self._engine.shutdown()
+            for agent in self._fleet_agents.values():
+                agent.shutdown()
 
     def serve_stats(self) -> dict:
         """Replica metrics: the engine's counters plus live slot and
@@ -331,6 +406,14 @@ class LlamaDeployment:
         if not self.use_engine or self._engine is None:
             return {"engine": None}
         eng = self._engine
+        if self.fleet:
+            # the members sit behind the transport: the aggregate of
+            # their advertised reports, as a remote router sees them
+            out = dict(eng.load_report())
+            out.update(consistent=False,
+                       max_queued=self._engine_opts["max_queued"],
+                       fleet=eng.pool_stats())
+            return {"engine": out}
         from ray_tpu_torch.serve.engine_pool import EnginePool
         if isinstance(eng, EnginePool):
             return {"engine": self._pool_stats(eng)}
@@ -416,27 +499,33 @@ class LlamaDeployment:
     def _submit(self, payload):
         ids, mnt, dl, sid, tid = self._request_args(payload)
         kw: Dict[str, Any] = dict(max_new_tokens=mnt, deadline_s=dl)
-        if sid is not None and self.num_engine_replicas > 1:
+        if sid is not None and (self.num_engine_replicas > 1
+                                or self.fleet):
             kw["session_id"] = sid
         if tid is not None:
             kw["trace_id"] = tid
         return ids, self.engine().submit(ids, **kw)
 
-    def __call__(self, prompt_ids) -> List[int]:
+    def __call__(self, prompt_ids):
         """One request: token ids (or, through the engine, a dict
-        payload) in, prompt + generated ids out."""
+        payload) in, prompt + generated ids out; with ``"echo_replica":
+        true`` in the payload, ``{"ids": [...], "replica": tag}``."""
         if not self.use_engine:
             out = generate(self.model, [list(prompt_ids)],
                            self.max_new_tokens, self.temperature)
             return out[0].tolist()
         ids, h = self._submit(prompt_ids)
-        return ids + h.result()
+        out = ids + h.result()
+        if _echo_replica(prompt_ids):
+            return {"ids": out, "replica": _replica_tag(h)}
+        return out
 
     def stream(self, prompt_ids):
         """Streaming request (token ids or, through the engine, a dict
         payload): yields each generated token id as it is emitted.
         Closing the generator early cancels the request, so its slot
-        and pages free at once. Without the engine, tokens arrive in
+        and pages free at once. With ``"echo_replica": true`` in the
+        payload the first yield is ``{"replica": tag}``. Without the engine, tokens arrive in
         bursts of ``stream_chunk``, one device read each."""
         if not self.use_engine:
             for tok in generate_stream(self.model, [list(prompt_ids)],
@@ -446,6 +535,8 @@ class LlamaDeployment:
                 yield int(tok[0])
             return
         _ids, h = self._submit(prompt_ids)
+        if _echo_replica(prompt_ids):
+            yield {"replica": _replica_tag(h)}
         try:
             yield from h.stream()
         except GeneratorExit:
@@ -478,3 +569,14 @@ class LlamaDeployment:
             for row, i in zip(out[:, plen:].tolist(), idxs):
                 results[i] = row
         return results
+
+
+def _echo_replica(payload) -> bool:
+    return isinstance(payload, dict) and bool(payload.get("echo_replica"))
+
+
+def _replica_tag(handle) -> str:
+    """The incarnation that served ``handle``: a fleet's
+    ``replica_id:generation``, a pool's ``idx:generation``, or ``0:0``
+    for one engine."""
+    return getattr(handle, "replica_tag", None) or "0:0"

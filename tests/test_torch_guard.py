@@ -102,6 +102,9 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.util.tracing",
                  "ray_tpu_torch.serve.fleet.wire",
                  "ray_tpu_torch.serve.fleet.transport",
+                 "ray_tpu_torch.serve.fleet.directory",
+                 "ray_tpu_torch.serve.fleet.agent",
+                 "ray_tpu_torch.serve.fleet.router",
                  "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.serve.watchdog",
                  "ray_tpu_torch.serve.pool_autoscaler",

@@ -1414,3 +1414,73 @@ def test_rl_sync_weights_from_a_learner_installs_its_payload(dev, tmp_path):
         assert torch.equal(eng.model.tok_embeddings, want)
     finally:
         eng.shutdown()
+
+
+# --------------------------------------------------------------------
+# The fleet on the card
+# --------------------------------------------------------------------
+
+def test_loopback_fleet_on_card_matches_one_engine(dev):
+    """``LlamaDeployment(fleet=2)`` (a loopback directory, two agents
+    and the router) at a bf16 ``llama_tiny`` with head_dim 64 on the
+    card: the single-engine deployment's greedy tokens, K1 on every
+    member's decode step."""
+    from ray_tpu_torch.models.llama import init_params, llama_tiny
+    from ray_tpu_torch.serve.llm import LlamaDeployment
+    cfg = llama_tiny(dim=256, n_heads=4, n_kv_heads=2)
+    sd = init_params(cfg, seed=0, device=dev)
+    kw = dict(max_new_tokens=8, page_size=16, max_slots=4, device=dev)
+    fleet = LlamaDeployment(cfg, sd, fleet=2, **kw)
+    one = LlamaDeployment(cfg, sd, **kw)
+    try:
+        prompts = [[1, 2, 3], list(range(5, 40)), [7] * 17]
+        for p in prompts:
+            assert fleet(p) == one(p)
+        steps = sum(a.engine.stats["decode_steps"]
+                    for a in fleet._fleet_agents.values())
+        before = pa.paged_decode_attention.launches
+        out = fleet({"prompt_ids": [4, 5, 6], "echo_replica": True})
+        steps = sum(a.engine.stats["decode_steps"]
+                    for a in fleet._fleet_agents.values()) - steps
+        assert out["replica"] in ("r0:0", "r1:0")
+        assert (pa.paged_decode_attention.launches - before
+                == steps * cfg.n_layers) and steps >= 7
+    finally:
+        fleet.shutdown()
+        one.shutdown()
+
+
+def test_agent_process_on_card_registers_serves_and_is_reaped(dev, tmp_path):
+    """A directory process and one ``--model tinyllama --layers 1``
+    agent process on the card, started as chip_smoke's phase 4j starts
+    them, with the kernels built here first (``--no-build``): it
+    registers, serves this process's engine's greedy tokens, and is
+    reaped, with nothing left alive."""
+    import chip_smoke
+    from ray_tpu_torch.serve.fleet.agent import model_engine_factory
+    from ray_tpu_torch.serve.fleet.directory import DirectoryClient
+    from ray_tpu_torch.serve.fleet.transport import SocketTransport
+    pa.load_kernel()
+    prompt = list(range(1, 70))
+    eng = model_engine_factory("tinyllama", layers=1, device=dev,
+                               max_slots=4, page_size=16, n_pages=64,
+                               no_build=True)(0)
+    want = eng.submit(prompt, max_new_tokens=8).result()
+    eng.shutdown()
+    procs = chip_smoke._FleetProcs(str(tmp_path))
+    try:
+        procs.start("directory", "ray_tpu_torch.serve.fleet.directory",
+                    ["--lease-ttl-s", 5.0])
+        dport, _ = procs.ready("directory")
+        procs.start("a0", "ray_tpu_torch.serve.fleet.agent",
+                    ["--replica-id", "a0", "--directory-port", dport,
+                     "--model", "tinyllama", "--layers", 1,
+                     "--max-slots", 4, "--page-size", 16, "--n-pages", 64,
+                     "--no-build"])
+        port, _ = procs.ready("a0")
+        dc = DirectoryClient(SocketTransport(("127.0.0.1", dport)))
+        assert [m["replica_id"] for m in dc.snapshot()["members"]] == ["a0"]
+        assert chip_smoke._agent_tokens(port, prompt, 8, "k") == want
+    finally:
+        procs.reap()
+    assert procs.alive() == []

@@ -25,6 +25,7 @@ case waits for the port's engine pool (ROADMAP.md, queue 1, item 6).
 """
 import base64
 import socket
+import time
 import types
 
 import jax
@@ -817,3 +818,27 @@ def test_batched_export_equals_per_page_export(kv_dtype, dtype):
     assert got == [tkv.export_page_bytes(pool, p) for p in pages]
     assert len(got[0]) == cfg.n_layers
     assert len(got[0][0]) == (2 if kv_dtype == "fp" else 4)
+
+
+def test_chunk_delay_stretches_each_chunk_not_its_bytes(tiny):
+    """``KVDonor(chunk_delay_s=)``, the reference's chaos seam: every
+    chunk export waits the delay and carries the bytes an undelayed
+    donor exports, one page a chunk."""
+    eng = _maker(tiny, "torch")()
+    _run(eng, PREFIX + [7, 7, 7, 7])
+    hashes = path_hashes(PREFIX, eng.Pg)
+    plain = tkm.KVDonor(eng, max_chunk_bytes=eng.page_bytes)
+    slow = tkm.KVDonor(eng, max_chunk_bytes=eng.page_bytes,
+                       chunk_delay_s=0.05)
+    assert (slow.chunk_delay_s, plain.chunk_delay_s) == (0.05, 0.0)
+    a, b = plain.begin(hashes), slow.begin(hashes)
+    assert a["n_chunks"] == b["n_chunks"] == 4
+    for i in range(4):
+        t = time.monotonic()
+        got = slow.chunk(b["xfer_id"], i)
+        assert time.monotonic() - t >= 0.05
+        assert got == plain.chunk(a["xfer_id"], i)
+    assert plain.end(a["xfer_id"]) == slow.end(b["xfer_id"]) == {
+        "released": True}
+    assert slow.open_transfers() == 0
+    eng.shutdown()
