@@ -320,7 +320,7 @@ its life.
    members' decode steps and K2 never. (b) a directory process (5 s
    leases) and two agent processes (``python -m
    ray_tpu_torch.serve.fleet.agent --model tinyllama --layers 6 --seed
-   S --no-build``), each started with ``subprocess.Popen`` from this
+   S``), each started with ``subprocess.Popen`` from this
    script's directory (never forked: this process holds a CUDA context),
    its output into a file, ``READY <port>`` read from it within 180 s;
    the agents load the libraries phase 1 built. Free card memory
@@ -328,12 +328,16 @@ its life.
    warm-up prompt gives each agent the greedy tokens of an engine this
    process builds from the same seed. A ``FleetRouter`` here (sockets,
    a 20 ms poll) serves 4g's 8 sessions x 3 turns (every request its 32
-   tokens), then 4g's kill wave with a SIGKILL of one agent process at
-   the token that leaves half of its wave with none delivered: the
-   zero-delivery requests resubmit once and complete on the
-   survivor, the partly delivered ones fail typed ``EngineShutdown``
-   (unless the tokens in hand at the kill finish them), the survivor admits each of its routes once, the directory confirms
-   the death. Every child is reaped (terminate, wait, kill) in a
+   tokens), then 4g's kill wave at 128 new tokens a request (so that a
+   poll seldom carries a whole stream) with a SIGKILL of one agent
+   process at the first poll answer that carries tokens of a request the
+   agent is still decoding, once half or fewer of its wave have none
+   delivered: the zero-delivery requests resubmit once and complete on
+   the survivor, at least one partly delivered request (the one whose
+   answer fired the kill) fails typed ``EngineShutdown``, as every
+   partly delivered one must unless the tokens in hand at the kill
+   finish it, the survivor admits each of its routes once, the directory
+   confirms the death. Every child is reaped (terminate, wait, kill) in a
    ``finally`` before the phase returns, and free card memory comes
    back within 0.5 GB of its value before the spawn. Prints each
    agent's seconds to ``READY``, (b)'s tok/s and TTFT p50 beside 4g
@@ -4487,12 +4491,16 @@ def _routes(router) -> dict:
 def _fleet_kill_wave(router, procs, victim: str, history, wave2,
                      n_new: int) -> dict:
     """Phase 4g (b)'s second wave through the router: 4 requests per
-    session, sticky to the session's agent. A consumer receiving one of
-    the victim's tokens SIGKILLs the victim's process there and then
-    (a watcher thread could wait for the GIL too long and find the wave
-    done) at the token that leaves just half of the victim's requests
-    with none delivered: of those, a request whose tokens were in flight
-    at the kill may still come back with some, but not half the wave.
+    session of ``n_new`` tokens each, sticky to the session's agent. The
+    router's client of the victim is watched: the first poll answer that
+    carries tokens of a victim request still being decoded (not done),
+    once just half or fewer of the victim's requests have had none
+    delivered, SIGKILLs the victim's process before the router reads
+    that answer (a watcher thread could wait for the GIL too long and
+    find the wave done). That request then holds fewer than ``n_new``
+    tokens and its next poll meets a dead agent, so at least one request
+    fails typed; a request with none delivered resubmits, though one
+    whose poll was in flight at the kill may still come back with some.
     Returns the handles and their outcomes."""
     from ray_tpu_torch.serve import obs
     reqs = [(s, history[s] + wave2[s][k]) for k in range(4)
@@ -4506,19 +4514,32 @@ def _fleet_kill_wave(router, procs, victim: str, history, wave2,
     outs = [None] * len(hs)
     kill = {"t": None}
     lock = threading.Lock()
+    client = router._agent(hs[mine[0]]._member)
+    rids = {hs[j]._rid: j for j in mine}
+    delivered = set()
+    poll = client.poll
 
-    def ripe() -> bool:
-        zero = sum(1 for j in mine if not hs[j]._generated)
-        return 0 < 2 * zero <= len(mine)
+    def watched_poll(rid, cursor=0, trace_id=None, timeout_s=None):
+        resp = poll(rid, cursor=cursor, trace_id=trace_id,
+                    timeout_s=timeout_s)
+        j = rids.get(rid)
+        if j is None or not resp["tokens"] or resp.get("error") is not None:
+            return resp
+        with lock:
+            delivered.add(j)
+            zero = len(mine) - len(delivered)
+            if (kill["t"] is None and not resp["done"]
+                    and 0 < 2 * zero <= len(mine)):
+                kill["t"] = time.monotonic()
+                procs.kill(victim)
+        return resp
+
+    client.poll = watched_poll
 
     def consume(i):
         try:
             for _tok in hs[i].stream():
-                if i in mine and kill["t"] is None:
-                    with lock:
-                        if kill["t"] is None and ripe():
-                            kill["t"] = time.monotonic()
-                            procs.kill(victim)
+                pass
             outs[i] = ("ok", list(hs[i]._generated))
         except Exception as e:  # noqa: BLE001 - the record names the type
             outs[i] = ("err", type(e).__name__, str(e))
@@ -4563,14 +4584,13 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
     from ray_tpu_torch.serve.llm import LlamaDeployment
     cfg = cfg or tl.tinyllama_1_1b(n_layers=EARLIER_POOL_LAYERS)
     cuda = device == "cuda"
-    z = dict(system=512, turn=32, n_new=32, max_slots=16, page_size=64,
-             n_pages=513, chunk=8)
+    z = dict(system=512, turn=32, n_new=32, kill_new=128, max_slots=16,
+             page_size=64, n_pages=513, chunk=8)
     z.update(sizes or {})
-    n_new = z["n_new"]
+    n_new, kill_new = z["n_new"], z["kill_new"]
     knobs = dict(max_slots=z["max_slots"], page_size=z["page_size"],
                  n_pages=z["n_pages"])
     engine_kw = dict(knobs, chunk=z["chunk"], seed=seed, device=device,
-                     no_build=cuda,
                      layers=cfg.n_layers)
     warm, systems, turns, wave2 = _session_traffic(
         cfg.vocab_size, seed, z["system"], z["turn"])
@@ -4651,8 +4671,6 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
                       "--page-size", z["page_size"],
                       "--n-pages", z["n_pages"], "--chunk", z["chunk"],
                       "--device", device]
-        if cuda:
-            agent_args.append("--no-build")
         names = ("a0", "a1")
         for name in names:
             procs.start(name, "ray_tpu_torch.serve.fleet.agent",
@@ -4681,7 +4699,7 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
         survivor = "a0" if victim == "a1" else "a1"
         t0 = time.monotonic()
         kill = _fleet_kill_wave(router, procs, victim, run["history"],
-                                wave2, n_new)
+                                wave2, kill_new)
         t_kill = time.monotonic() - t0
         outs, hs, mine = kill["outs"], kill["hs"], set(kill["mine"])
         resub = [i for i in mine if outs[i][0] == "ok"
@@ -4700,21 +4718,21 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
             "every trace request completed with its tokens":
                 run["tokens"] == 3 * 8 * n_new,
             "the kill landed mid-wave: part of the victim's wave had "
-            "delivered tokens, part had not": bool(resub)
-                and len(resub) < len(mine),
+            "delivered tokens and failed, part had none and resubmitted":
+                bool(resub) and bool(failed),
             "zero-delivery requests resubmitted once, complete on the "
             "survivor": all(
-                hs[i].replica_idx == survivor and len(outs[i][1]) == n_new
-                for i in resub),
-            "streamed requests failed typed EngineShutdown": all(
+                hs[i].replica_idx == survivor
+                and len(outs[i][1]) == kill_new for i in resub),
+            "partly delivered requests failed typed EngineShutdown": all(
                 outs[i][1] == EngineShutdown.__name__
-                and 0 < len(hs[i]._generated) < n_new for i in failed),
+                and 0 < len(hs[i]._generated) < kill_new for i in failed),
             "the victim's other requests completed before the kill": all(
                 outs[i][0] == "ok" and hs[i].resubmits == 0
-                and len(outs[i][1]) == n_new
+                and len(outs[i][1]) == kill_new
                 for i in mine - set(resub) - set(failed)),
             "the survivor's requests completed": all(
-                outs[i][0] == "ok" and len(outs[i][1]) == n_new
+                outs[i][0] == "ok" and len(outs[i][1]) == kill_new
                 and hs[i].resubmits == 0
                 for i in range(len(hs)) if i not in mine),
             "none served twice: the survivor admitted each route once":
@@ -4784,7 +4802,8 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
           f"8 sessions x 3 turns through a FleetRouter (poll "
           f"{FLEET_POLL_S * 1e3:.0f} ms): {p['tok_s']:.1f} tok/s, TTFT p50 "
           f"{p['ttft_p50_s'] * 1e3:.1f} ms / {beside}; routes {p['routes']}, "
-          f"affinity hits {hits}; SIGKILL of {victim} mid-wave: "
+          f"affinity hits {hits}; SIGKILL of {victim} mid-wave "
+          f"({kill_new} new tokens a request): "
           f"{p['streamed_failed']} streamed failed typed, "
           f"{p['done_before_kill']} done before it, "
           f"{p['resubmitted']} resubmitted and complete of "

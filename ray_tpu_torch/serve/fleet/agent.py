@@ -30,7 +30,7 @@ are ``int``, load reports pass ``_json_safe``.
 
     python -m ray_tpu_torch.serve.fleet.agent --replica-id r0
         --directory-port N [--model fake|tiny|tinyllama] [--layers L]
-        [--seed S] [--device cuda|cpu] [--max-slots ...] [--no-build]
+        [--seed S] [--device cuda|cpu] [--max-slots ...]
 
 prints ``READY <port>`` once its engine is warm and registered.
 ``--model tiny`` serves ``llama_tiny`` fp32 and ``tinyllama``
@@ -855,16 +855,19 @@ class AgentClient:
 def model_engine_factory(model: str, *, layers: int = 22, seed: int = 0,
                          device=None, max_slots: int = 2,
                          page_size: int = 8, n_pages: int = 64,
-                         chunk: int = 4, flight_dir: Optional[str] = None,
-                         no_build: bool = False) -> Callable[[int], Any]:
+                         chunk: int = 4,
+                         flight_dir: Optional[str] = None
+                         ) -> Callable[[int], Any]:
     """The engine factory of a model agent: ``model`` ``"tiny"``
     (``llama_tiny`` fp32) or ``"tinyllama"`` (TinyLlama-1.1B's widths at
     ``layers`` layers, bf16), built once on ``device`` (the card unless
     ``"cpu"``) from ``init_params(cfg, seed)``, so every agent of one
     seed holds the same weights. Each engine is greedy, holds the prefix
     cache, and is warmed on ``WARMUP_PROMPT`` before it is returned (a
-    cold first dispatch looks like a wedge). ``no_build``: raise instead of compiling a kernel that is not built
-    (a process beside others on one card must not run nvcc)."""
+    cold first dispatch looks like a wedge). On the card it never compiles
+    a kernel: the parent builds them before it starts agents, and this
+    raises ``FileNotFoundError`` if K1's library is not built (a process
+    beside others on one card must not run nvcc)."""
     import torch
 
     from ray_tpu_torch._device import resolve_device
@@ -879,14 +882,14 @@ def model_engine_factory(model: str, *, layers: int = 22, seed: int = 0,
     else:
         raise ValueError(f"unknown model {model!r}; expected tiny or "
                          f"tinyllama")
-    if device.type == "cuda" and no_build:
+    if device.type == "cuda":
         from ray_tpu_torch.ops import _build
         from ray_tpu_torch.ops import paged_attention as pa
         lib = _build.library_path(pa._SOURCE)
         if not lib.is_file():
             raise FileNotFoundError(
-                f"no_build: {lib} is not built; build the kernels before "
-                f"starting agents")
+                f"{lib} is not built; build the kernels before starting "
+                f"agents")
     weights = llama.build_model(
         cfg, llama.init_params(cfg, seed=seed, device=device), device)
 
@@ -932,8 +935,6 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--max-slots", type=int, default=2)
     ap.add_argument("--n-pages", type=int, default=64)
     ap.add_argument("--chunk", type=int, default=4)
-    ap.add_argument("--no-build", action="store_true",
-                    help="refuse to compile kernels: they must be built")
     ap.add_argument("--token-delay-s", type=float, default=0.002)
     ap.add_argument("--page-size", type=int, default=8)
     ap.add_argument("--stall-deadline-s", type=float, default=None)
@@ -949,7 +950,7 @@ def main(argv: Optional[List[str]] = None) -> None:
             args.model, layers=args.layers, seed=args.seed,
             device=args.device, max_slots=args.max_slots,
             page_size=args.page_size, n_pages=args.n_pages,
-            chunk=args.chunk, flight_dir=args.flight_dir, no_build=args.no_build)
+            chunk=args.chunk, flight_dir=args.flight_dir)
 
     endpoints = []
     for spec in (args.directory or []):

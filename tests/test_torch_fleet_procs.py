@@ -118,10 +118,11 @@ def test_chip_smoke_fleet_phase_rehearses_on_the_cpu():
     res = smoke.phase_fleet_path(
         tl, pa, 0, "cpu", pool, cfg=tl.llama_tiny(dtype=torch.float32),
         device="cpu", agent_model="tiny",
-        sizes=dict(system=16, turn=8, n_new=8, max_slots=2, page_size=8,
-                   n_pages=64, chunk=4))
+        sizes=dict(system=16, turn=8, n_new=8, kill_new=40, max_slots=2,
+                   page_size=8, n_pages=64, chunk=4))
     p = res["processes"]
     assert sorted(res["loopback"]["routes"]) == ["r0", "r1"]
     assert sorted(p["routes"]) == ["a0", "a1"]
     assert 1 <= p["resubmitted"] < p["on_victim"]
+    assert p["streamed_failed"] >= 1
     assert p["confirm_dead_s"] > 0

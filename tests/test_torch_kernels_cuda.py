@@ -1453,7 +1453,7 @@ def test_loopback_fleet_on_card_matches_one_engine(dev):
 def test_agent_process_on_card_registers_serves_and_is_reaped(dev, tmp_path):
     """A directory process and one ``--model tinyllama --layers 1``
     agent process on the card, started as chip_smoke's phase 4j starts
-    them, with the kernels built here first (``--no-build``): it
+    them, with the kernels built here first (an agent never builds): it
     registers, serves this process's engine's greedy tokens, and is
     reaped, with nothing left alive."""
     import chip_smoke
@@ -1463,8 +1463,7 @@ def test_agent_process_on_card_registers_serves_and_is_reaped(dev, tmp_path):
     pa.load_kernel()
     prompt = list(range(1, 70))
     eng = model_engine_factory("tinyllama", layers=1, device=dev,
-                               max_slots=4, page_size=16, n_pages=64,
-                               no_build=True)(0)
+                               max_slots=4, page_size=16, n_pages=64)(0)
     want = eng.submit(prompt, max_new_tokens=8).result()
     eng.shutdown()
     procs = chip_smoke._FleetProcs(str(tmp_path))
@@ -1475,8 +1474,7 @@ def test_agent_process_on_card_registers_serves_and_is_reaped(dev, tmp_path):
         procs.start("a0", "ray_tpu_torch.serve.fleet.agent",
                     ["--replica-id", "a0", "--directory-port", dport,
                      "--model", "tinyllama", "--layers", 1,
-                     "--max-slots", 4, "--page-size", 16, "--n-pages", 64,
-                     "--no-build"])
+                     "--max-slots", 4, "--page-size", 16, "--n-pages", 64])
         port, _ = procs.ready("a0")
         dc = DirectoryClient(SocketTransport(("127.0.0.1", dport)))
         assert [m["replica_id"] for m in dc.snapshot()["members"]] == ["a0"]
