@@ -317,17 +317,22 @@ its life.
    two agents, the router): 4g's warm-up (with ``echo_replica``: r0 or
    r1 at generation 0) and the first turn of its 8 sessions; both
    members served, ``serve_stats()`` counts 2 replicas, K1 6 x the
-   members' decode steps and K2 never. (b) a directory process (5 s
-   leases) and two agent processes (``python -m
-   ray_tpu_torch.serve.fleet.agent --model tinyllama --layers 6 --seed
-   S``), each started with ``subprocess.Popen`` from this
+   members' decode steps and K2 never. (b) a replicated directory, a
+   primary process (``--data-dir``, ``--standby``) and a hot standby
+   process (``--role standby --peer``, promoting after 3 s of silence;
+   its own ``--data-dir``), both with 5 s leases, the primary's port
+   reserved first and the standby started before it, and two agent
+   processes (``python -m ray_tpu_torch.serve.fleet.agent --model
+   tinyllama --layers 6 --seed S``, both directories in their
+   ``--directory`` list), each started with ``subprocess.Popen`` from this
    script's directory (never forked: this process holds a CUDA context),
    its output into a file, ``READY <port>`` read from it within 180 s;
    the agents load the libraries phase 1 built. Free card memory
    falls by at least both agents' weights once they are ``READY``; the
    warm-up prompt gives each agent the greedy tokens of an engine this
    process builds from the same seed. A ``FleetRouter`` here (sockets,
-   a 20 ms poll) serves 4g's 8 sessions x 3 turns (every request its 32
+   a 20 ms poll, a ``FailoverDirectoryClient`` over both directories)
+   serves 4g's 8 sessions x 3 turns (every request its 32
    tokens), then 4g's kill wave at 128 new tokens a request (so that a
    poll seldom carries a whole stream) with a SIGKILL of one agent
    process at the first poll answer that carries tokens of a request the
@@ -337,13 +342,36 @@ its life.
    answer fired the kill) fails typed ``EngineShutdown``, as every
    partly delivered one must unless the tokens in hand at the kill
    finish it, the survivor admits each of its routes once, the directory
-   confirms the death. Every child is reaped (terminate, wait, kill) in a
-   ``finally`` before the phase returns, and free card memory comes
-   back within 0.5 GB of its value before the spawn. Prints each
-   agent's seconds to ``READY``, (b)'s tok/s and TTFT p50 beside 4g
+   confirms the death. (c) A ``FleetCapacityProvider`` over both
+   directories (``--model tinyllama --layers 6 --seed S``, 180 s to
+   ``READY``) starts one agent process; the router adopts its ticket
+   (``add_replica_for_ticket``) and routes 8 fresh requests of 4g's
+   prompt shape (512 + 32 tokens), 32 new tokens each, over it and the
+   survivor: it serves at least one, its warm-up tokens equal this
+   process's engine's, free card memory fell by its weights, every
+   request completes. (d) The primary directory's SIGKILL once the
+   router holds tokens of a fresh wave of 8 x 128 new tokens over the
+   two agents: the standby becomes primary at the epoch above, every
+   fence it issues after the promotion exceeds the primary's last
+   counter (its events and snapshot), every request ends (its 128
+   tokens, or a typed error of the serving taxonomy; none without an
+   outcome 120 s after the kill) and none is admitted twice, a canary of
+   the warm-up prompt through the promoted directory gives this
+   process's engine's tokens, both live agents are members there, and
+   ``DirectoryWAL`` reads back from the killed primary's data directory
+   every live registration it acknowledged and its fence counter; then
+   ``scale_down`` retires the provider's agent and ``release`` reaps it.
+   Every child is reaped (terminate, wait, kill; the provider's
+   ``stop_all``) in a ``finally`` before the phase returns, and free card
+   memory comes back within 0.5 GB of its value before the spawn. Prints
+   each agent's seconds to ``READY``, (b)'s tok/s and TTFT p50 beside 4g
    (b)'s pool and one engine, routes and affinity hits, resubmissions
-   and the seconds from the kill to the confirmed death. No check bounds
-   a latency.
+   and the seconds from the kill to the confirmed death; the provider's
+   agent's seconds to ``READY`` and ``eta_s`` before and after; the
+   seconds from the directory's kill to the promotion and to each
+   agent's next renewal with the new primary, self-fences, the wave's
+   outcomes and the failover client's counters. No check bounds a
+   latency.
 4i. Durable weights, the staged rollout and the batch tier at full
    width: TinyLlama-1.1B bf16, payload A random from ``--seed`` and B
    from ``--seed`` + 1, 16 slots, 64-token pages, 513 pages per engine;
@@ -465,9 +493,9 @@ its life.
    ``RolloutLearner`` (ppo, Adam 1e-5) through ``RLHFLoop``: 16 prompts
    of 96 tokens a round, 32 new tokens (L = 128, so the learner's
    attention takes flash), staleness bound 1, overlapped,
-   ``keep_last_k=1``: (1) 3 rounds; (2) 1 round with the generator
-   killed mid round; (3) 2 rounds with the learner killed before round
-   1's commit, then attempt 2's resume. Checks: every ledger holds each
+   ``keep_last_k=1``: (1) 2 rounds; (2) 2 rounds with the learner
+   killed before round 1's commit, then attempt 2's resume, whose
+   generator is killed mid round 1. Checks: every ledger holds each
    round once, staleness <= 1, one generator restart, the resume at
    round 1 with ``resync_weights_id == recovered_weights_id``, the
    engine's final payload the one that sampled the last batch (the last
@@ -4373,6 +4401,9 @@ FLEET_READY_S = 180.0              # a cold agent: torch, CUDA, weights, warm-up
 FLEET_LEASE_TTL_S = 5.0            # 4j's directory: wide for a busy host
 FLEET_MEM_SLACK = 0.5e9            # card memory back within this, reaped
 FLEET_POLL_S = 0.02                # the router's poll period per stream
+FLEET_PROMOTE_AFTER_S = 3.0        # 4j's standby promotes after this silence
+FLEET_HANG_S = 120.0               # 4j (d): no outcome this long after the
+                                   # kill is a hang (no latency bound)
 
 
 class _FleetProcs:
@@ -4443,6 +4474,93 @@ class _FleetProcs:
             except subprocess.TimeoutExpired:
                 proc.kill()
                 proc.wait(timeout=20)
+
+
+def _free_port() -> int:
+    """A port free now (the kernel's pick for a socket bound to port 0),
+    for a process whose peer must know it before it starts."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _start_directory_pair(procs, tmp: str) -> tuple:
+    """Phase 4j's replicated directory: a primary (``--data-dir
+    tmp/d1``, replicating to the standby) and its hot standby
+    (``--data-dir tmp/d2``, promoting after ``FLEET_PROMOTE_AFTER_S`` of
+    the primary's silence), both with ``FLEET_LEASE_TTL_S`` leases. Each
+    needs the other's port: the primary's is reserved first, the standby
+    starts on port 0 watching it, then the primary binds the reserved
+    port and replicates to the standby's ``READY`` port. A lost race for
+    the reserved port (the primary exits before ``READY``) restarts both
+    once with a fresh reservation. Returns (primary port, standby
+    port)."""
+    module = "ray_tpu_torch.serve.fleet.directory"
+    for attempt in (1, 2):
+        port = _free_port()
+        procs.start("standby", module,
+                    ["--lease-ttl-s", FLEET_LEASE_TTL_S, "--role", "standby",
+                     "--peer", f"127.0.0.1:{port}",
+                     "--promote-after-s", FLEET_PROMOTE_AFTER_S,
+                     "--data-dir", os.path.join(tmp, "d2")])
+        sport, _ = procs.ready("standby")
+        procs.start("directory", module,
+                    ["--lease-ttl-s", FLEET_LEASE_TTL_S, "--port", port,
+                     "--data-dir", os.path.join(tmp, "d1"),
+                     "--standby", f"127.0.0.1:{sport}"])
+        try:
+            return procs.ready("directory")[0], sport
+        except RuntimeError:
+            if attempt == 2:
+                raise
+            procs.kill("standby")
+
+
+def _fresh_prompts(vocab: int, seed: int, n: int, length: int) -> list:
+    g = np.random.default_rng(seed)
+    return [g.integers(0, vocab, length).tolist() for _ in range(n)]
+
+
+def _fleet_wave(router, prompts, n_new: int) -> dict:
+    """``prompts`` through the router at once, each streamed to its end
+    on a thread of its own: ``outs[i]`` becomes ``("ok", tokens)`` or
+    ``("err", the error)``."""
+    hs = [router.submit(p, max_new_tokens=n_new) for p in prompts]
+    outs = [None] * len(hs)
+
+    def consume(i):
+        try:
+            for _tok in hs[i].stream():
+                pass
+            outs[i] = ("ok", list(hs[i]._generated))
+        except Exception as e:  # noqa: BLE001 - the record keeps it
+            outs[i] = ("err", e)
+
+    threads = [threading.Thread(target=consume, args=(i,), daemon=True)
+               for i in range(len(hs))]
+    for t in threads:
+        t.start()
+    return {"hs": hs, "outs": outs, "threads": threads}
+
+
+def _join_all(threads, timeout_s: float) -> None:
+    deadline = time.monotonic() + timeout_s
+    for t in threads:
+        t.join(timeout=max(0.0, deadline - time.monotonic()))
+
+
+def _outcome_line(out):
+    """A wave's outcome for a failure message: None (no outcome), the
+    count of tokens, or the error."""
+    if out is None:
+        return None
+    return len(out[1]) if out[0] == "ok" else repr(out[1])
+
+
+def _route_delta(before: dict, after: dict) -> dict:
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
 
 
 class _RouterStreams:
@@ -4565,8 +4683,12 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
                      device: str = "cuda", agent_model: str = "tinyllama",
                      sizes=None) -> dict:
     """Phase 4j: the fleet control plane. (a) the loopback knob in this
-    process; (b) a directory process and two agent processes under 4g's
-    session trace and its kill wave, through a ``FleetRouter`` here.
+    process; (b) a primary and a standby directory process and two agent
+    processes under 4g's session trace and its kill wave, through a
+    ``FleetRouter`` here; (c) an agent process that a
+    ``FleetCapacityProvider`` starts; (d) the primary directory's
+    SIGKILL under a wave, the standby's promotion, the killed primary's
+    WAL read back.
     ``pool_4g`` holds 4g (b)'s figures, printed beside (b)'s (None: 4g
     did not run). On the
     card TinyLlama-1.1B's widths at ``cfg``'s depth (default
@@ -4576,11 +4698,16 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
     import gc
 
     from ray_tpu_torch.serve import obs
-    from ray_tpu_torch.serve.errors import EngineShutdown
+    from ray_tpu_torch.serve.errors import EngineShutdown, RequestError
     from ray_tpu_torch.serve.fleet.agent import model_engine_factory
-    from ray_tpu_torch.serve.fleet.directory import DirectoryClient
+    from ray_tpu_torch.serve.fleet.directory import (FENCE_EPOCH_STRIDE,
+                                                     DirectoryClient)
+    from ray_tpu_torch.serve.fleet.provider import FleetCapacityProvider
+    from ray_tpu_torch.serve.fleet.replication import (
+        FailoverDirectoryClient)
     from ray_tpu_torch.serve.fleet.router import FleetRouter
     from ray_tpu_torch.serve.fleet.transport import SocketTransport
+    from ray_tpu_torch.serve.fleet.wal import DirectoryWAL
     from ray_tpu_torch.serve.llm import LlamaDeployment
     cfg = cfg or tl.tinyllama_1_1b(n_layers=EARLIER_POOL_LAYERS)
     cuda = device == "cuda"
@@ -4659,22 +4786,24 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
     mem0 = torch.cuda.mem_get_info()[0] if cuda else None
     tmp = tempfile.mkdtemp(prefix="chip_smoke_4j_")
     procs = _FleetProcs(tmp)
-    router = None
+    router = provider = None
+    prov_err = None
     try:
         t0 = time.monotonic()
-        procs.start("directory", "ray_tpu_torch.serve.fleet.directory",
-                    ["--lease-ttl-s", FLEET_LEASE_TTL_S])
-        dport, _ = procs.ready("directory")
-        agent_args = ["--directory-port", dport, "--model", agent_model,
-                      "--layers", cfg.n_layers, "--seed", seed,
-                      "--max-slots", z["max_slots"],
-                      "--page-size", z["page_size"],
-                      "--n-pages", z["n_pages"], "--chunk", z["chunk"],
-                      "--device", device]
+        engine_args = ["--layers", cfg.n_layers, "--seed", seed,
+                       "--max-slots", z["max_slots"],
+                       "--page-size", z["page_size"],
+                       "--n-pages", z["n_pages"], "--chunk", z["chunk"],
+                       "--device", device]
+        dport, sport = _start_directory_pair(procs, tmp)
+        endpoints = [("127.0.0.1", dport), ("127.0.0.1", sport)]
         names = ("a0", "a1")
         for name in names:
             procs.start(name, "ray_tpu_torch.serve.fleet.agent",
-                        ["--replica-id", name] + agent_args)
+                        ["--replica-id", name, "--model", agent_model,
+                         "--directory", f"127.0.0.1:{dport}",
+                         "--directory", f"127.0.0.1:{sport}"]
+                        + engine_args)
         ports, ready_s = {}, {}
         for name in names:
             ports[name], ready_s[name] = procs.ready(name)
@@ -4682,8 +4811,8 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
         got = {name: _agent_tokens(ports[name], warm, n_new, f"warm-{name}")
                for name in names}
         t_up = time.monotonic() - t0
-        dc = DirectoryClient(SocketTransport(("127.0.0.1", dport)),
-                             timeout_s=30.0)
+        dc = FailoverDirectoryClient(
+            [SocketTransport(ep) for ep in endpoints], timeout_s=30.0)
         router = FleetRouter(
             dc, lambda addr: SocketTransport((addr[1], int(addr[2]))),
             seed=seed, call_timeout_s=30.0,
@@ -4748,13 +4877,202 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
                 f"{[o[:2] if o[0] == 'err' else 'ok' for o in outs]}, "
                 f"routes {routes}, survivor {survivor_counters}, "
                 f"directory {dstats['counters']}")
+
+        # (c) capacity from the provider: an agent process that the
+        # autoscaler's provider starts joins the survivor
+        mem_c0 = torch.cuda.mem_get_info()[0] if cuda else None
+        provider = FleetCapacityProvider(
+            endpoints, model=agent_model, spawn_timeout_s=FLEET_READY_S,
+            extra_args=engine_args)
+        t0 = time.monotonic()
+        ticket = provider.request()
+        prov_err = provider.stderr_path(ticket)
+        eta_before = provider.eta_s(ticket)
+        while not provider.ready(ticket):   # raises if it died before READY
+            if time.monotonic() - t0 > FLEET_READY_S:
+                raise TimeoutError(f"phase 4j (c): {ticket} not READY in "
+                                   f"{FLEET_READY_S:.0f} s")
+            time.sleep(0.05)
+        ready_c = time.monotonic() - t0
+        eta_after = provider.eta_s(ticket)
+        mem_c1 = torch.cuda.mem_get_info()[0] if cuda else None
+        got_c = _agent_tokens(provider.agent_port(ticket), warm, n_new,
+                              f"warm-{ticket}")
+        idx = router.add_replica_for_ticket(ticket)
+        live = (survivor, ticket)
+        clients = {n: _agent_client(ports[survivor] if n == survivor
+                                    else provider.agent_port(ticket))
+                   for n in live}
+        vocab = cfg.vocab_size
+        t0 = time.monotonic()
+        routes0 = _routes(router)
+        wave_c = _fleet_wave(router, _fresh_prompts(
+            vocab, seed + 13, 8, z["system"] + z["turn"]), n_new)
+        _join_all(wave_c["threads"], 600)
+        t_wave_c = time.monotonic() - t0
+        routes_c = _route_delta(routes0, _routes(router))
+        checks = {
+            "the spawned agent served a request of the wave":
+                routes_c.get(ticket, 0) >= 1,
+            "its warm-up tokens equal this process's engine's": got_c == want,
+            "it ran on the card: free memory fell by its weights":
+                not cuda or mem_c0 - mem_c1 >= weight_bytes,
+            "every request of the wave completed with its tokens": all(
+                o is not None and o[0] == "ok" and len(o[1]) == n_new
+                for o in wave_c["outs"]),
+        }
+        if not all(checks.values()):
+            raise AssertionError(
+                f"phase 4j (c): {checks}; routes {routes_c}, outs "
+                f"{[_outcome_line(o) for o in wave_c['outs']]}")
+        res_c = {"ready_s": ready_c, "eta_before_s": eta_before,
+                 "eta_after_s": eta_after, "eta_ewma_s": provider._eta_ewma,
+                 "routes": routes_c, "wave_s": t_wave_c,
+                 "mem_agent_gb": (mem_c0 - mem_c1) / 1e9 if cuda else None}
+
+        # (d) the primary directory's death under load
+        pc = DirectoryClient(SocketTransport(endpoints[0]), timeout_s=30.0)
+        sc = DirectoryClient(SocketTransport(endpoints[1]), timeout_s=30.0)
+        acked = {m["replica_id"]: (m["generation"], m["fence"])
+                 for m in pc.snapshot()["members"]}
+        role0 = pc.role()
+        fence0 = pc.stats()["fence_counter"]
+        submits0 = {n: c.stats()["counters"]["submits"]
+                    for n, c in clients.items()}
+        routes0 = _routes(router)
+        wave_d = _fleet_wave(router, _fresh_prompts(
+            vocab, seed + 17, 8, z["system"] + z["turn"]), kill_new)
+        deadline = time.monotonic() + 300
+        while not any(h._generated for h in wave_d["hs"]):
+            if time.monotonic() > deadline:
+                raise AssertionError("phase 4j (d): no token in 300 s")
+            time.sleep(0.005)
+        t_dkill = time.monotonic()
+        procs.kill("directory")
+        promoted_s = None
+        while time.monotonic() - t_dkill < FLEET_HANG_S:
+            try:
+                if sc.role()["role"] == "primary":
+                    promoted_s = time.monotonic() - t_dkill
+                    break
+            except Exception:   # noqa: BLE001 - not yet answering
+                pass
+            time.sleep(0.05)
+        # each agent's next renewal with the new primary: the first of
+        # its snapshots that carries a load report (replication carries
+        # none, a renewal repaints it)
+        renewed = {}
+        while (promoted_s is not None and len(renewed) < len(live)
+               and time.monotonic() - t_dkill < FLEET_HANG_S):
+            for m in sc.snapshot()["members"]:
+                if m["load"] and m["replica_id"] not in renewed:
+                    renewed[m["replica_id"]] = time.monotonic() - t_dkill
+            time.sleep(0.05)
+        _join_all(wave_d["threads"],
+                  t_dkill + FLEET_HANG_S - time.monotonic())
+        t_wave_d = time.monotonic() - t_dkill
+        canary, tries = None, 0
+        while promoted_s is not None and canary is None:
+            tries += 1
+            try:
+                canary = router.submit(warm, max_new_tokens=n_new).result()
+            except RequestError:
+                # right after the promotion an agent may still be
+                # fenced, its lease lapsed while no primary answered
+                if time.monotonic() - t_dkill > FLEET_HANG_S:
+                    raise
+                time.sleep(0.5)
+        submits1 = {n: c.stats()["counters"]["submits"]
+                    for n, c in clients.items()}
+        routes_d = _route_delta(routes0, _routes(router))
+        role1 = sc.role()
+        events = sc.events()["events"]
+        promote_at = next((i for i, e in enumerate(events)
+                           if e["kind"] == "promote"), len(events))
+        fences_after = [e["fence"] for e in events[promote_at:]
+                        if e["kind"] == "fence_issued"]
+        snap1 = sc.snapshot()
+        members1 = {m["replica_id"]: (m["generation"], m["fence"])
+                    for m in snap1["members"]}
+        wal_snap, wal_recs = DirectoryWAL(os.path.join(tmp, "d1")).load()
+        rows = list((wal_snap or {}).get("members", ())) + [
+            r for r in wal_recs if r.get("op") == "member"]
+        in_wal = {(r["replica_id"], r["generation"], r["fence"])
+                  for r in rows}
+        wal_fence = max([int((wal_snap or {}).get("fence_counter", 0))]
+                        + [r["fence"] for r in rows]
+                        + [r["fence_counter"] for r in wal_recs
+                           if r.get("op") == "promote"])
+        outs_d = wave_d["outs"]
+        done = [o for o in outs_d if o is not None and o[0] == "ok"]
+        typed = [o for o in outs_d if o is not None and o[0] == "err"
+                 and isinstance(o[1], RequestError)]
+        fences_held = [h._member.fence for h in wave_d["hs"]]
+        checks = {
+            "the standby became primary, its epoch raised by 1":
+                promoted_s is not None and role1["role"] == "primary"
+                and role1["epoch"] == role0["epoch"] + 1,
+            "every fence issued after the promotion exceeds the primary's "
+            "last counter": all(f > fence0 for f in fences_after)
+                and snap1["fence_counter"] >= fence0 + FENCE_EPOCH_STRIDE,
+            f"every request of the wave ended within {FLEET_HANG_S:.0f} s "
+            "of the kill": all(o is not None for o in outs_d),
+            "each completed its tokens or failed typed":
+                len(done) + len(typed) == len(outs_d)
+                and all(len(o[1]) == kill_new for o in done),
+            "none served twice: each live agent admitted each route once":
+                all(submits1[n] - submits0[n] == routes_d.get(n, 0)
+                    for n in live),
+            "a canary through the promoted directory gives the reference "
+            "tokens": canary == want,
+            "both live agents are members of the promoted directory":
+                set(live) <= set(members1),
+            "the killed primary's WAL holds every live registration it "
+            "acknowledged and its fence counter": all(
+                (rid, *acked.get(rid, (None, None))) in in_wal
+                for rid in live)
+                and wal_fence >= fence0,
+        }
+        if not all(checks.values()):
+            raise AssertionError(
+                f"phase 4j (d): {checks}; promoted in {promoted_s}, role "
+                f"{role1}, fence {fence0} -> {snap1['fence_counter']}, "
+                f"fences after {fences_after}, held {fences_held}, outs "
+                f"{[_outcome_line(o) for o in outs_d]}, "
+                f"submits {submits0} -> {submits1}, routes {routes_d}, "
+                f"members {members1}, acked {acked}, WAL {sorted(in_wal)} "
+                f"fence {wal_fence}")
+        agents_d = {n: c.stats()["counters"] for n, c in clients.items()}
+        res_d = {"promoted_s": promoted_s, "renewed_s": renewed,
+                 "wave_s": t_wave_d, "completed": len(done),
+                 "failed_typed": len(typed),
+                 "resubmitted": sum(h.resubmits for h in wave_d["hs"]),
+                 "self_fences": {n: a["self_fences"]
+                                 for n, a in agents_d.items()},
+                 "canary_tries": tries, "fence_before": fence0,
+                 "fence_after": snap1["fence_counter"],
+                 "router_failover": dict(dc.counters),
+                 "stale_snapshots": router.counters["stale_snapshots"]}
+        retired = router.scale_down(1, rids=[ticket])
+        provider.release(ticket)
+        if retired != [idx] or provider.live_count():
+            raise AssertionError(f"phase 4j (d): scale_down retired "
+                                 f"{retired}, {provider.live_count()} "
+                                 f"provider agents left")
     except BaseException:
         print(f"phase 4j: the children's output:\n{procs.tails()}",
               file=sys.stderr)
+        if prov_err is not None and os.path.exists(prov_err):
+            with open(prov_err, "rb") as f:
+                tail = f.read().decode(errors="replace").splitlines()[-30:]
+            print("--- the provider's agent, stderr:\n" + "\n".join(tail),
+                  file=sys.stderr)
         raise
     finally:
         if router is not None:
             router.shutdown()
+        if provider is not None:
+            provider.stop_all()
         procs.reap()
         shutil.rmtree(tmp, ignore_errors=True)
     left = procs.alive()
@@ -4768,7 +5086,7 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
                 break
             time.sleep(0.5)
     if left or (cuda and mem2 < mem0 - FLEET_MEM_SLACK):
-        raise AssertionError(f"phase 4j (b): children alive {left}; free "
+        raise AssertionError(f"phase 4j (b)-(d): children alive {left}; free "
                              f"card memory {mem0} before the spawn, {mem2} "
                              f"after the reaping")
     del ref_eng
@@ -4785,6 +5103,8 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
         "mem_agents_gb": (mem0 - mem1) / 1e9 if cuda else None,
         "mem_returned_gb": (mem2 - mem0) / 1e9 if cuda else None,
         "weight_bytes": weight_bytes, "pool_4g": pool_4g}
+    res["provider"] = res_c
+    res["failover"] = res_d
     res["s"] = time.monotonic() - t_phase
     p = res["processes"]
     mem = (f"; card memory: the agents took {p['mem_agents_gb']:.2f} GB "
@@ -4796,8 +5116,8 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
               f"{pool_4g['ttft_p50_s'] * 1e3:.1f} ms / one engine "
               f"{pool_4g['one_engine_tok_s']:.1f} tok/s, "
               f"{pool_4g['one_engine_ttft_p50_s'] * 1e3:.1f} ms")
-    print(f"phase 4j (b): a directory process and 2 agent processes on "
-          f"{smi}, READY in "
+    print(f"phase 4j (b): a primary and a standby directory process and 2 "
+          f"agent processes on {smi}, READY in "
           f"{', '.join(f'{k} {v:.1f} s' for k, v in ready_s.items())}; "
           f"8 sessions x 3 turns through a FleetRouter (poll "
           f"{FLEET_POLL_S * 1e3:.0f} ms): {p['tok_s']:.1f} tok/s, TTFT p50 "
@@ -4810,7 +5130,29 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
           f"{p['on_victim']} there ({p['requeues']} resubmissions), the "
           f"death confirmed {p['confirm_dead_s']:.2f} s after the kill"
           f"{mem}; up {t_up:.1f} s, trace {t_trace:.1f} s, kill wave "
-          f"{t_kill:.1f} s; phase {res['s']:.1f} s")
+          f"{t_kill:.1f} s")
+    c = res["provider"]
+    print(f"phase 4j (c): FleetCapacityProvider started {ticket} READY in "
+          f"{c['ready_s']:.1f} s (eta_s {c['eta_before_s']:.2f} s at the "
+          f"request, {c['eta_after_s']:.2f} s once ready, its estimate now "
+          f"{c['eta_ewma_s']:.2f} s)"
+          + (f", {c['mem_agent_gb']:.2f} GB of card memory" if cuda else "")
+          + f"; 8 fresh requests x {n_new} tokens routed {c['routes']} in "
+          f"{c['wave_s']:.1f} s")
+    d = res["failover"]
+    renewed = {k: round(v, 2) for k, v in d["renewed_s"].items()}
+    print(f"phase 4j (d): SIGKILL of the primary directory under 8 x "
+          f"{kill_new} tokens: the standby promoted {d['promoted_s']:.2f} s "
+          f"after the kill, fence counter {d['fence_before']} -> "
+          f"{d['fence_after']}; the agents next renewed with it at "
+          f"{renewed} s; self-fences "
+          f"{d['self_fences']}; {d['completed']} completed, "
+          f"{d['failed_typed']} failed typed, {d['resubmitted']} "
+          f"resubmitted; the wave ended {d['wave_s']:.1f} s after the "
+          f"kill; canary in {d['canary_tries']} tries; the router's "
+          f"FailoverDirectoryClient {d['router_failover']}, "
+          f"{d['stale_snapshots']} stale snapshots served; phase "
+          f"{res['s']:.1f} s")
     return res
 
 
@@ -6097,6 +6439,8 @@ def phase_train_checkpoint(fa, seed: int, smi: str, step_ms_phase7: float,
 
 
 RL_LEARNER_RTOL = 1e-4             # fp32 learner stats, card vs CPU
+RL_ROUNDS = 2                      # phase 8 (1): one overlapped pair of
+                                   # rounds, one 3.96 GB commit fewer than 3
 
 
 def _rl_learner_parity(tl, seed: int, card: str) -> list:
@@ -6150,10 +6494,10 @@ def phase_rl_loop(tl, pa, fa, seed: int, smi: str, cfg=None,
     pages, ``capture_logprobs``, temperature 1, no eos) and a
     ``RolloutLearner`` (ppo, Adam 1e-5); ``B`` prompts of 96 tokens a
     round, 32 new tokens, so L = 128 and the learner's attention takes
-    flash. (1) 3 rounds, staleness bound 1,
-    overlapped, ``keep_last_k=1``; (2) a loop of 1 round whose
-    generator dies mid round; (3) a loop of 2 rounds whose learner
-    dies before round 1's commit, then its resume (attempt 2). Checks
+    flash. (1) ``RL_ROUNDS`` (2) rounds, staleness bound 1,
+    overlapped, ``keep_last_k=1``; (2) a loop of 2 rounds whose learner
+    dies before round 1's commit, then its resume (attempt 2), whose
+    generator dies mid round 1 and is restarted there. Checks
     every ledger holds each round once, staleness <= 1, the restart,
     the resume round and ``resync_weights_id == recovered_weights_id``,
     the engine's final payload the last batch's, finite losses, and on
@@ -6164,7 +6508,7 @@ def phase_rl_loop(tl, pa, fa, seed: int, smi: str, cfg=None,
                                   RolloutGenerator, RolloutLearner)
     from ray_tpu_torch.serve.engine import LLMEngine
     cuda = device == "cuda"
-    rounds, plen, n_new = 3, 96, 32
+    rounds, plen, n_new = RL_ROUNDS, 96, 32
     res = {"card": smi}
     if cuda:
         res["learner_card_vs_cpu"] = _rl_learner_parity(tl, seed, device)
@@ -6295,64 +6639,58 @@ def phase_rl_loop(tl, pa, fa, seed: int, smi: str, cfg=None,
               f"decode steps ({cfg.n_layers} layers)")
         shutil.rmtree(os.path.join(root, "main"), ignore_errors=True)
 
-        # (2) the generator dies mid round and is restarted there (one
-        # round: each round more costs a 3.96 GB commit)
-        killed = []
-
-        def mid_round(r):
-            if not killed:
-                killed.append(r)
-                raise GeneratorKilled("chaos: died mid round 0")
-
-        stats = loop("gen_kill", 1, learner(),
-                     generator_mid_round_hook=mid_round).run()
-        audit(stats, 1, "(2)")
-        if killed != [0] or stats["generator_restarts"] != 1:
-            raise AssertionError(f"phase 8 (2): killed {killed}, restarts "
-                                 f"{stats['generator_restarts']}")
-        res["generator_kill"] = {"rounds": _rl_round_lines(stats),
-                                 "wall_s": stats["wall_s"],
-                                 "generator_restarts": 1}
-        print(f"phase 8 (2): the generator killed mid round 0, restarted "
-              f"once, ledger {stats['ledger']}, wall {stats['wall_s']:.3f} "
-              f"s")
-        shutil.rmtree(os.path.join(root, "gen_kill"), ignore_errors=True)
-
-        # (3) the learner dies before round 1's commit; attempt 2 resumes
+        # (2) the learner dies before round 1's commit; attempt 2 resumes
+        # at round 1, and its generator dies mid round 1 and is restarted
+        # there (one loop for both kills: each round more costs a 3.96 GB
+        # commit)
         ctl = os.path.join(root, "ctl")
 
         def kill(step):
             if step == 1:
                 raise RuntimeError("chaos: learner killed pre-commit")
 
+        killed = []
+
+        def mid_round(r):
+            if not killed:
+                killed.append(r)
+                raise GeneratorKilled(f"chaos: died mid round {r}")
+
         try:
             loop("learner_kill", 2, learner(), control_dir=ctl, attempt=1,
                  learner_kill_hook=kill).run()
-            raise AssertionError("phase 8 (3): the killed loop completed")
+            raise AssertionError("phase 8 (2): the killed loop completed")
         except RuntimeError as e:
             if "pre-commit" not in str(e):
                 raise
         lrn2 = learner()
-        stats = loop("learner_kill", 2, lrn2, control_dir=ctl,
-                     attempt=2).run()
-        audit(stats, 2, "(3)")
+        stats = loop("learner_kill", 2, lrn2, control_dir=ctl, attempt=2,
+                     generator_mid_round_hook=mid_round).run()
+        audit(stats, 2, "(2)")
         checks = {"resumed at round 1": stats["resumed"]
                   and stats["start_round"] == 1,
                   "re-synced to the recovered payload":
                   stats["recovered_weights_id"]
                   == stats["resync_weights_id"],
-                  "2 updates": lrn2.update_count == 2}
+                  "2 updates": lrn2.update_count == 2,
+                  "the generator killed mid round 1, restarted once":
+                  killed == [1] and stats["generator_restarts"] == 1}
         if not all(checks.values()):
-            raise AssertionError(f"phase 8 (3): {checks}\n{stats}")
+            raise AssertionError(f"phase 8 (2): {checks}\n{stats}")
         res["learner_kill"] = {"rounds": _rl_round_lines(stats),
                                "restore_s": stats["restore_s"],
                                "recovered_weights_id":
                                stats["recovered_weights_id"]}
-        print(f"phase 8 (3): the learner killed before round 1's commit; "
+        res["generator_kill"] = {"killed_round": killed[0],
+                                 "generator_restarts":
+                                 stats["generator_restarts"],
+                                 "wall_s": stats["wall_s"]}
+        print(f"phase 8 (2): the learner killed before round 1's commit; "
               f"attempt 2 resumed at round 1 in {stats['restore_s']:.3f} s "
               f"(find, load and set the learner state), re-synced to the "
-              f"recovered payload {stats['recovered_weights_id']}, ledger "
-              f"{stats['ledger']}")
+              f"recovered payload {stats['recovered_weights_id']}; its "
+              f"generator killed mid round 1 and restarted once; ledger "
+              f"{stats['ledger']}, wall {stats['wall_s']:.3f} s")
     finally:
         eng.shutdown()
         shutil.rmtree(root, ignore_errors=True)

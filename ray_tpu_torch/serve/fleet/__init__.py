@@ -12,9 +12,16 @@ the engine pool split into processes behind a pluggable transport.
   seeded fault-injecting wrapper; ``wire``: the JSON envelopes and typed
   errors; ``routing``: the selection and resubmit core shared with the
   engine pool (serve/engine_pool.py).
+- ``wal``: the directory's crash-durable state, a checksummed
+  write-ahead log and atomically renamed snapshots.
+- ``replication``: the hot standby's delta stream, its promotion with
+  the epoch folded into the fence counter, and the ordered-endpoint
+  failover client routers and agents hold.
+- ``provider``: the autoscaler's capacity as agent processes (or
+  loopback agents in this process).
 
-The reference's WAL, replication, capacity provider and telemetry wait
-for the fleet's later slices (ROADMAP.md, queue 1, item 9).
+The reference's telemetry waits for the fleet's third slice (ROADMAP.md,
+queue 1, item 9).
 
 Attribute access is lazy (PEP 562): the engine pool imports
 ``fleet.routing``, and ``fleet.agent`` imports the watchdog, which
@@ -32,6 +39,11 @@ _EXPORTS = {
     "TransportError": "transport", "TransportTimeout": "transport",
     "AgentFenced": "wire", "StaleFencingToken": "wire",
     "UnknownMember": "wire", "NotPrimary": "wire",
+    "DirectoryWAL": "wal",
+    "Replicator": "replication", "StandbyMonitor": "replication",
+    "FailoverDirectoryClient": "replication",
+    "FleetCapacityProvider": "provider",
+    "LoopbackAgentProvider": "provider",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -29,10 +29,13 @@ are ``int``, load reports pass ``_json_safe``.
 (``scripted_completion`` is its ground truth). Run as a process:
 
     python -m ray_tpu_torch.serve.fleet.agent --replica-id r0
-        --directory-port N [--model fake|tiny|tinyllama] [--layers L]
-        [--seed S] [--device cuda|cpu] [--max-slots ...]
+        (--directory-port N | --directory H:P [--directory H:P ...])
+        [--model fake|tiny|tinyllama] [--layers L] [--seed S]
+        [--device cuda|cpu] [--max-slots ...]
 
-prints ``READY <port>`` once its engine is warm and registered.
+prints ``READY <port>`` once its engine is warm and registered. Several
+``--directory`` endpoints (the primary first, then its standbys) make
+the agent hold a ``replication.FailoverDirectoryClient``.
 ``--model tiny`` serves ``llama_tiny`` fp32 and ``tinyllama``
 TinyLlama-1.1B's widths at ``--layers`` layers in bf16, both with
 ``init_params(cfg, seed)`` weights drawn on the agent's own device.
@@ -920,8 +923,9 @@ def main(argv: Optional[List[str]] = None) -> None:
     ap.add_argument("--directory-port", type=int, default=None)
     ap.add_argument("--directory", action="append", default=None,
                     metavar="HOST:PORT",
-                    help="directory endpoint (one; an ordered failover "
-                         "list waits for the fleet's second slice)")
+                    help="ordered directory endpoint (repeatable: the "
+                         "primary first, then the standbys; the agent "
+                         "fails over client-side)")
     ap.add_argument("--host", default="127.0.0.1")
     ap.add_argument("--port", type=int, default=0)
     ap.add_argument("--model", choices=("fake", "tiny", "tinyllama"),
@@ -960,12 +964,13 @@ def main(argv: Optional[List[str]] = None) -> None:
         if args.directory_port is None:
             ap.error("need --directory or --directory-port")
         endpoints = [(args.directory_host, args.directory_port)]
-    if len(endpoints) > 1:
-        raise NotImplementedError(
-            "several --directory endpoints need FailoverDirectoryClient, "
-            "which waits for the fleet's second slice (ROADMAP.md, queue "
-            "1, item 9)")
-    directory = DirectoryClient(SocketTransport(endpoints[0]))
+    if len(endpoints) == 1:
+        directory = DirectoryClient(SocketTransport(endpoints[0]))
+    else:
+        from ray_tpu_torch.serve.fleet.replication import (
+            FailoverDirectoryClient)
+        directory = FailoverDirectoryClient(
+            [SocketTransport(ep) for ep in endpoints])
     agent = ReplicaAgent(args.replica_id, factory, directory,
                          generation=args.generation,
                          stall_deadline_s=args.stall_deadline_s,

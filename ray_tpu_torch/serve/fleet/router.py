@@ -31,9 +31,11 @@ with per-call timeouts and exponential-backoff retries.
   looked idlest at its last renewal; with fresh advertisements both
   pick the same routes.
 
-The autoscaler's surface (``add_replica_for_ticket``) waits for the
-fleet's capacity provider, the second fleet slice (ROADMAP.md, queue 1,
-item 9), and raises until then.
+The autoscaler drives a router as it drives an ``EnginePool``:
+``add_replica_for_ticket`` adopts an agent a capacity provider started
+(``provider.py``), ``scale_down`` drains and retires only such agents,
+and ``capacity_hint_fn`` (the autoscaler's provisioning ETA) joins the
+Retry-After hints of both refusals.
 """
 from __future__ import annotations
 
@@ -41,7 +43,7 @@ import collections
 import random
 import threading
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterable, List, Optional, Tuple
 
 from ray_tpu_torch.serve import obs
 from ray_tpu_torch.serve.errors import (DeadlineExceeded, EngineDraining,
@@ -211,7 +213,11 @@ class FleetRouter:
     """Routes requests to ReplicaAgents by the FleetDirectory's
     advertised state, behind ``EnginePool``'s submit surface.
 
-    directory: a ``DirectoryClient`` over any transport.
+    directory: a ``DirectoryClient`` over any transport, or a
+        ``replication.FailoverDirectoryClient`` over an ordered endpoint
+        list (the primary first, then its standbys), which fails over
+        client-side UNDER the stale-snapshot fallback here: the router
+        falls back to its cache only when every endpoint refused.
     transport_factory: ``f(addr_tuple) -> Transport``, the client leg to
         one agent (a loopback registry or a socket dial); cached per
         address.
@@ -262,6 +268,12 @@ class FleetRouter:
             collections.OrderedDict()
         self._dead_seen: set = set()
         self._seq = 0
+        # the autoscaler's surface: idx -> replica_id of the members the
+        # autoscaler added (the only scale_down candidates), and the
+        # provisioning ETA hook PoolAutoscaler installs
+        self._scaled: Dict[int, str] = {}
+        self._scale_seq = 0
+        self.capacity_hint_fn: Optional[Callable[[], float]] = None
         self.events = obs.EventLog(2048, name="router")
         self.counters = {"routed": 0, "requeues": 0,
                          "deaths_confirmed": 0, "suspects": 0,
@@ -396,7 +408,13 @@ class FleetRouter:
         none is live (``EngineShutdown``, retry after a lease period)."""
         hints = list(decision.get("hints", []))
         hints += [e.retry_after_s for e in shed]
+        # while an autoscaler provisions, its ETA joins the hints: no
+        # client is invited back before the capacity that would serve it
+        # can exist
+        eta = self._capacity_eta()
         if hints:
+            if eta > 0:
+                hints.append(eta)
             self.counters["all_shed"] += 1
             err = EngineOverloaded(
                 f"all live agents shed (retry hints "
@@ -408,10 +426,21 @@ class FleetRouter:
             return err
         err2 = EngineShutdown("no live agents in the fleet directory")
         # a lease period from now is the soonest a restarted agent could
-        # re-advertise
-        err2.retry_after_s = (self._lease_ttl
-                              if self._snapshot_cache is not None else 1.0)
+        # re-advertise, unless provisioning is pending and further out
+        err2.retry_after_s = max(
+            self._lease_ttl if self._snapshot_cache is not None else 1.0,
+            eta)
         return err2
+
+    def _capacity_eta(self) -> float:
+        fn = self.capacity_hint_fn
+        if fn is None:
+            return 0.0
+        try:
+            eta = float(fn() or 0.0)
+        except Exception:   # noqa: BLE001 - a broken hint is no hint
+            return 0.0
+        return eta if 0 < eta < float("inf") else 0.0
 
     def _pull_hint(self, prompt: List[int], member: _Member,
                    members: Dict[str, _Member]
@@ -520,6 +549,10 @@ class FleetRouter:
             self._confirm_dead(m, EngineShutdown(
                 f"{m.replica_id}'s lease lapsed in the directory"))
         return members
+
+    def _invalidate_snapshot(self) -> None:
+        with self._lock:
+            self._snapshot_t = 0.0
 
     def _invalidate_member(self, replica_id: str) -> None:
         """Evict ONE member from the snapshot cache, leaving the rest
@@ -663,10 +696,47 @@ class FleetRouter:
         return len(self._snapshot())
 
     def add_replica_for_ticket(self, ticket: str) -> int:
-        raise NotImplementedError(
-            "FleetRouter.add_replica_for_ticket serves the fleet's "
-            "capacity provider, which waits for the fleet's second slice "
-            "(ROADMAP.md, queue 1, item 9)")
+        """The autoscaler's harvest: the agent behind ``ticket`` (its
+        replica id) registered itself with the directory, so adding it
+        is refreshing the routing view and remembering it as a
+        scale-down candidate."""
+        with self._lock:
+            self._scale_seq += 1
+            idx = self._scale_seq
+            self._scaled[idx] = str(ticket)
+        self._invalidate_snapshot()
+        self.events.append("scale_up", sid=str(ticket), data={"idx": idx})
+        return idx
+
+    def scale_down(self, k: int = 1, timeout_s: float = 15.0,
+                   rids: Optional[Iterable[str]] = None) -> List[int]:
+        """Retire ``k`` autoscaler-added agents: a drain that lets their
+        requests finish (the agent deregisters, so its generation is
+        tombstoned, inside ``rpc_drain``), then eviction from routing.
+        The least-loaded scaled members go first; the static floor is
+        never touched. ``rids`` restricts the candidates (a caller
+        retiring a given agent). Returns the retired idxs, whose
+        provider tickets the autoscaler then releases."""
+        members = self._snapshot()
+        allow = None if rids is None else {str(r) for r in rids}
+        with self._lock:
+            cands = [(idx, rid) for idx, rid in self._scaled.items()
+                     if rid in members and (allow is None or rid in allow)]
+        cands.sort(key=lambda pair: (
+            members[pair[1]].report.get("outstanding_tokens", 0),
+            members[pair[1]].report.get("queue_depth", 0), pair[0]))
+        retired: List[int] = []
+        for idx, rid in cands[:max(0, int(k))]:
+            try:
+                self._agent(members[rid]).drain(timeout_s=timeout_s)
+            except Exception:   # noqa: BLE001 - a dead agent is retired
+                pass            # already; its tombstone wins
+            with self._lock:
+                self._scaled.pop(idx, None)
+            self._invalidate_member(rid)
+            self.events.append("scale_down", sid=rid, data={"idx": idx})
+            retired.append(idx)
+        return retired
 
     def pool_stats(self) -> Dict[str, Any]:
         """Router-side observability block (named so that

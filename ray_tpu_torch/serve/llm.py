@@ -43,12 +43,16 @@ N lease-renewing ``ReplicaAgent``s of one engine each, and a
 that ``python -m ray_tpu_torch.serve.fleet.agent`` runs across
 processes. A dict payload with ``"echo_replica": true`` names the
 replica incarnation that served it (``replica_id:generation`` in a
-fleet, ``idx:generation`` in a pool, ``0:0`` for one engine). Tensor
-parallelism and the fleet's autoscaling are not ported yet (ROADMAP.md,
-queue 1, items 8 and 9).
+fleet, ``idx:generation`` in a pool, ``0:0`` for one engine). With
+``autoscale=True`` a fleet grows and shrinks between ``fleet`` and
+``autoscale_max_replicas`` agents: a ``PoolAutoscaler`` over the router
+provisions loopback agents through a ``LoopbackAgentProvider``
+(serve/fleet/provider.py). Tensor parallelism is not ported yet
+(ROADMAP.md, queue 1, item 8).
 """
 from __future__ import annotations
 
+import itertools
 import threading
 from typing import Any, Dict, List, Optional
 
@@ -120,7 +124,9 @@ class LlamaDeployment:
     autoscale_provider: its ``ReplicaCapacityProvider`` (default
         ``ImmediateCapacityProvider``; one shared by both sides).
     fleet: serve through a loopback fleet of this many agents (0: off;
-        exclusive with ``num_engine_replicas > 1`` and ``disaggregate``).
+        exclusive with ``num_engine_replicas > 1`` and ``disaggregate``);
+        with ``autoscale`` the fleet's floor (it builds its own agent
+        provider, so ``autoscale_provider`` is refused).
     fleet_lease_ttl_s: the fleet directory's lease TTL.
     disaggregate: serve through prefill and decode replicas (needs
         ``prefix_cache``); ``prefill_replicas`` and ``decode_replicas``
@@ -194,10 +200,6 @@ class LlamaDeployment:
                     "is not accepted")
             if self.autoscale_max_replicas < fleet:
                 raise ValueError("autoscale_max_replicas must be >= fleet")
-            raise NotImplementedError(
-                "fleet= with autoscale=True needs the fleet's agent "
-                "provider, which waits for the fleet's second slice "
-                "(ROADMAP.md, queue 1, item 9)")
         self.fleet = int(fleet)
         self.fleet_lease_ttl_s = float(fleet_lease_ttl_s)
         self._fleet_agents: Dict[str, Any] = {}
@@ -358,16 +360,37 @@ class LlamaDeployment:
             # a loopback agent advertises ["loopback", replica_id]
             return LoopbackTransport(agents[addr[1]].handle)
 
-        for i in range(self.fleet):
-            def factory(gen, _i=i):
+        def agent(rid, i):
+            def factory(gen):
                 return engine_cls(self.model, temperature=self.temperature,
-                                  seed=_i, device=self.device,
+                                  seed=i, device=self.device,
                                   **self._engine_opts)
 
-            agents[f"r{i}"] = ReplicaAgent(
-                f"r{i}", factory, dc,
-                stall_deadline_s=self.engine_stall_deadline_s).start()
-        return FleetRouter(dc, tf)
+            # in the transport map BEFORE start(), so the router can
+            # route to it the moment the directory advertises it
+            agents[rid] = ReplicaAgent(
+                rid, factory, dc,
+                stall_deadline_s=self.engine_stall_deadline_s)
+            return agents[rid].start()
+
+        for i in range(self.fleet):
+            agent(f"r{i}", i)
+        router = FleetRouter(dc, tf)
+        if self.autoscale:
+            from ray_tpu_torch.serve.fleet.provider import (
+                LoopbackAgentProvider)
+            from ray_tpu_torch.serve.pool_autoscaler import (PoolAutoscaler,
+                                                             SLOPolicy)
+            # provisioning builds a loopback agent here; the n-th agent
+            # draws with seed n, as a pool's replica n does
+            seq = itertools.count(self.fleet)
+            self._autoscaler = PoolAutoscaler(
+                router, SLOPolicy(min_replicas=self.fleet,
+                                  max_replicas=self.autoscale_max_replicas,
+                                  **self.autoscale_policy),
+                LoopbackAgentProvider(lambda rid: agent(rid, next(seq)))
+            ).run(self.autoscale_interval_s)
+        return router
 
     def autoscaler(self):
         """The attached ``PoolAutoscaler`` (None before the lazy engine

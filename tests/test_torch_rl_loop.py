@@ -232,7 +232,7 @@ def test_chip_smoke_rl_phase_rehearses_on_the_cpu():
     res = smoke.phase_rl_loop(tl, pa, fa, 0, "cpu",
                               cfg=tl.llama_tiny(dtype=torch.float32),
                               device="cpu", B=4)
-    assert len(res["main"]["rounds"]) == 3
+    assert len(res["main"]["rounds"]) == smoke.RL_ROUNDS == 2
     assert res["main"]["overlap_observed"]
     assert res["main"]["decode_steps"] > 0
     assert res["generator_kill"]["generator_restarts"] == 1
