@@ -2,13 +2,14 @@
 builds, serves and trains on one NVIDIA GPU (written for an H100,
 sm_90a).
 
-    python3 chip_smoke.py [--seed N] [--out results.json] [--only 4j]
+    python3 chip_smoke.py [--seed N] [--out results.json] [--only 4j|4k]
 
 Run from the root of a checkout; it needs one CUDA device, ``nvcc``
 and nothing else of the repo than ``ray_tpu_torch``. Phases, each of
 which raises on failure, run in the order 1, 3, 4, 4b, 4c, 4d, 4e, 4f, 4g,
-4h, 4j, 4i, 8, 2, 5, 6, 6b, 7, 7b, 7c, then 4d's profile (``--only 4j``:
-phase 1's build, then 4j alone, and no result lines): the host-timed
+4h, 4j, 4k, 4i, 8, 2, 5, 6, 6b, 7, 7b, 7c, then 4d's profile (``--only 4j``
+or ``--only 4k``: phase 1's build, then that phase alone, and no result
+lines): the host-timed
 serving phases come before any torch.profiler session, since a process
 that has run one launches kernels at a higher host cost for the rest of
 its life.
@@ -370,8 +371,41 @@ its life.
    agent's seconds to ``READY`` and ``eta_s`` before and after; the
    seconds from the directory's kill to the promotion and to each
    agent's next renewal with the new primary, self-fences, the wave's
-   outcomes and the failover client's counters. No check bounds a
-   latency.
+   outcomes and the failover client's counters. (e) A
+   ``TelemetryCollector`` on (b)'s router (0.25 s scrapes, attached
+   before (b)'s trace, stopped after (d)): it scraped every member (the
+   router, both directories, both agents, the provider's agent), ingested
+   no event twice within one incarnation, wrote a cluster bundle for
+   (b)'s confirmed death (its manifest names the victim and the death)
+   and one for (d)'s scraped promotion, both read back with
+   ``load_cluster_bundle``, and reads one of (b)'s resubmitted requests
+   (trace ids ``4j-kill-<i>``) as one timeline: spans on the router, the
+   victim and the survivor, in that order on its timebase. Prints each
+   directory's seconds to ``READY`` (no torch in a directory process)
+   and, per member, the scrape's ms (p50, max), the clock offset and its
+   RTT/2 bound, events per second, ``dropped``, and each bundle's write
+   ms. No check bounds a latency.
+4k. The seeded fleet campaign (``tools/torch_chaos_serve.py``'s
+   ``run_fleet_chaos``, seed ``--seed``, a 20 s schedule, 2 s leases, a
+   5 s partition, promotion after 6 s of silence): two agent processes
+   of TinyLlama-1.1B's widths at 6 layers, bf16, each running K1
+   (8 slots, 64-token pages, 64 pages), behind a primary and a standby
+   directory process, a ``FleetRouter`` and a ``TelemetryCollector``
+   here, a supervisor that restarts killed agents, and a
+   ``FleetCapacityProvider``; 3 client threads send 8 prompts behind a
+   shared 8-token prefix, 10 greedy tokens each. All six kinds fire (an
+   agent's SIGKILL, a partition longer than the lease, a primary crash
+   and restart from its WAL, a torn WAL tail, the primary's permanent
+   kill, autoscaler churn) and every gate of the tool holds: none lost,
+   none differing from this process's lone engine but at a near-tie
+   (teacher-forced, 0.1 of the top logit; counted apart and printed), a
+   completion through a resubmission, fences monotonic across the
+   failover, every fault explained by a flight and a cluster bundle, the
+   live agents quiesced, every child reaped. Here: free card memory fell
+   by the agents' weights, every live agent's engine ran decode steps.
+   Prints each fault's seconds from injection to recovery (confirmed
+   death, self-fence, ``READY`` again, promotion, the churned agent's
+   ``READY`` and retirement), the attainment and the request counts.
 4i. Durable weights, the staged rollout and the batch tier at full
    width: TinyLlama-1.1B bf16, payload A random from ``--seed`` and B
    from ``--seed`` + 1, 16 slots, 64-token pages, 513 pages per engine;
@@ -4420,6 +4454,7 @@ class _FleetProcs:
     def __init__(self, tmp: str):
         self.tmp = tmp
         self.procs = {}
+        self.ready_s = {}        # name -> seconds from its start to READY
 
     def start(self, name: str, module: str, args) -> None:
         log = os.path.join(self.tmp, f"{name}.log")
@@ -4430,6 +4465,7 @@ class _FleetProcs:
                 stdin=subprocess.DEVNULL, stdout=out,
                 stderr=subprocess.STDOUT)
         self.procs[name] = (proc, log, time.monotonic())
+        self.ready_s.pop(name, None)
 
     def ready(self, name: str, timeout_s: float = FLEET_READY_S) -> tuple:
         """(port, seconds from the start to ``READY``)."""
@@ -4438,7 +4474,8 @@ class _FleetProcs:
             with open(log, "rb") as f:
                 m = re.search(rb"^READY (\d+)\s*$", f.read(), re.M)
             if m:
-                return int(m.group(1)), time.monotonic() - t0
+                took = self.ready_s.setdefault(name, time.monotonic() - t0)
+                return int(m.group(1)), took
             if proc.poll() is not None:
                 raise RuntimeError(f"{name} exited with {proc.returncode} "
                                    f"before READY")
@@ -4609,50 +4646,70 @@ def _routes(router) -> dict:
 def _fleet_kill_wave(router, procs, victim: str, history, wave2,
                      n_new: int) -> dict:
     """Phase 4g (b)'s second wave through the router: 4 requests per
-    session of ``n_new`` tokens each, sticky to the session's agent. The
-    router's client of the victim is watched: the first poll answer that
-    carries tokens of a victim request still being decoded (not done),
-    once just half or fewer of the victim's requests have had none
-    delivered, SIGKILLs the victim's process before the router reads
-    that answer (a watcher thread could wait for the GIL too long and
-    find the wave done). That request then holds fewer than ``n_new``
-    tokens and its next poll meets a dead agent, so at least one request
-    fails typed; a request with none delivered resubmits, though one
-    whose poll was in flight at the kill may still come back with some.
-    Returns the handles and their outcomes."""
+    session of ``n_new`` tokens each, sticky to the session's agent, the
+    victim's sessions submitted first. Each request is streamed on a
+    thread of its own from its submission on (a wave streamed only after
+    its last submit found most of the victim's requests already done on a
+    loaded host). The router's client of the victim is watched, and once
+    the victim's last request is submitted its process is SIGKILLed
+    before the router reads (a) the first poll answer that carries tokens
+    of a victim request still being decoded (not done), once just half or
+    fewer of the victim's requests have had none delivered, or (b) the
+    first tokens of the victim's last request with none delivered, while
+    another is being decoded. Every answer with tokens that the router
+    had not read at the kill is lost with the victim: its reader polls
+    again and meets the dead agent. So the requests being decoded hold
+    fewer than ``n_new`` tokens and fail typed, and those with none
+    delivered resubmit. With no session pinned to the victim the kill
+    waits for the whole wave to be submitted. Request ``i`` carries the
+    trace id ``4j-kill-<i>``. Returns the handles and their outcomes."""
     from ray_tpu_torch.serve import obs
     reqs = [(s, history[s] + wave2[s][k]) for k in range(4)
             for s in range(8)]
-    hs = [router.submit(p, max_new_tokens=n_new, session_id=f"s{s}")
-          for s, p in reqs]
-    mine = [i for i, h in enumerate(hs) if h.replica_idx == victim]
-    if not mine or len(mine) == len(hs):
-        raise AssertionError(f"phase 4j (b): {len(mine)} of the wave's "
-                             f"{len(hs)} requests on {victim}")
-    outs = [None] * len(hs)
-    kill = {"t": None}
+    pinned = [i for i, (s, _) in enumerate(reqs)
+              if router._sticky.get(f"s{s}") == victim]
+    order = pinned + [i for i in range(len(reqs)) if i not in pinned]
+    hs, outs, threads = [None] * len(reqs), [None] * len(reqs), []
+    kill = {"t": None, "armed": False}
     lock = threading.Lock()
-    client = router._agent(hs[mine[0]]._member)
-    rids = {hs[j]._rid: j for j in mine}
-    delivered = set()
-    poll = client.poll
+    rids, delivered, finished = {}, set(), set()
+    poll = None
+
+    def kill_if_due(j, resp) -> bool:
+        """Under ``lock``: book ``resp`` for victim request ``j``, kill the
+        victim when it is due; True when ``resp`` is to be lost."""
+        if kill["t"] is not None:
+            return bool(resp["tokens"])
+        if not resp["tokens"] or resp.get("error") is not None:
+            return False
+        first = j not in delivered
+        delivered.add(j)
+        if resp["done"]:
+            finished.add(j)
+        zero = len(rids) - len(delivered)
+        if not kill["armed"]:
+            return False
+        if not resp["done"] and 0 < 2 * zero <= len(rids):
+            kill["t"] = time.monotonic()
+            procs.kill(victim)
+            return False
+        if first and zero == 0 and delivered - finished - {j}:
+            delivered.discard(j)
+            kill["t"] = time.monotonic()
+            procs.kill(victim)
+            return True
+        return False
 
     def watched_poll(rid, cursor=0, trace_id=None, timeout_s=None):
         resp = poll(rid, cursor=cursor, trace_id=trace_id,
                     timeout_s=timeout_s)
-        j = rids.get(rid)
-        if j is None or not resp["tokens"] or resp.get("error") is not None:
-            return resp
         with lock:
-            delivered.add(j)
-            zero = len(mine) - len(delivered)
-            if (kill["t"] is None and not resp["done"]
-                    and 0 < 2 * zero <= len(mine)):
-                kill["t"] = time.monotonic()
-                procs.kill(victim)
+            j = rids.get(rid)
+            lost = j is not None and kill_if_due(j, resp)
+        if lost:
+            return poll(rid, cursor=cursor, trace_id=trace_id,
+                        timeout_s=timeout_s)
         return resp
-
-    client.poll = watched_poll
 
     def consume(i):
         try:
@@ -4662,12 +4719,31 @@ def _fleet_kill_wave(router, procs, victim: str, history, wave2,
         except Exception as e:  # noqa: BLE001 - the record names the type
             outs[i] = ("err", type(e).__name__, str(e))
 
-    threads = [threading.Thread(target=consume, args=(i,))
-               for i in range(len(hs))]
-    for t in threads:
-        t.start()
+    for n, i in enumerate(order):
+        if n == len(pinned):
+            with lock:
+                kill["armed"] = bool(pinned)
+        s, p = reqs[i]
+        h = hs[i] = router.submit(p, max_new_tokens=n_new,
+                                  session_id=f"s{s}",
+                                  trace_id=f"4j-kill-{i}")
+        if h.replica_idx == victim:
+            if poll is None:
+                client = router._agent(h._member)
+                poll = client.poll
+                client.poll = watched_poll
+            with lock:
+                rids[h._rid] = i
+        threads.append(threading.Thread(target=consume, args=(i,)))
+        threads[-1].start()
+    with lock:
+        kill["armed"] = True
     for t in threads:
         t.join(timeout=600)
+    mine = sorted(rids.values())
+    if not mine or len(mine) == len(hs):
+        raise AssertionError(f"phase 4j (b): {len(mine)} of the wave's "
+                             f"{len(hs)} requests on {victim}")
     if kill["t"] is None or any(o is None for o in outs):
         raise AssertionError(f"phase 4j (b): the kill never stood mid-wave "
                              f"or a request never ended (kill at "
@@ -4679,6 +4755,114 @@ def _fleet_kill_wave(router, procs, victim: str, history, wave2,
             "confirm_s": dead[0][obs.T] - kill["t"] if dead else None}
 
 
+def _timed_collector(router, cluster_dir: str):
+    """A ``TelemetryCollector`` on ``router`` (0.25 s scrapes, cluster
+    bundles into ``cluster_dir``), attached, whose every member scrape
+    (the RPC and the ingest) and every bundle write is timed into
+    ``timers["scrape"][member]`` and ``timers["bundle"]``."""
+    from ray_tpu_torch.serve.fleet.telemetry import TelemetryCollector
+    col = TelemetryCollector(router, interval_s=0.25,
+                             cluster_dir=cluster_dir).attach()
+    timers = {"scrape": collections.defaultdict(list), "bundle": []}
+    scrape, dump = col._scrape_remote, col.dump_cluster_bundle
+
+    def timed_scrape(st, fetch):
+        t0 = time.perf_counter()
+        out = scrape(st, fetch)
+        timers["scrape"][st.name].append(time.perf_counter() - t0)
+        return out
+
+    def timed_dump(reason, trigger=None):
+        t0 = time.perf_counter()
+        out = dump(reason, trigger=trigger)
+        timers["bundle"].append((reason, time.perf_counter() - t0))
+        return out
+
+    col._scrape_remote = timed_scrape
+    col.dump_cluster_bundle = timed_dump
+    col.timers = timers
+    return col
+
+
+def _await_bundle(col, prefix: str, timeout_s: float = 30.0):
+    """The first cluster bundle of ``col`` whose reason starts with
+    ``prefix``, waited for up to ``timeout_s``; None if none came."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        got = [b for b in list(col.bundles)
+               if str(b["reason"]).startswith(prefix)]
+        if got or time.monotonic() > deadline:
+            return got[0] if got else None
+        time.sleep(0.05)
+
+
+def _collector_report(col, names, victim: str, survivor: str,
+                      resub_traces, t_run: float) -> dict:
+    """Phase 4j's checks of the telemetry collector (stopped, after one
+    last scrape): every member of ``names`` scraped, no event ingested
+    twice, the victim's confirmed death and the standby's promotion each
+    explained by a cluster bundle that reads back, and a resubmitted
+    request of ``resub_traces`` one timeline over the router, the victim
+    and the survivor. Returns the checks and, per member, the scrapes'
+    ms (p50, max), the clock offset and its RTT/2 bound, events per
+    second and the ``dropped`` count, and the bundles' write ms."""
+    from ray_tpu_torch.serve.fleet.telemetry import load_cluster_bundle
+    members = col.members()
+    merged = col.merged_events()
+    incarnation = [(e["member"], e["pid"], e["generation"], e["seq"])
+                   for e in merged]
+    # a directory's promotion changes its incarnation key (role and
+    # epoch), so its new cursor starts at 0 and the events it logged
+    # as a standby are ingested once more under the new key
+    process = collections.Counter((e["member"], e["pid"], e["seq"])
+                                  for e in merged)
+    dead = _await_bundle(col, f"agent-dead-{victim}", 0.0)
+    dead_cb = load_cluster_bundle(dead["path"]) if dead else {}
+    promote = _await_bundle(col, "promote-", 0.0)
+    promote_cb = load_cluster_bundle(promote["path"]) if promote else {}
+    phases = col.request_phases()
+    timelines = {}
+    for tid in resub_traces:
+        spans = phases.get(tid, {}).get("spans", [])
+        timelines[tid] = [sp["replica_id"] for sp in spans]
+    ordered = [tid for tid, order in timelines.items()
+               if order[:3] == ["router", victim, survivor]]
+    checks = {
+        "the collector scraped every member: " + ", ".join(names):
+            all(members.get(n, {}).get("scrapes", 0) >= 1 for n in names),
+        "no event ingested twice in one incarnation":
+            len(incarnation) == len(set(incarnation)),
+        f"the SIGKILL of {victim} wrote a cluster bundle naming its "
+        "confirmed death, and it reads back": bool(dead_cb)
+            and dead_cb["reason"] == f"agent-dead-{victim}"
+            and (dead_cb["trigger"] or {}).get("kind") == "confirmed_death"
+            and (dead_cb["trigger"] or {}).get("replica_id") == victim,
+        "the standby's scraped promote event wrote a cluster bundle, and "
+        "it reads back": bool(promote_cb)
+            and (promote_cb["trigger"] or {}).get("kind") == "promote",
+        "a resubmitted request reads as one timeline: router, victim, "
+        "survivor, in order": bool(ordered),
+    }
+    per = {}
+    for name, m in sorted(members.items()):
+        ms = sorted(1e3 * x for x in col.timers["scrape"].get(name, []))
+        per[name] = {
+            "scrapes": m["scrapes"],
+            "scrape_ms_p50": ms[len(ms) // 2] if ms else None,
+            "scrape_ms_max": ms[-1] if ms else None,
+            "offset_s": m["offset_s"], "uncertainty_s": m["uncertainty_s"],
+            "events_per_s": sum(1 for e in merged if e["member"] == name)
+            / t_run,
+            "dropped": m["dropped"], "incarnations": m["incarnations"]}
+    return {"checks": checks, "members": per,
+            "reingested_after_promotion": sum(
+                n - 1 for n in process.values() if n > 1),
+            "bundle_ms": [(r, 1e3 * t) for r, t in col.timers["bundle"]],
+            "timeline": {tid: timelines[tid] for tid in ordered[:1]},
+            "dead_bundle": dead and dead["path"],
+            "promote_bundle": promote and promote["path"]}
+
+
 def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
                      device: str = "cuda", agent_model: str = "tinyllama",
                      sizes=None) -> dict:
@@ -4688,7 +4872,7 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
     ``FleetRouter`` here; (c) an agent process that a
     ``FleetCapacityProvider`` starts; (d) the primary directory's
     SIGKILL under a wave, the standby's promotion, the killed primary's
-    WAL read back.
+    WAL read back; (e) the telemetry collector's view of (b)-(d).
     ``pool_4g`` holds 4g (b)'s figures, printed beside (b)'s (None: 4g
     did not run). On the
     card TinyLlama-1.1B's widths at ``cfg``'s depth (default
@@ -4786,7 +4970,7 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
     mem0 = torch.cuda.mem_get_info()[0] if cuda else None
     tmp = tempfile.mkdtemp(prefix="chip_smoke_4j_")
     procs = _FleetProcs(tmp)
-    router = provider = None
+    router = provider = col = None
     prov_err = None
     try:
         t0 = time.monotonic()
@@ -4818,6 +5002,10 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
             seed=seed, call_timeout_s=30.0,
             transport_patience_s=12 * FLEET_LEASE_TTL_S,
             poll_interval_s=FLEET_POLL_S)
+        # the telemetry plane over (b)-(d): every member scraped, each
+        # fault a cluster bundle
+        col = _timed_collector(router, os.path.join(tmp, "cluster")).run()
+        t_col = time.monotonic()
         t0 = time.monotonic()
         run = _run_sessions(_RouterStreams(router), systems, turns, n_new)
         t_trace = time.monotonic() - t0
@@ -5043,6 +5231,20 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
                 f"members {members1}, acked {acked}, WAL {sorted(in_wal)} "
                 f"fence {wal_fence}")
         agents_d = {n: c.stats()["counters"] for n, c in clients.items()}
+        # (e) the telemetry collector's view of (b)-(d)
+        _await_bundle(col, "promote-", FLEET_HANG_S)
+        col.stop()
+        col.scrape_once()
+        tel = _collector_report(
+            col, ["router", "directory-0", "directory-1", *names, ticket],
+            victim, survivor, [f"4j-kill-{i}" for i in resub],
+            time.monotonic() - t_col)
+        if not all(tel["checks"].values()):
+            raise AssertionError(
+                f"phase 4j (e): {tel['checks']}; members "
+                f"{sorted(col.members())}, bundles "
+                f"{[b['reason'] for b in col.bundles]}, timelines of the "
+                f"resubmitted {tel['timeline']}")
         res_d = {"promoted_s": promoted_s, "renewed_s": renewed,
                  "wave_s": t_wave_d, "completed": len(done),
                  "failed_typed": len(typed),
@@ -5069,6 +5271,8 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
                   file=sys.stderr)
         raise
     finally:
+        if col is not None:
+            col.stop()
         if router is not None:
             router.shutdown()
         if provider is not None:
@@ -5105,6 +5309,9 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
         "weight_bytes": weight_bytes, "pool_4g": pool_4g}
     res["provider"] = res_c
     res["failover"] = res_d
+    res["telemetry"] = tel
+    res["directory_ready_s"] = {"standby": procs.ready_s["standby"],
+                                "primary": procs.ready_s["directory"]}
     res["s"] = time.monotonic() - t_phase
     p = res["processes"]
     mem = (f"; card memory: the agents took {p['mem_agents_gb']:.2f} GB "
@@ -5153,6 +5360,110 @@ def phase_fleet_path(tl, pa, seed: int, smi: str, pool_4g: dict, cfg=None,
           f"FailoverDirectoryClient {d['router_failover']}, "
           f"{d['stale_snapshots']} stale snapshots served; phase "
           f"{res['s']:.1f} s")
+    rd = res["directory_ready_s"]
+    print(f"phase 4j: the directory processes (no torch) printed READY "
+          f"{rd['standby']:.2f} s (standby) and {rd['primary']:.2f} s "
+          f"(primary) after their start")
+    for name, m in tel["members"].items():
+        p50, top = m["scrape_ms_p50"], m["scrape_ms_max"]
+        print(f"phase 4j (e): telemetry of {name}: {m['scrapes']} scrapes, "
+              + (f"{p50:.2f} ms p50 / {top:.2f} ms max, " if p50 is not None
+                 else "")
+              + f"clock offset {m['offset_s']} s +- {m['uncertainty_s']} s "
+              f"(RTT/2), {m['events_per_s']:.1f} events/s, dropped "
+              f"{m['dropped']}, {m['incarnations']} incarnations")
+    print(f"phase 4j (e): cluster bundles written in "
+          f"{', '.join(f'{r} {ms:.1f} ms' for r, ms in tel['bundle_ms'])}; "
+          f"the resubmitted request {tel['timeline']}; "
+          f"{tel['reingested_after_promotion']} events of the promoted "
+          f"standby ingested again under its new incarnation")
+    return res
+
+
+FLEET_CHAOS_LEASE_TTL_S = 2.0      # 4k: partition 5 s, promotion after 6 s
+FLEET_CHAOS_DURATION_S = 20.0      # 4k: the six faults land in 2-16 s
+
+
+def phase_fleet_chaos(seed: int, smi: str, device: str = "cuda",
+                      model: str = "tinyllama") -> dict:
+    """Phase 4k: the seeded fleet campaign
+    (``tools/torch_chaos_serve.run_fleet_chaos``) against two agent
+    processes of ``model`` (on the card TinyLlama-1.1B's widths at
+    ``EARLIER_POOL_LAYERS`` layers, bf16, each running K1) behind a
+    primary and a standby directory process: all six kinds of
+    ``serve/chaos.make_fleet_schedule`` fire and every gate of the tool
+    holds (it raises otherwise). Checks here that the agents took card
+    memory for their weights and that each live agent's engine ran
+    decode steps; prints each fault's seconds from injection to
+    recovery, the attainment and the request counts. ``device="cpu"``
+    with ``model="tiny"`` rehearses it."""
+    from tools.torch_chaos_serve import run_fleet_chaos
+    agents, layers = 2, EARLIER_POOL_LAYERS
+    lease_ttl_s, duration_s = FLEET_CHAOS_LEASE_TTL_S, FLEET_CHAOS_DURATION_S
+    t0 = time.monotonic()
+    flight = tempfile.mkdtemp(prefix="chip_smoke_4k_")
+    try:
+        art = run_fleet_chaos(
+            seed=seed, agents=agents, duration_s=duration_s, clients=3,
+            lease_ttl_s=lease_ttl_s, model=model, layers=layers,
+            device=device, poll_interval_s=FLEET_POLL_S, flight_dir=flight)
+    finally:
+        shutil.rmtree(flight, ignore_errors=True)
+    req, rec = art["requests"], art["recovery"]
+    steps = {rid: (a["engine"] or {}).get("decode_steps", 0)
+             for rid, a in art["fleet"]["agents"].items()}
+    mem = art["card_memory"]
+    checks = {
+        "every live agent's engine ran decode steps":
+            len(steps) == agents and all(n > 0 for n in steps.values()),
+        "no request lost or mismatched":
+            req["lost"] == 0 and req["mismatched"] == 0,
+    }
+    if mem is not None:
+        checks["the agents ran on the card: free memory fell by their "
+               "weights"] = (mem["free_before_agents"]
+                             - mem["free_after_boot"]
+                             >= agents * mem["weight_bytes"])
+    if not all(checks.values()):
+        raise AssertionError(f"phase 4k: {checks}; decode steps {steps}, "
+                             f"memory {mem}")
+    res = {"card": smi, "injected": art["injected"], "requests": req,
+           "attainment": art["attainment"], "recovery": rec,
+           "near_ties": art["near_ties"], "decode_steps": steps,
+           "card_memory": mem, "topology": art["topology"],
+           "schedule": art["schedule"], "wall_s": art["wall_s"],
+           "cluster_bundles": art["cluster_flight_recorder"]["reasons"],
+           "collector": art["cluster_flight_recorder"]["collector"],
+           "s": time.monotonic() - t0}
+    topo = art["topology"]
+    print(f"phase 4k: the seeded fleet campaign (seed {seed}, "
+          f"{duration_s:.0f} s schedule, lease {lease_ttl_s} s, promotion "
+          f"after {topo['promote_after_s']} s) on {smi}: {agents} agent "
+          f"processes of {model}"
+          + (f" ({layers} layers)" if model == "tinyllama" else "")
+          + f", injected {art['injected']}")
+    print(f"phase 4k: seconds from injection to recovery: SIGKILL -> "
+          f"confirmed dead {rec['kill_agent_confirmed_dead_s']}; partition "
+          f"-> self-fence {rec['partition_self_fence_s']}; directory "
+          f"restart -> READY {rec['directory_restart_ready_s']}; torn WAL "
+          f"-> READY {rec['torn_wal_restart_ready_s']}; primary kill -> "
+          f"promoted {rec['primary_kill_promoted_s']} (canary served "
+          f"{rec['post_failover_canary_s']}); churn -> READY "
+          f"{rec['churn_ready_s']}, retired in {rec['churn_retire_s']}; "
+          f"directories READY {rec['directory_ready_s']}; agents booted "
+          f"in {rec['agents_boot_s']}")
+    print(f"phase 4k: attainment {art['attainment']}; {req['completed']} "
+          f"completed ({req['resubmitted_ok']} through a resubmission), "
+          f"{req['failed_typed']} failed typed, {req['shed']} shed, "
+          f"{req['near_tie']} near-tie partings "
+          f"{[round(n['gap'], 4) for n in art['near_ties']]}, "
+          f"{req['mismatched']} mismatched, {req['lost']} lost; decode "
+          f"steps {steps}"
+          + (f"; the agents took "
+             f"{(mem['free_before_agents'] - mem['free_after_boot']) / 1e9:.2f}"
+             f" GB of card memory (weights {agents} x "
+             f"{mem['weight_bytes'] / 1e9:.2f} GB)" if mem else "")
+          + f"; campaign {art['wall_s']} s, phase {res['s']:.1f} s")
     return res
 
 
@@ -6706,7 +7017,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--out", default=None,
                     help="also write every result to this JSON file")
-    ap.add_argument("--only", choices=("4j",), default=None,
+    ap.add_argument("--only", choices=("4j", "4k"), default=None,
                     help="build the kernels, run this phase alone and "
                          "print no result lines")
     args = ap.parse_args(argv)
@@ -6771,12 +7082,16 @@ def main(argv=None) -> int:
     # The host-timed phases (4, 4b) run before any torch.profiler
     # session: after one, the process launches kernels at a higher host
     # cost for the rest of its life.
-    if args.only == "4j":
-        fleet = phase_fleet_path(tl, pa, args.seed, smi, None)
+    if args.only is not None:
+        if args.only == "4j":
+            out = {"fleet_path": phase_fleet_path(tl, pa, args.seed, smi,
+                                                  None)}
+        else:
+            out = {"fleet_chaos": phase_fleet_chaos(args.seed, smi)}
         if args.out:
             with open(args.out, "w") as f:
-                json.dump({"card": smi, "fleet_path": fleet,
-                           "total_s": time.monotonic() - t0}, f, indent=1)
+                json.dump(dict(out, card=smi,
+                               total_s=time.monotonic() - t0), f, indent=1)
         print(f"total {time.monotonic() - t0:.1f} s")
         return 0
     phase_engine_parity(tl, args.seed)
@@ -6819,6 +7134,9 @@ def main(argv=None) -> int:
     fleet = phase_fleet_path(tl, pa, args.seed, smi, obs_pool["pool"],
                              cfg=shallow)
     print(f"phase 4j done at {time.monotonic() - t0:.1f} s")
+    torch.cuda.empty_cache()
+    fleet_chaos = phase_fleet_chaos(args.seed, smi)
+    print(f"phase 4k done at {time.monotonic() - t0:.1f} s")
     torch.cuda.empty_cache()
     rollout = phase_rollout_batch_path(tl, pa, args.seed, smi)
     print(f"phase 4i done at {time.monotonic() - t0:.1f} s")
@@ -6900,6 +7218,7 @@ def main(argv=None) -> int:
                        "pool_control": pool_control,
                        "pool_control_path": control,
                        "fleet_path": fleet,
+                       "fleet_chaos": fleet_chaos,
                        "rollout_batch_path": rollout,
                        "rl_loop": rl,
                        "train_checkpoint": train_ckpt,

@@ -26,7 +26,17 @@ Slices landed so far, each on one card:
 Entry points run on CUDA unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU request they raise
 (``_device.resolve_device``).
+
+``resolve_device`` is a lazy attribute (PEP 562), so that importing a
+module of the package that needs no tensor (the fleet's directory, its
+WAL and its replication) does not import ``torch``.
 """
-from ray_tpu_torch._device import resolve_device
+import importlib
 
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        return importlib.import_module("ray_tpu_torch._device").resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1372,6 +1372,7 @@ class LLMEngine:
             obs.dump_flight_bundle(self.flight_dir, "engine-fault",
                                    engine=self)
         self._drain_fetches_locked()
+        now = time.monotonic()
         for sid in sorted(set(e.sids)):
             slot = self.slots[sid] if 0 <= sid < self.S else None
             if slot is None:
@@ -1380,14 +1381,17 @@ class LLMEngine:
                 self._teardown_slot_locked(sid, e.original,
                                            "fault_failed")
             else:
-                self._requeue_after_fault_locked(sid, e)
+                self._requeue_after_fault_locked(sid, e, now)
 
-    def _requeue_after_fault_locked(self, sid: int,
-                                    e: EngineFault) -> None:
+    def _requeue_after_fault_locked(self, sid: int, e: EngineFault,
+                                    now: float) -> None:
         """Requeue an innocent participant of a faulted dispatch at the
         TAIL (a faulting batch must not starve fresh arrivals), behind
-        an exponential backoff; past ``max_retries`` attempts it fails
-        too, so a poisoned batch never retries forever."""
+        an exponential backoff from ``now``, the fault's one clock
+        reading (participants with equal attempts become admissible in
+        the same round, whatever the loop's timing); past
+        ``max_retries`` attempts it fails too, so a poisoned batch never
+        retries forever."""
         slot = self.slots[sid]
         req = slot.req
         req.attempts += 1
@@ -1400,7 +1404,7 @@ class LLMEngine:
         self.slots[sid] = None
         slot.preempted = True     # in-flight rows are recomputed
         self._free_slot_pages_locked(slot, retire=False)
-        req.t_earliest = (time.monotonic() + self.retry_backoff_s
+        req.t_earliest = (now + self.retry_backoff_s
                           * (2 ** (req.attempts - 1)))
         self._wait.append(req)
         self.stats["retries"] += 1

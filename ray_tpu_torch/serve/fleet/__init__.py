@@ -19,9 +19,9 @@ the engine pool split into processes behind a pluggable transport.
   failover client routers and agents hold.
 - ``provider``: the autoscaler's capacity as agent processes (or
   loopback agents in this process).
-
-The reference's telemetry waits for the fleet's third slice (ROADMAP.md,
-queue 1, item 9).
+- ``telemetry``: the collector that scrapes every member, aligns their
+  clocks, stitches requests across processes and writes cluster
+  bundles.
 
 Attribute access is lazy (PEP 562): the engine pool imports
 ``fleet.routing``, and ``fleet.agent`` imports the watchdog, which
@@ -44,6 +44,9 @@ _EXPORTS = {
     "FailoverDirectoryClient": "replication",
     "FleetCapacityProvider": "provider",
     "LoopbackAgentProvider": "provider",
+    "TelemetryCollector": "telemetry", "ClockOffsetEstimator": "telemetry",
+    "merge_prometheus_texts": "telemetry",
+    "load_cluster_bundle": "telemetry",
 }
 
 __all__ = sorted(_EXPORTS)

@@ -742,9 +742,28 @@ class ReplicaAgent:
 
     def rpc_telemetry(self, cursor: int = 0,
                       limit: int = 256) -> Dict[str, Any]:
-        raise NotImplementedError(
-            "the agent's telemetry waits for the fleet's third slice "
-            "(ROADMAP.md, queue 1, item 9)")
+        """The scrape seam of the telemetry plane (fleet/telemetry.py):
+        this process's Prometheus exposition, a cursored window of its
+        event log and a clock sample for the collector's offset
+        estimate. Served while FENCED too: an operator needs a sick
+        member's telemetry most of all."""
+        from ray_tpu_torch.util import metrics
+        window, next_cursor, dropped = obs.event_window(
+            self.events.snapshot(), self.events.total, cursor, limit)
+        return {
+            "role": "agent",
+            "replica_id": self.replica_id,
+            "generation": self.generation,
+            "fence": self.fence,
+            "state": self.state,
+            "pid": os.getpid(),
+            "clock": {"mono": time.monotonic(), "wall": time.time()},
+            "metrics_text": metrics.prometheus_text(),
+            "events": obs.as_dicts(window),
+            "cursor": next_cursor,
+            "events_total": self.events.total,
+            "dropped": dropped,
+        }
 
     def rpc_shutdown(self) -> Dict[str, Any]:
         threading.Thread(target=self.shutdown, daemon=True).start()
@@ -850,6 +869,9 @@ class AgentClient:
 
     def inject_partition(self, duration_s: float) -> Dict[str, Any]:
         return self._call("inject_partition", {"duration_s": duration_s})
+
+    def telemetry(self, cursor: int = 0, limit: int = 256) -> Dict[str, Any]:
+        return self._call("telemetry", {"cursor": cursor, "limit": limit})
 
     def shutdown(self) -> Dict[str, Any]:
         return self._call("shutdown", {})

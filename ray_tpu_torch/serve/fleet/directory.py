@@ -40,9 +40,8 @@ contract:
   FENCE_EPOCH_STRIDE``): no token the new primary issues can fall below
   one the dying primary issued unreplicated.
 
-The reference's telemetry scrape waits for the third fleet slice
-(ROADMAP.md, queue 1, item 9) and raises ``NotImplementedError`` naming
-it. Run as a process:
+``rpc_telemetry`` is the directory's side of the telemetry plane
+(fleet/telemetry.py). Run as a process:
 
     python -m ray_tpu_torch.serve.fleet.directory [--port N]
         [--lease-ttl-s S] [--data-dir D] [--snapshot-every K]
@@ -54,6 +53,7 @@ prints ``READY <port>`` once listening.
 from __future__ import annotations
 
 import collections
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -70,9 +70,6 @@ FENCE_EPOCH_STRIDE = 1024
 
 PRIMARY = "primary"
 STANDBY = "standby"
-
-_SLICE_3 = ("waits for the fleet's third slice (telemetry; ROADMAP.md, "
-            "queue 1, item 9)")
 
 
 class _Member:
@@ -486,7 +483,45 @@ class FleetDirectory:
 
     def rpc_telemetry(self, cursor: int = 0,
                       limit: int = 256) -> Dict[str, Any]:
-        raise NotImplementedError(f"the directory's telemetry {_SLICE_3}")
+        """The scrape seam of the telemetry plane, control-plane side.
+        Served by primaries and standbys alike (an operator needs the
+        standby's view during a failover most of all). The directory's
+        dict events go out in the common shape (seq/t/type/rid/data),
+        so the collector merges them with the agents' and the router's
+        event logs untranslated."""
+        from ray_tpu_torch.util import metrics
+        cursor = max(0, int(cursor))
+        limit = max(1, int(limit))
+        with self._lock:
+            evs = list(self.events)
+            total = self._event_seq
+            role = self.role
+            epoch = self.epoch
+            fence = self._fence_counter
+        oldest = evs[0]["seq"] if evs else total
+        dropped = max(0, oldest - cursor)
+        window = [e for e in evs if e["seq"] >= cursor][:limit]
+        next_cursor = (window[-1]["seq"] + 1) if window \
+            else max(cursor, total)
+        events = [{"seq": e["seq"], "t": e["t"], "type": e["kind"],
+                   "rid": e.get("replica_id"), "sid": None,
+                   "data": {k: v for k, v in e.items()
+                            if k not in ("seq", "t", "kind", "replica_id")}}
+                  for e in window]
+        return {
+            "role": "directory",
+            "replica_id": f"directory-{role}",
+            "generation": epoch,
+            "fence": fence,
+            "state": role,
+            "pid": os.getpid(),
+            "clock": {"mono": time.monotonic(), "wall": time.time()},
+            "metrics_text": metrics.prometheus_text(),
+            "events": events,
+            "cursor": next_cursor,
+            "events_total": total,
+            "dropped": dropped,
+        }
 
     # ------------------------------------------------- replication
 
@@ -626,6 +661,9 @@ class DirectoryClient:
 
     def role(self) -> Dict[str, Any]:
         return self._call("role", {})
+
+    def telemetry(self, cursor: int = 0, limit: int = 256) -> Dict[str, Any]:
+        return self._call("telemetry", {"cursor": cursor, "limit": limit})
 
     def promote(self, reason: str = "",
                 min_fence: int = 0) -> Dict[str, Any]:

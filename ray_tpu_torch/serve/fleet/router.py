@@ -18,7 +18,9 @@ with per-call timeouts and exponential-backoff retries.
   re-reads, and a duplicated submit is deduplicated agent-side by the
   router-minted request key.
 - Every **confirmed death** is an event and, with ``flight_dir``, a
-  flight bundle (router events and the directory's verdict).
+  flight bundle (router events and the directory's verdict); with a
+  ``telemetry_collector`` attached (fleet/telemetry.py) also a cluster
+  bundle of every reachable member.
 - **A lapsed lease in a snapshot is adjudicated at once**
   (``confirm_dead``), so a member that died with no request of this
   router on it is tombstoned too; the reference only skips it.
@@ -275,6 +277,9 @@ class FleetRouter:
         self._scale_seq = 0
         self.capacity_hint_fn: Optional[Callable[[], float]] = None
         self.events = obs.EventLog(2048, name="router")
+        # set by TelemetryCollector.attach(): a confirmed death then
+        # writes a cluster bundle too, not only this process's view
+        self.telemetry_collector = None
         self.counters = {"routed": 0, "requeues": 0,
                          "deaths_confirmed": 0, "suspects": 0,
                          "confirm_inconclusive": 0,
@@ -628,6 +633,17 @@ class FleetRouter:
                            "verdict": verdict, "cause": repr(cause)})
             except Exception:   # noqa: BLE001
                 pass
+        if self.telemetry_collector is not None:
+            try:
+                self.telemetry_collector.on_fault(
+                    f"agent-dead-{member.replica_id}",
+                    trigger={"kind": "confirmed_death",
+                             "replica_id": member.replica_id,
+                             "generation": member.generation,
+                             "fence": member.fence,
+                             "cause": type(cause).__name__})
+            except Exception:   # noqa: BLE001 - a recorder never breaks
+                pass            # the death path
 
     def _note_request_death(self, member: _Member, cause: BaseException,
                             trace_id: Optional[str] = None,

@@ -28,6 +28,10 @@ checksum verifies) plus the surviving WAL suffix. Leases do not
 survive: they are stamped on the directory's monotonic clock, which
 dies with the process, so the directory re-arms every recovered member
 with a fresh full TTL.
+
+``_fsync_dir`` is this module's own copy of ``air/checkpoint.py``'s,
+so that the directory process, which loads this module, does not
+import ``torch``.
 """
 from __future__ import annotations
 
@@ -37,7 +41,17 @@ import os
 import threading
 from typing import Any, Dict, List, Optional, Tuple
 
-from ray_tpu_torch.air.checkpoint import _fsync_dir
+
+def _fsync_dir(path: str) -> None:
+    try:
+        fd = os.open(path, os.O_RDONLY)
+    except OSError:
+        return
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
 
 WAL_NAME = "wal.log"
 SNAPSHOT_NAME = "snapshot.json"

@@ -43,7 +43,9 @@ N lease-renewing ``ReplicaAgent``s of one engine each, and a
 that ``python -m ray_tpu_torch.serve.fleet.agent`` runs across
 processes. A dict payload with ``"echo_replica": true`` names the
 replica incarnation that served it (``replica_id:generation`` in a
-fleet, ``idx:generation`` in a pool, ``0:0`` for one engine). With
+fleet, ``idx:generation`` in a pool, ``0:0`` for one engine), and
+``"echo_generation": true`` the weights that served it
+(``generation:weights_id``). With
 ``autoscale=True`` a fleet grows and shrinks between ``fleet`` and
 ``autoscale_max_replicas`` agents: a ``PoolAutoscaler`` over the router
 provisions loopback agents through a ``LoopbackAgentProvider``
@@ -532,24 +534,56 @@ class LlamaDeployment:
     def __call__(self, prompt_ids):
         """One request: token ids (or, through the engine, a dict
         payload) in, prompt + generated ids out; with ``"echo_replica":
-        true`` in the payload, ``{"ids": [...], "replica": tag}``."""
+        true`` or ``"echo_generation": true`` in the payload, ``{"ids":
+        [...], "replica": tag, "generation": tag}`` (the keys asked
+        for)."""
         if not self.use_engine:
             out = generate(self.model, [list(prompt_ids)],
                            self.max_new_tokens, self.temperature)
             return out[0].tolist()
         ids, h = self._submit(prompt_ids)
         out = ids + h.result()
-        if _echo_replica(prompt_ids):
-            return {"ids": out, "replica": _replica_tag(h)}
+        echo = self._echo(prompt_ids, h)
+        if echo:
+            return {"ids": out, **echo}
         return out
+
+    def _echo(self, payload, h) -> Dict[str, str]:
+        """What a dict payload asked to have echoed about the handle
+        ``h``: ``replica`` (``"echo_replica": true``) and ``generation``
+        (``"echo_generation": true``)."""
+        if not isinstance(payload, dict):
+            return {}
+        out = {}
+        if payload.get("echo_replica"):
+            out["replica"] = _replica_tag(h)
+        if payload.get("echo_generation"):
+            out["generation"] = self._weights_tag(h)
+        return out
+
+    def _weights_tag(self, h) -> str:
+        """``generation:weights_id`` of whatever served ``h``: the
+        handle's own tag (an engine's or a pool's), else the
+        deployment's engine's, else the never-swapped ``0:g0`` (a
+        fleet's handles carry none, as the reference's)."""
+        tag = getattr(h, "weights_tag", None)
+        if tag:
+            return tag
+        eng = self.engine()
+        gen = getattr(eng, "weight_generation", None)
+        if gen is not None:
+            return f"{gen}:{getattr(eng, 'weights_id', None)}"
+        return "0:g0"
 
     def stream(self, prompt_ids):
         """Streaming request (token ids or, through the engine, a dict
         payload): yields each generated token id as it is emitted.
         Closing the generator early cancels the request, so its slot
-        and pages free at once. With ``"echo_replica": true`` in the
-        payload the first yield is ``{"replica": tag}``. Without the engine, tokens arrive in
-        bursts of ``stream_chunk``, one device read each."""
+        and pages free at once. With ``"echo_replica": true`` or
+        ``"echo_generation": true`` in the payload the first yield is
+        ``{"replica": tag, "generation": tag}`` (the keys asked for).
+        Without the engine, tokens arrive in bursts of ``stream_chunk``,
+        one device read each."""
         if not self.use_engine:
             for tok in generate_stream(self.model, [list(prompt_ids)],
                                        self.max_new_tokens,
@@ -558,8 +592,9 @@ class LlamaDeployment:
                 yield int(tok[0])
             return
         _ids, h = self._submit(prompt_ids)
-        if _echo_replica(prompt_ids):
-            yield {"replica": _replica_tag(h)}
+        echo = self._echo(prompt_ids, h)
+        if echo:
+            yield echo
         try:
             yield from h.stream()
         except GeneratorExit:
@@ -592,10 +627,6 @@ class LlamaDeployment:
             for row, i in zip(out[:, plen:].tolist(), idxs):
                 results[i] = row
         return results
-
-
-def _echo_replica(payload) -> bool:
-    return isinstance(payload, dict) and bool(payload.get("echo_replica"))
 
 
 def _replica_tag(handle) -> str:

@@ -15,9 +15,10 @@ JAX package's, on the CPU.
 - ``LlamaDeployment(fleet=2)`` at ``llama_tiny`` fp32 gives the single
   engine's greedy tokens, and the JAX package's for the same weights.
 - Everything on the wire is JSON of Python scalars.
-- The fleet's processes are tests/test_torch_fleet_procs.py's.
-The reference's campaign cases (tests/test_fleet.py:616, :637) belong
-to the fleet's third slice.
+- The fleet's processes are tests/test_torch_fleet_procs.py's; the
+  telemetry plane is tests/test_torch_fleet_telemetry.py's and the
+  reference's campaign cases (tests/test_fleet.py:616, :637) are
+  tests/test_torch_fleet_chaos.py's.
 """
 import json
 import threading
@@ -215,18 +216,21 @@ def test_directory_prefix_holders_ranked_and_lease_filtered():
 
 
 def test_directory_later_slices_raise_not_implemented():
-    """What still waits for the fleet's third slice: the telemetry
-    scrape of the directory and of the agent. The second slice's
-    surface (``data_dir``, the standby role, ``replicator``, the
+    """What still waits: the fleet's fourth slice, the in-process pool
+    campaign of ``serve/chaos.py``. The third slice's telemetry scrape of
+    the directory and of the agent answers now (held against the
+    reference in tests/test_torch_fleet_telemetry.py), and the second
+    slice's surface (``data_dir``, the standby role, ``replicator``, the
     ``repl_*`` and ``promote`` RPCs) builds and answers: see
     tests/test_torch_fleet_durability.py."""
+    from ray_tpu_torch.serve import chaos
     d = FleetDirectory()
-    with pytest.raises(NotImplementedError, match="third slice"):
-        d.handle("telemetry", {})
+    assert d.handle("telemetry", {})["role"] == "directory"
     a = ReplicaAgent("r0", lambda g: ScriptedEngine(token_delay_s=0),
                      DirectoryClient(LoopbackTransport(d.handle)))
-    with pytest.raises(NotImplementedError, match="third slice"):
-        a.handle("telemetry", {})
+    assert a.handle("telemetry", {})["replica_id"] == "r0"
+    with pytest.raises(NotImplementedError, match="fourth slice"):
+        chaos.ChaosInjector(None, [])
     with pytest.raises(UnknownMember):
         d.handle("no_such_method", {})
     for method, args in (("promote", {}),
@@ -407,7 +411,8 @@ def test_agent_reregisters_after_directory_restart_same_generation():
 def test_agent_dedups_a_duplicate_submit_and_drains():
     """The router-minted key: a second delivery of one submit returns
     the same request; ``rpc_drain`` of an idle agent deregisters it,
-    clean, and its generation is retired."""
+    clean, and its generation is retired; a drained agent still answers
+    the telemetry scrape."""
     d, dc = _loopback_directory(_PKGS["torch"])
     a = ReplicaAgent("r0", lambda g: ScriptedEngine(token_delay_s=0), dc,
                      renew_period_s=3600.0).start()
@@ -420,8 +425,8 @@ def test_agent_dedups_a_duplicate_submit_and_drains():
         assert d.rpc_stats()["tombstones"] == {"r0": 0}
         with pytest.raises(EngineDraining):
             a.rpc_submit(key="k2", prompt_ids=[1], max_new_tokens=1)
-        with pytest.raises(NotImplementedError, match="third slice"):
-            a.handle("telemetry", {})
+        tel = a.handle("telemetry", {})
+        assert "drained" in [e["type"] for e in tel["events"]]
     finally:
         a.shutdown()
 
@@ -885,3 +890,40 @@ def test_llm_deployment_fleet_knob(jax_tiny):
         for a in jd._fleet_agents.values():
             a.shutdown()
     assert all(a._stop.is_set() for a in d._fleet_agents.values())
+
+
+def test_llm_deployment_echo_generation(jax_tiny):
+    """``"echo_generation": true`` names the weights that served a
+    request (``generation:weights_id``) on one engine, a pool and a
+    fleet, in the JAX deployment's form, beside ``echo_replica`` and in
+    the stream's first yield."""
+    jmodel, params, sd = jax_tiny
+    cfg = tl.llama_tiny(dtype=torch.float32)
+    jcfg = jl.llama_tiny(dtype=jnp.float32)
+    kw = dict(max_new_tokens=4, max_slots=2, page_size=8)
+    prompt = [3, 1, 4, 1]
+    for knob in (dict(), dict(num_engine_replicas=2), dict(fleet=2)):
+        d = tllm.LlamaDeployment(cfg, sd, device="cpu", **knob, **kw)
+        jd = jllm.LlamaDeployment(jcfg, params, **knob, **kw)
+        try:
+            got = d({"prompt_ids": prompt, "echo_generation": True})
+            want = jd({"prompt_ids": prompt, "echo_generation": True})
+            assert got == want, knob
+            assert set(got) == {"ids", "generation"}
+            both = d({"prompt_ids": prompt, "echo_generation": True,
+                      "echo_replica": True})
+            assert both["generation"] == got["generation"]
+            assert both["ids"] == got["ids"] and "replica" in both
+            first = next(iter(d.stream({"prompt_ids": prompt,
+                                        "echo_generation": True})))
+            jfirst = next(iter(jd.stream({"prompt_ids": prompt,
+                                          "echo_generation": True})))
+            assert first == jfirst == {"generation": got["generation"]}
+            assert d(prompt) == got["ids"]
+        finally:
+            d.shutdown()
+            eng = jd._engine
+            if eng is not None:
+                eng.shutdown()
+            for a in getattr(jd, "_fleet_agents", {}).values():
+                a.shutdown()

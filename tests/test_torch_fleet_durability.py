@@ -4,11 +4,12 @@ the directory's durable and standby half, the router's autoscaler
 surface, ``LlamaDeployment(fleet=, autoscale=True)``) against the JAX
 package's, on the CPU.
 
-- The cases of tests/test_fleet_durability.py but its artifact gate
-  (the third fleet slice's campaign). The deterministic ones run one
-  script on fake clocks through both packages and compare the records:
-  the answers, the counters and the directory's events without their
-  times. The threaded ones run on both packages and compare what the
+- The cases of tests/test_fleet_durability.py but its gate of the
+  reference's committed artifacts (the port's campaign artifact is held
+  to that gate in tests/test_torch_fleet_chaos.py). The deterministic
+  ones run one script on fake clocks through both packages and compare
+  the records: the answers, the counters and the directory's events
+  without their times. The threaded ones run on both packages and compare what the
   threads cannot reorder.
 - A data directory written by one package's directory and recovered by
   the other's, both ways; each package's torn tail truncated by the
@@ -954,7 +955,8 @@ def test_jax_primary_replicates_to_a_port_standby_that_promotes():
 # audit (tests/test_fleet_durability.py) reads every test file for its
 # own list, which budgets a test naming one of them at 5 s or less
 _HEAVY = ("_FleetProcs", "FleetCapacityProvider", "subprocess",
-          "phase_fleet_path", "Popen")
+          "phase_fleet_path", "Popen", "run_fleet_chaos",
+          "phase_fleet_chaos")
 _REF_HEAVY = ("run_fleet_chaos", "FleetCapacityProvider",
               "_spawn_fleet_proc", "subprocess.Popen", "run_fleet_autoscale")
 _BUDGET_S = 300.0

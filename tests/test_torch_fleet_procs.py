@@ -10,7 +10,8 @@ ray_tpu_torch.serve.fleet.directory`` and ``...agent``), on the CPU:
 - ``FleetCapacityProvider`` starting a ``--model fake`` agent: ready,
   adopted by a router, serving, scaled down and reaped;
 - chip_smoke's phase 4j rehearsed with ``llama_tiny`` fp32 agent
-  processes, its own checks, its children reaped.
+  processes, its own checks (the telemetry collector's among them), its
+  children reaped.
 
 Each test runs under its own time budget (``_budget(duration_s=...)``),
 which tests/test_torch_fleet_durability.py's marker audit requires of a
@@ -237,8 +238,11 @@ def test_chip_smoke_fleet_phase_rehearses_on_the_cpu():
     ``llama_tiny`` fp32 agent processes: its own checks hold (both
     members served, the agents' warm-up tokens equal this process's
     engine's, no request lost or served twice, the kill mid-wave
-    resubmitted and failed as it must, the death confirmed), and every
-    child is reaped."""
+    resubmitted and failed as it must, the death confirmed; the
+    collector scraped every member, ingested no event twice, wrote the
+    death's and the promotion's cluster bundles, and read a resubmitted
+    request as one timeline over three processes), and every child is
+    reaped."""
     smoke = _smoke()
     from ray_tpu_torch.ops import paged_attention as pa
     pool = {"tok_s": 0.0, "ttft_p50_s": 0.0, "one_engine_tok_s": 0.0,
@@ -259,3 +263,14 @@ def test_chip_smoke_fleet_phase_rehearses_on_the_cpu():
     assert c["ready_s"] > 0 and c["routes"].get("auto-1", 0) >= 1
     assert d["promoted_s"] > 0 and d["fence_after"] >= d["fence_before"] + 1024
     assert d["completed"] + d["failed_typed"] == 8
+    tel = res["telemetry"]
+    assert tel["checks"] and all(tel["checks"].values()), tel["checks"]
+    assert set(tel["members"]) >= {"router", "directory-0", "directory-1",
+                                   "a0", "a1", "auto-1"}
+    assert all(m["dropped"] == 0 for m in tel["members"].values())
+    [order] = tel["timeline"].values()
+    assert order[:3] == ["router", p["victim"],
+                         "a0" if p["victim"] == "a1" else "a1"]
+    assert {f"agent-dead-{p['victim']}", "promote-directory-1"} <= {
+        r for r, _ in tel["bundle_ms"]}
+    assert 0 < res["directory_ready_s"]["primary"] < smoke.FLEET_READY_S

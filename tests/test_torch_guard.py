@@ -75,6 +75,7 @@ names = ["ray_tpu_torch"] + [
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+importlib.import_module("tools.torch_chaos_serve")
 leaked = sorted(m for m in sys.modules
                 if m == "ray_tpu" or m.startswith("ray_tpu."))
 print(json.dumps({{"modules": names, "leaked": leaked}}))
@@ -105,6 +106,11 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.serve.fleet.directory",
                  "ray_tpu_torch.serve.fleet.agent",
                  "ray_tpu_torch.serve.fleet.router",
+                 "ray_tpu_torch.serve.fleet.wal",
+                 "ray_tpu_torch.serve.fleet.replication",
+                 "ray_tpu_torch.serve.fleet.provider",
+                 "ray_tpu_torch.serve.fleet.telemetry",
+                 "ray_tpu_torch.serve.chaos",
                  "ray_tpu_torch.util.metrics",
                  "ray_tpu_torch.serve.watchdog",
                  "ray_tpu_torch.serve.pool_autoscaler",
@@ -114,6 +120,48 @@ print(json.dumps({{"modules": names, "leaked": leaked}}))
                  "ray_tpu_torch.serve.weight_rollout",
                  "ray_tpu_torch.serve.batch_tier"):
         assert name in res["modules"]
+
+
+def test_directory_process_imports_no_torch(tmp_path):
+    """What ``python -m ray_tpu_torch.serve.fleet.directory`` loads, as a
+    primary replicating to a standby and as a standby watching a primary
+    (each ``main`` run to ``READY`` on a thread), imports no ``torch``:
+    a directory process starts without it."""
+    prog = f"""
+import io, json, sys, threading, time
+for name in ("torch", "jax", "jaxlib", "flax", "orbax"):
+    sys.modules[name] = None          # any import of them now fails
+sys.path.insert(0, {str(ROOT)!r})
+from ray_tpu_torch.serve.fleet import directory
+
+class _Lines(io.StringIO):
+    def ready(self):
+        return self.getvalue().count("READY ")
+
+out, real = _Lines(), sys.stdout
+sys.stdout = out
+for argv in (["--data-dir", {str(tmp_path / "p")!r}, "--snapshot-every",
+              "2", "--standby", "127.0.0.1:9"],
+             ["--role", "standby", "--peer", "127.0.0.1:9",
+              "--data-dir", {str(tmp_path / "s")!r}]):
+    threading.Thread(target=directory.main, args=(argv,),
+                     daemon=True).start()
+while out.ready() < 2:
+    time.sleep(0.01)
+loaded = sorted(m for m in sys.modules if m.startswith("ray_tpu_torch"))
+real.write(json.dumps({{"loaded": loaded,
+                        "torch": sys.modules.get("torch") is not None}}))
+real.flush()
+"""
+    res = subprocess.run([sys.executable, "-c", prog], cwd=str(ROOT),
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["torch"] is False
+    assert {"ray_tpu_torch.serve.fleet.directory",
+            "ray_tpu_torch.serve.fleet.wal",
+            "ray_tpu_torch.serve.fleet.replication",
+            "ray_tpu_torch.serve.fleet.transport"} <= set(got["loaded"])
 
 
 def test_entry_points_raise_without_cuda_unless_cpu():

@@ -17,6 +17,7 @@ races a scheduler thread, only the properties the race cannot change
 are compared.
 """
 import importlib.util
+import itertools
 import pathlib
 import threading
 import time
@@ -482,6 +483,30 @@ def test_decode_dispatch_fault_contained(tiny, overlap):
     assert rec["lifecycle"]["retry_exhausted"] == 0
     assert rec["stats"] == {"fault_failed": 1, "failed_all": 0}
     assert rec["attempts"] == 1
+
+
+def test_fault_requeues_share_one_backoff_clock(tiny, monkeypatch):
+    """The innocent co-riders of one contained fault back off from one
+    clock reading: on a clock that moves at every reading they still
+    hold one ``t_earliest``, so no loop, however fast, admits one of them
+    a round before the others; each still matches greedy decode."""
+    ticks = itertools.count()
+    monkeypatch.setattr(teng, "time", types.SimpleNamespace(
+        monotonic=lambda: 1000.0 + 1e-4 * next(ticks), sleep=time.sleep))
+    inj = tfaults.FaultInjector()
+    inj.inject("dispatch_decode", sid=1, round=2)
+    eng = tiny.torch.engine(max_slots=4, page_size=8, n_pages=64, chunk=2,
+                            fault_injector=inj, retry_backoff_s=0.005)
+    prompts = ([3, 1, 4, 1, 5], [2, 7, 1, 8], [6, 2, 8], [9, 9, 1, 2])
+    hs = [eng.submit(p, max_new_tokens=8) for p in prompts]
+    _drive(eng)
+    assert inj.log
+    assert _outcome(hs[1])[:2] == ("err", "RuntimeError")
+    innocent = [0, 2, 3]
+    assert [hs[i]._req.attempts for i in innocent] == [1, 1, 1]
+    assert len({hs[i]._req.t_earliest for i in innocent}) == 1
+    for i in innocent:
+        assert _outcome(hs[i]) == ("ok", tiny.want(prompts[i], 8))
 
 
 def _prefill_fault(side):

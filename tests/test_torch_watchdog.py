@@ -20,8 +20,9 @@ pool's suspect and wedged marks against the JAX package's, on the CPU.
 - chip_smoke phase 3's disaggregated and watchdog cases, rehearsed with
   the CPU standing in for the card.
 
-The reference file's chaos campaign (``tools/chaos_serve.py``) waits
-for the port's ``serve/chaos.py`` (ROADMAP.md, queue 1, item 9).
+The reference file's in-process chaos campaign
+(``tools/chaos_serve.py``'s ``run_chaos``) waits for the fleet's fourth
+slice (ROADMAP.md, queue 1, item 9).
 """
 import importlib.util
 import os
